@@ -138,10 +138,19 @@ def grid_from_arrays(arrays, npx, dtype=torch.float32, device="cuda"):
     return g
 
 
+#: state arrays state_from_arrays carries across (whichever are present)
+STATE_NAMES = ("delp", "pt", "u", "v", "w", "delz", "phis", "uc", "vc",
+               "ak", "bk")
+
+
 def state_from_arrays(arrays, dtype=torch.float32, device="cuda"):
-    """Tensors on `device` for the numpy state arrays of `arrays`
-    (delp, u, v, phis, uc, vc: whichever are present)."""
+    """The carry-across function: tensors on `device` for the numpy state
+    arrays of `arrays` (the shallow-water delp, u, v, phis, uc, vc and the
+    nonhydrostatic delp, pt, u, v, w, delz, phis with the ak, bk
+    coefficients: whichever are present), so both packages can run on
+    identical state."""
     dev = resolve_device(device)
     return {k: torch.as_tensor(np.array(arrays[k], order="C"), dtype=dtype,
                                device=dev)
-            for k in ("delp", "u", "v", "phis", "uc", "vc") if k in arrays}
+            for k in STATE_NAMES if k in arrays}
+

@@ -3,7 +3,8 @@
 Each source is compiled on first use, one nvcc process per source, all
 started together, into a shared library with a plain C interface under
 ``build/torch_kernels/`` at the root of the checkout, and loaded with ctypes.
-A library is rebuilt when its source or this file is newer than it. Nothing
+A library is rebuilt when any source under csrc/ (a kernel may include
+another's source or a shared header) or this file is newer than it. Nothing
 here runs at import time: the package imports on a host without nvcc.
 
 Flags: sm_90a (Hopper), -O3, --fmad=false. Without contraction the kernels
@@ -19,7 +20,8 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("tp2d_sweep", "a2b_ord4", "ke_section")
+SOURCES = ("tp2d_sweep", "a2b_ord4", "ke_section", "sim1", "c_sw",
+           "d_sw_fluxes", "d_sw_winds")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,8 +48,8 @@ def _stale(name):
     lib = _lib_path(name)
     if not lib.exists():
         return True
-    newest = max((CSRC / f"{name}.cu").stat().st_mtime,
-                 Path(__file__).stat().st_mtime)
+    newest = max([p.stat().st_mtime for p in CSRC.glob("*.cu*")]
+                 + [Path(__file__).stat().st_mtime])
     return lib.stat().st_mtime < newest
 
 

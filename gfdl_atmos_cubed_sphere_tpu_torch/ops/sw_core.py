@@ -1,13 +1,14 @@
 """Lin-Rood shallow-water solvers on Lagrangian surfaces (C-grid + D-grid),
-PyTorch port of the shallow-water subset.
+PyTorch port.
 
 Counterpart of gfdl_atmos_cubed_sphere_tpu/ops/sw_core.py (FV3
 model/sw_core.F90 c_sw:79, d_sw:494, d2a2c_vect:3006, divergence_corner:1740,
-xtp_u:2154, ytp_v:2524). Ported: the hydrostatic shallow-water forms of c_sw
-and d_sw (sw_mode=True, advection_only both ways), with their helpers. The
-nonhydrostatic and 3-D hydrostatic arguments (w, pt transport, damp_w,
-nord_mask, per-level profiles) raise NotImplementedError: they come with the
-nonhydrostatic slice.
+xtp_u:2154, ytp_v:2524). Ported: the shallow-water forms of c_sw and d_sw
+(sw_mode=True, advection_only both ways) and their 3-D nonhydrostatic forms
+(pt and w transport, w damping and its heat source, per-level damping
+profiles, nord_mask, the second damping combo, the Smagorinsky operand and
+the stage="fluxes"/"winds" split). The non-cube grids raise
+NotImplementedError.
 
 Index conventions (H = 3 halo; Fortran 1-based index p -> padded index p-1+H):
   cell arrays    [..., NC, NC],  NC = n+2H     (delp, pt, ua, va)
@@ -260,12 +261,10 @@ def divergence_corner(u, v, ua, va, g):
 
 def c_sw(delp, pt, w, u, v, g, dt2, hydrostatic=True, nord=0, sw_mode=False):
     """All inputs padded (halo-exchanged). Returns SimpleNamespace with
-    delpc, ptc (cell arrays, valid on rim [0..npx] cells), uc, vc (updated
-    on compute walls), ua, va, divg_d, and the dt2-scaled area fluxes ut, vt.
-    The shallow-water form only: hydrostatic=True, sw_mode=True."""
-    if not hydrostatic or w is not None or not sw_mode:
-        raise NotImplementedError(
-            "c_sw: only the hydrostatic shallow-water form is ported")
+    delpc, ptc, wc (cell arrays, valid on rim [0..npx] cells), uc, vc
+    (updated on compute walls), ua, va, divg_d, and the dt2-scaled area
+    fluxes ut, vt. sw_mode skips the pt transport; hydrostatic skips w.
+    The plain version of the c_sw kernel (ops/csw.py)."""
     _not_cube(g, "c_sw")
     npx = g.npx
     f = fi
@@ -277,14 +276,31 @@ def c_sw(delp, pt, w, u, v, g, dt2, hydrostatic=True, nord=0, sw_mode=False):
     vt_s = dt2 * vt * g.dx * torch.where(vt > 0.0, _rl(g.sin_sg4),
                                          _rr(g.sin_sg2))
 
-    # ---- transport delp ---------------------------------------------------
+    # ---- transport delp (pt, w) ------------------------------------------
     dx1 = fill_4corners_cell(delp, 1, npx)
     fx1 = ut_s * torch.where(ut_s > 0.0, _cl(dx1), _cr(dx1))
+    if not sw_mode:
+        px1 = fill_4corners_cell(pt, 1, npx)
+        fxp = fx1 * torch.where(ut_s > 0.0, _cl(px1), _cr(px1))
+    if not hydrostatic:
+        wx1 = fill_4corners_cell(w, 1, npx)
+        fxw = fx1 * torch.where(ut_s > 0.0, _cl(wx1), _cr(wx1))
     dy1 = fill_4corners_cell(delp, 2, npx)
     fy1 = vt_s * torch.where(vt_s > 0.0, _rl(dy1), _rr(dy1))
-    delpc = delp + (fx1[..., :, :-1] - fx1[..., :, 1:]
-                    + fy1[..., :-1, :] - fy1[..., 1:, :]) * g.rarea
-    ptc = pt
+    if not sw_mode:
+        py1 = fill_4corners_cell(pt, 2, npx)
+        fyp = fy1 * torch.where(vt_s > 0.0, _rl(py1), _rr(py1))
+    if not hydrostatic:
+        wy1 = fill_4corners_cell(w, 2, npx)
+        fyw = fy1 * torch.where(vt_s > 0.0, _rl(wy1), _rr(wy1))
+
+    def div(fx, fy):
+        return (fx[..., :, :-1] - fx[..., :, 1:]
+                + fy[..., :-1, :] - fy[..., 1:, :]) * g.rarea
+
+    delpc = delp + div(fx1, fy1)
+    ptc = pt if sw_mode else (pt * delp + div(fxp, fyp)) / delpc
+    wc = None if hydrostatic else (w * delp + div(fxw, fyw)) / delpc
 
     # ---- KE (sw_core.F90:297-372) ----------------------------------------
     kepos = uc[..., :, :-1].clone()
@@ -343,7 +359,7 @@ def c_sw(delp, pt, w, u, v, g, dt2, hydrostatic=True, nord=0, sw_mode=False):
     uc[..., cell_c, wall_c] += uc_inc[..., cell_c, wall_c]
     vc[..., wall_c, cell_c] += vc_inc[..., wall_c, cell_c]
 
-    return SimpleNamespace(delpc=delpc, ptc=ptc, wc=None, uc=uc, vc=vc,
+    return SimpleNamespace(delpc=delpc, ptc=ptc, wc=wc, uc=uc, vc=vc,
                            ua=ua, va=va, divg_d=divg_d, ut=ut_s, vt=vt_s)
 
 
@@ -559,15 +575,26 @@ def ytp_v(c, v, dy, rdy, jord, lim_fac=1.0):
 # ===========================================================================
 
 def _on(x):
-    """Is this damping coefficient active (scalar)."""
+    """Is this damping coefficient active (scalar or [K] profile)."""
     return x is not None and float(np.max(np.asarray(x))) > 1.0e-5
 
 
-def _scalar(name, x):
-    if x is not None and np.ndim(x) != 0:
-        raise NotImplementedError(
-            f"d_sw: per-level {name} profiles come with the 3-D slices")
-    return x
+def _pl(x, like):
+    """A damping parameter as d_sw uses it: a scalar stays a float; a [K]
+    numpy profile becomes a [K, 1, 1] tensor broadcasting over [.., K, P, P]
+    fields, in the dtype and on the device of `like`."""
+    a = np.asarray(x)
+    if a.ndim == 0:
+        return float(a)
+    return torch.as_tensor(a, dtype=like.dtype,
+                           device=like.device).reshape(-1, 1, 1)
+
+
+def _as(x, like):
+    """x as a tensor of like's dtype and device (a float becomes 0-d)."""
+    if torch.is_tensor(x):
+        return x
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
 
 
 def ke_section(u, v, uc, vc, ut, vt, cosa, rsina, dx, rdx, dy, rdy,
@@ -647,24 +674,47 @@ def d_sw(delp, pt, w, u, v, uc, vc, ua, va, divg_d, g, *,
          damp_w=0.0, nord_w=0, hydrostatic=True, sw_mode=False,
          advection_only=False, lim_fac=1.0,
          nord_mask=None, damp_v2=None, nord_v2=0,
-         damp_w2=None, nord_w2=0, stage="all"):
+         damp_w2=None, nord_w2=0, stage="all", pre=None, inner=None):
     """All inputs padded. Returns SimpleNamespace of interior (compute-domain)
-    updated fields + fluxes: u [*, n+1, n], v [*, n, n+1], delp [*, n, n],
-    fx/crx/xfx..., divg_d (corner padded), ke. The shallow-water form only
-    (hydrostatic, sw_mode=True, stage="all")."""
-    if (not hydrostatic or w is not None or not sw_mode or stage != "all"
-            or nord_mask is not None or damp_v2 is not None
-            or damp_w2 is not None or _on(damp_w)):
-        raise NotImplementedError(
-            "d_sw: only the hydrostatic shallow-water form is ported")
-    for name, x in (("d2_bg", d2_bg), ("d_con", d_con), ("damp_v", damp_v)):
-        _scalar(name, x)
+    updated fields + fluxes: u [*, n+1, n], v [*, n, n+1], delp/pt/w
+    [*, n, n], fx/crx/xfx..., heat_source, divg_d (corner padded), ke.
+
+    Damping parameters (d2_bg/damp_v/d_con/damp_w) take scalars or per-level
+    [K] numpy profiles (the merged sponge groups of dyn_core.F90:675-733).
+    nord_mask, a [K] bool profile, selects the levels that use the del-2
+    (nord == 0) divergence damping under nord > 0; (damp_v2, nord_v2) and
+    (damp_w2, nord_w2) are a second damping combo whose fluxes add.
+
+    stage: "all" | "fluxes" (stop after the delp/pt/w transport, returning
+    the fluxes and contravariant winds) | "winds" (skip the transport and
+    take its products from `pre`, plus the Smagorinsky operand pre["vortS"]
+    when given).
+
+    inner: a namespace (sweep, ke, a2b) of the functions the PPM sweeps, the
+    KE stage and the Smagorinsky a2b run through; None takes the kernel
+    wrappers (their CUDA kernels on a CUDA tensor). The plain versions of the
+    d_sw fluxes and winds kernels pass ops/dsw.py's PLAIN_INNER."""
     _not_cube(g, "d_sw")
+    if stage not in ("all", "fluxes", "winds"):
+        raise ValueError(f"d_sw: unknown stage {stage!r}")
     npx = g.npx
     n = g.n
-    f = fi
     ctr = slice(H, H + n)
-    wsl = slice(f(1), f(npx) + 1)
+    wsl = slice(fi(1), fi(npx) + 1)
+    inner = inner or _kernel_wrappers()
+    sweep = inner.sweep
+
+    if stage == "winds":
+        return _dsw_winds_stage(
+            delp, u, v, uc, vc, ua, va, divg_d, g, pre["crx"], pre["cry"],
+            pre["xfx"], pre["yfx"], pre["ra_x"], pre["ra_y"], pre["ut"],
+            pre["vt"], pre.get("fx"), pre.get("fy"), pre.get("delp_new"),
+            pre.get("pt_new"), pre.get("w_new"), pre.get("heat_source"),
+            dt=dt, hord_mt=hord_mt, hord_vt=hord_vt, nord=nord,
+            nord_v=nord_v, dddmp=dddmp, d2_bg=d2_bg, d4_bg=d4_bg,
+            damp_v=damp_v, d_con=d_con, lim_fac=lim_fac,
+            nord_mask=nord_mask, damp_v2=damp_v2, nord_v2=nord_v2,
+            inner=inner, vortS_pre=pre.get("vortS"))
 
     # ---- advective C-grid winds -> courant / area fluxes ------------------
     if advection_only:
@@ -676,58 +726,7 @@ def d_sw(delp, pt, w, u, v, uc, vc, ua, va, divg_d, g, *,
         yfx = g.dx * yfx * g.sina_v
         ut = vt = None
     else:
-        vsum = (_cl(vc)[..., :-1, :] + _cr(vc)[..., :-1, :]
-                + _cl(vc)[..., 1:, :] + _cr(vc)[..., 1:, :])
-        ut = (uc - 0.25 * g.cosa_u * vsum) * g.rsin_u
-        usum = (_rl(uc)[..., :, :-1] + _rl(uc)[..., :, 1:]
-                + _rr(uc)[..., :, :-1] + _rr(uc)[..., :, 1:])
-        vt = (vc - 0.25 * g.cosa_v * usum) * g.rsin_v
-
-        # --- west/east edges (sw_core.F90:700-760) ---
-        def ut_edge_col(iw):
-            cw = uc[..., :, f(iw)]
-            return torch.where(cw * dt > 0.0, cw / g.sin_sg3[..., :, f(iw - 1)],
-                               cw / g.sin_sg1[..., :, f(iw)])
-
-        ut[..., :, f(1)] = ut_edge_col(1)
-        ut[..., :, f(npx)] = ut_edge_col(npx)
-
-        jmid = slice(f(3), f(npx - 2) + 1)
-        rA = slice(f(2), f(npx - 3) + 1)
-        rB = slice(f(3), f(npx - 2) + 1)
-
-        def vt_edge_cols(c0):
-            cc = slice(f(c0), f(c0) + 2)
-            c2 = slice(f(c0) + 1, f(c0) + 3)
-            return (vc[..., jmid, cc] - 0.25 * g.cosa_v[..., jmid, cc]
-                    * (ut[..., rA, cc] + ut[..., rA, c2]
-                       + ut[..., rB, cc] + ut[..., rB, c2]))
-
-        def vt_edge_row(jw):
-            rw = vc[..., f(jw), :]
-            return torch.where(rw * dt > 0.0, rw / g.sin_sg4[..., f(jw - 1), :],
-                               rw / g.sin_sg2[..., f(jw), :])
-
-        vt[..., jmid, f(0):f(0) + 2] = vt_edge_cols(0)
-        vt[..., jmid, f(npx - 1):f(npx - 1) + 2] = vt_edge_cols(npx - 1)
-        vt[..., f(1), :] = vt_edge_row(1)
-        vt[..., f(npx), :] = vt_edge_row(npx)
-
-        imid = slice(f(3), f(npx - 2) + 1)
-        cA = slice(f(2), f(npx - 3) + 1)
-        cB = slice(f(3), f(npx - 2) + 1)
-
-        def ut_edge_row(jc):
-            r, rp = f(jc), f(jc + 1)
-            return (uc[..., r, imid] - 0.25 * g.cosa_u[..., r, imid]
-                    * (vt[..., r, cA] + vt[..., r, cB]
-                       + vt[..., rp, cA] + vt[..., rp, cB]))
-
-        for jc in (0, 1, npx - 1, npx):
-            ut[..., f(jc), imid] = ut_edge_row(jc)
-
-        ut, vt = _dsw_corner_solve(ut, vt, uc, vc, g, npx)
-
+        ut, vt = contravariant_winds(uc, vc, g, dt)
         xfx = dt * ut
         crx = xfx * torch.where(xfx > 0.0, _cl(g.rdxa), _cr(g.rdxa))
         xfx = g.dy * xfx * torch.where(xfx > 0.0, _cl(g.sin_sg3),
@@ -743,45 +742,160 @@ def d_sw(delp, pt, w, u, v, uc, vc, ua, va, divg_d, g, *,
     # ---- transport delp ---------------------------------------------------
     fx, fy = fv_tp_2d(delp, crx, cry, hord_dp, xfx, yfx, g.area, ra_x, ra_y,
                       g.dxa, g.dya, lim_fac=lim_fac,
-                      nord=nord_v, damp_c=damp_v, g=g)
+                      nord=nord_v, damp_c=damp_v, g=g,
+                      nord2=nord_v2, damp_c2=damp_v2, sweep=sweep)
+
+    def div_c(fxc, fyc):
+        return (fxc[..., :, :-1] - fxc[..., :, 1:]
+                + fyc[..., :-1, :] - fyc[..., 1:, :]) * g.rarea[..., ctr, ctr]
+
+    heat_source = None
+    w_new = None
+    dw = None
+    if not hydrostatic:
+        if _on(damp_w) or _on(damp_w2):
+            dd8 = ke_bg * abs(dt)
+            dw = 0.0
+            for dwc, nwc in ((damp_w, nord_w), (damp_w2, nord_w2)):
+                if not _on(dwc):
+                    continue
+                damp4 = (_pl(dwc, w) * g.da_min_c) ** (nwc + 1)
+                fx2w, fy2w = deln_damp_fluxes(w, nwc, g, prefac=damp4)
+                dw = dw + ((fx2w[..., ctr, wsl][..., :, :-1]
+                            - fx2w[..., ctr, wsl][..., :, 1:]
+                            + fy2w[..., wsl, ctr][..., :-1, :]
+                            - fy2w[..., wsl, ctr][..., 1:, :])
+                           * g.rarea[..., ctr, ctr])
+            heat_source = dd8 - dw * (w[..., ctr, ctr] + 0.5 * dw)
+        gx, gy = fv_tp_2d(w, crx, cry, hord_vt, xfx, yfx, g.area, ra_x, ra_y,
+                          g.dxa, g.dya, lim_fac=lim_fac, mfx=fx, mfy=fy,
+                          sweep=sweep)
+        w_new = delp[..., ctr, ctr] * w[..., ctr, ctr] + div_c(gx, gy)
+
+    if not sw_mode:
+        gx, gy = fv_tp_2d(pt, crx, cry, hord_tm, xfx, yfx, g.area, ra_x, ra_y,
+                          g.dxa, g.dya, lim_fac=lim_fac, mfx=fx, mfy=fy,
+                          nord=nord_v, damp_c=damp_v, g=g, mass=delp,
+                          nord2=nord_v2, damp_c2=damp_v2, sweep=sweep)
 
     delp_int = delp[..., ctr, ctr]
-    delp_new = delp_int + (fx[..., :, :-1] - fx[..., :, 1:]
-                           + fy[..., :-1, :] - fy[..., 1:, :]) \
-        * g.rarea[..., ctr, ctr]
-    pt_new = pt[..., ctr, ctr]
+    delp_new = delp_int + div_c(fx, fy)
+    if not sw_mode:
+        pt_new = (pt[..., ctr, ctr] * delp_int + div_c(gx, gy)) / delp_new
+    else:
+        pt_new = pt[..., ctr, ctr]
+    if not hydrostatic:
+        w_new = w_new / delp_new
+        if dw is not None:
+            w_new = w_new + dw
 
     if advection_only:
         return SimpleNamespace(
             u=None if u is None else u[..., wsl, ctr],
             v=None if v is None else v[..., ctr, wsl],
-            delp=delp_new, pt=pt_new, w=None,
+            delp=delp_new, pt=pt_new, w=w_new,
             fx=fx, fy=fy, crx=crx, cry=cry, xfx=xfx, yfx=yfx,
-            ra_x=ra_x, ra_y=ra_y, divg_d=divg_d, heat_source=None)
+            ra_x=ra_x, ra_y=ra_y, divg_d=divg_d, heat_source=heat_source)
+
+    if stage == "fluxes":
+        return SimpleNamespace(
+            delp=delp_new, pt=pt_new, w=w_new, fx=fx, fy=fy,
+            crx=crx, cry=cry, xfx=xfx, yfx=yfx, ra_x=ra_x, ra_y=ra_y,
+            ut=ut, vt=vt, heat_source=heat_source)
 
     return _dsw_winds_stage(
         delp, u, v, uc, vc, ua, va, divg_d, g, crx, cry, xfx, yfx,
-        ra_x, ra_y, ut, vt, fx, fy, delp_new, pt_new,
+        ra_x, ra_y, ut, vt, fx, fy, delp_new, pt_new, w_new, heat_source,
         dt=dt, hord_mt=hord_mt, hord_vt=hord_vt, nord=nord, nord_v=nord_v,
         dddmp=dddmp, d2_bg=d2_bg, d4_bg=d4_bg, damp_v=damp_v, d_con=d_con,
-        lim_fac=lim_fac)
+        lim_fac=lim_fac, nord_mask=nord_mask, damp_v2=damp_v2,
+        nord_v2=nord_v2, inner=inner)
+
+
+def _kernel_wrappers():
+    """The kernel wrappers of the sweep, KE stage and a2b: their CUDA kernels
+    on a CUDA tensor, their plain versions on a CPU tensor."""
+    from . import tp_sweep
+    from .ke import ke_section as ke_k       # ke.py imports this module
+    return SimpleNamespace(sweep=tp_sweep.tp2d_sweep, ke=ke_k, a2b=a2b_ord4)
+
+
+def contravariant_winds(uc, vc, g, dt):
+    """d_sw's contravariant C-grid winds ut [.., NC, NW], vt [.., NW, NC]
+    with the cube-edge forms and the corner solve (sw_core.F90:695-860)."""
+    npx = g.npx
+    f = fi
+    vsum = (_cl(vc)[..., :-1, :] + _cr(vc)[..., :-1, :]
+            + _cl(vc)[..., 1:, :] + _cr(vc)[..., 1:, :])
+    ut = (uc - 0.25 * g.cosa_u * vsum) * g.rsin_u
+    usum = (_rl(uc)[..., :, :-1] + _rl(uc)[..., :, 1:]
+            + _rr(uc)[..., :, :-1] + _rr(uc)[..., :, 1:])
+    vt = (vc - 0.25 * g.cosa_v * usum) * g.rsin_v
+
+    # --- west/east edges (sw_core.F90:700-760) ---
+    def ut_edge_col(iw):
+        cw = uc[..., :, f(iw)]
+        return torch.where(cw * dt > 0.0, cw / g.sin_sg3[..., :, f(iw - 1)],
+                           cw / g.sin_sg1[..., :, f(iw)])
+
+    ut[..., :, f(1)] = ut_edge_col(1)
+    ut[..., :, f(npx)] = ut_edge_col(npx)
+
+    jmid = slice(f(3), f(npx - 2) + 1)
+    rA = slice(f(2), f(npx - 3) + 1)
+    rB = slice(f(3), f(npx - 2) + 1)
+
+    def vt_edge_cols(c0):
+        cc = slice(f(c0), f(c0) + 2)
+        c2 = slice(f(c0) + 1, f(c0) + 3)
+        return (vc[..., jmid, cc] - 0.25 * g.cosa_v[..., jmid, cc]
+                * (ut[..., rA, cc] + ut[..., rA, c2]
+                   + ut[..., rB, cc] + ut[..., rB, c2]))
+
+    def vt_edge_row(jw):
+        rw = vc[..., f(jw), :]
+        return torch.where(rw * dt > 0.0, rw / g.sin_sg4[..., f(jw - 1), :],
+                           rw / g.sin_sg2[..., f(jw), :])
+
+    vt[..., jmid, f(0):f(0) + 2] = vt_edge_cols(0)
+    vt[..., jmid, f(npx - 1):f(npx - 1) + 2] = vt_edge_cols(npx - 1)
+    vt[..., f(1), :] = vt_edge_row(1)
+    vt[..., f(npx), :] = vt_edge_row(npx)
+
+    imid = slice(f(3), f(npx - 2) + 1)
+    cA = slice(f(2), f(npx - 3) + 1)
+    cB = slice(f(3), f(npx - 2) + 1)
+
+    def ut_edge_row(jc):
+        r, rp = f(jc), f(jc + 1)
+        return (uc[..., r, imid] - 0.25 * g.cosa_u[..., r, imid]
+                * (vt[..., r, cA] + vt[..., r, cB]
+                   + vt[..., rp, cA] + vt[..., rp, cB]))
+
+    for jc in (0, 1, npx - 1, npx):
+        ut[..., f(jc), imid] = ut_edge_row(jc)
+    return _dsw_corner_solve(ut, vt, uc, vc, g, npx)
 
 
 def _dsw_winds_stage(delp, u, v, uc, vc, ua, va, divg_d, g, crx, cry,
                      xfx, yfx, ra_x, ra_y, ut, vt, fx, fy, delp_new,
-                     pt_new, *, dt, hord_mt, hord_vt, nord, nord_v, dddmp,
-                     d2_bg, d4_bg, damp_v, d_con, lim_fac):
+                     pt_new, w_new, heat_source, *, dt, hord_mt, hord_vt,
+                     nord, nord_v, dddmp, d2_bg, d4_bg, damp_v, d_con,
+                     lim_fac, nord_mask, damp_v2, nord_v2, inner,
+                     vortS_pre=None):
     """d_sw's KE / vorticity / damping / wind-update half (sw_core.F90:
-    1063-1529)."""
-    from .ke import ke_section as ke_stage
+    1063-1529); the KE stage, the vorticity sweep and the Smagorinsky a2b
+    run through inner (d_sw's)."""
     npx = g.npx
     n = g.n
     f = fi
     ctr = slice(H, H + n)
     wsl = slice(f(1), f(npx) + 1)
+    d2_bg_b = _pl(d2_bg, delp)
+    d_con_b = _pl(d_con, delp)
 
-    # ---- kinetic energy (sw_core.F90:1063-1225): the kernel on the card --
-    ke = ke_stage(u, v, uc, vc, ut, vt, g.cosa, g.rsina, g.dx, g.rdx,
+    # ---- kinetic energy (sw_core.F90:1063-1225) ---------------------------
+    ke = inner.ke(u, v, uc, vc, ut, vt, g.cosa, g.rsina, g.dx, g.rdx,
                   g.dy, g.rdy, dt, hord_mt, lim_fac, npx)
 
     # ---- relative vorticity (cell mean) -----------------------------------
@@ -791,7 +905,12 @@ def _dsw_winds_stage(delp, u, v, uc, vc, ua, va, divg_d, g, crx, cry,
                     - ut_w[..., :, :-1] + ut_w[..., :, 1:])
 
     # ---- divergence damping ----------------------------------------------
-    if nord == 0:
+    # need0: levels on the del-2 branch exist (nord == 0 everywhere, or a
+    # sponge nord_mask under nord > 0); needN: the del-2^nord branch
+    need0 = nord == 0 or (nord_mask is not None and bool(np.any(nord_mask)))
+    needN = nord > 0
+    vortB0 = vortBN = None
+    if need0:
         ptc_d = (u - 0.5 * (_rl(va) + _rr(va)) * g.cosa_v) * g.dyc * g.sina_v
         for jw in (1, npx):
             r = f(jw)
@@ -813,11 +932,11 @@ def _dsw_winds_stage(delp, u, v, uc, vc, ua, va, divg_d, g, crx, cry,
         delpc_d[..., f(npx), f(1)] += vort_d[..., f(npx), f(1)]
         delpc_d[..., f(npx), f(npx)] += vort_d[..., f(npx), f(npx)]
         delpc_d = delpc_d * g.rarea_c
-        damp = g.da_min_c * torch.clamp_min(
-            torch.clamp_max(dddmp * torch.abs(delpc_d * dt), 0.20), d2_bg)
-        vortB = damp * delpc_d
-        divg_out = divg_d
-    else:
+        damp = g.da_min_c * torch.maximum(
+            _as(d2_bg_b, delp),
+            torch.clamp_max(dddmp * torch.abs(delpc_d * dt), 0.20))
+        vortB0 = damp * delpc_d
+    if needN:
         delpc_d = divg_d
         dd = divg_d
         for nn in range(1, nord + 1):
@@ -840,13 +959,27 @@ def _dsw_winds_stage(delp, u, v, uc, vc, ua, va, divg_d, g, crx, cry,
         if dddmp < 1.0e-5:
             vortS = torch.zeros_like(dd)
         else:
-            vortS = a2b_ord4(wk, g)
-            vortS = abs(dt) * torch.sqrt(delpc_d ** 2 + vortS ** 2)
+            if vortS_pre is None:
+                vortS_pre = inner.a2b(wk, g)
+            vortS = abs(dt) * torch.sqrt(delpc_d ** 2 + vortS_pre ** 2)
         dd8 = (g.da_min_c * d4_bg) ** (nord + 1)
-        damp2 = g.da_min_c * torch.clamp_min(
-            torch.clamp_max(dddmp * vortS, 0.20), d2_bg)
-        vortB = damp2 * delpc_d + dd8 * dd
+        damp2 = g.da_min_c * torch.maximum(
+            _as(d2_bg_b, delp), torch.clamp_max(dddmp * vortS, 0.20))
+        vortBN = damp2 * delpc_d + dd8 * dd
+
+    if vortB0 is not None and vortBN is not None:
+        # blended per-level branch select (merged sponge groups)
+        m0 = torch.as_tensor(np.asarray(nord_mask, np.float64),
+                             dtype=delp.dtype,
+                             device=delp.device).reshape(-1, 1, 1)
+        vortB = m0 * vortB0 + (1.0 - m0) * vortBN
         divg_out = dd
+    elif vortBN is not None:
+        vortB = vortBN
+        divg_out = dd
+    else:
+        vortB = vortB0
+        divg_out = divg_d
     ke = ke + vortB
 
     do_heat = _on(d_con)
@@ -857,7 +990,8 @@ def _dsw_winds_stage(delp, u, v, uc, vc, ua, va, divg_d, g, crx, cry,
     # ---- vorticity transport & wind update -------------------------------
     vort_abs = wk + g.f0
     fxv, fyv = fv_tp_2d(vort_abs, crx, cry, hord_vt, xfx, yfx, g.area,
-                        ra_x, ra_y, g.dxa, g.dya, lim_fac=lim_fac)
+                        ra_x, ra_y, g.dxa, g.dya, lim_fac=lim_fac,
+                        sweep=inner.sweep)
 
     u_full = vt_w + (ke[..., :, :-1] - ke[..., :, 1:])
     v_full = ut_w + (ke[..., :-1, :] - ke[..., 1:, :])
@@ -866,11 +1000,14 @@ def _dsw_winds_stage(delp, u, v, uc, vc, ua, va, divg_d, g, crx, cry,
 
     # ---- vorticity damping (sw_core.F90:1513-1529) ------------------------
     fx2d = fy2d = None
-    if _on(damp_v):
-        damp4 = (float(damp_v) * g.da_min_c) ** (nord_v + 1)
-        fx2d, fy2d = deln_damp_fluxes(wk, nord_v, g, prefac=damp4)
+    for dvc, nvc in ((damp_v, nord_v), (damp_v2, nord_v2)):
+        if not _on(dvc):
+            continue
+        damp4 = (_pl(dvc, wk) * g.da_min_c) ** (nvc + 1)
+        a_, b_ = deln_damp_fluxes(wk, nvc, g, prefac=damp4)
+        fx2d = a_ if fx2d is None else fx2d + a_
+        fy2d = b_ if fy2d is None else fy2d + b_
 
-    heat_source = None
     if do_heat:
         rdx_c = g.rdx[..., wsl, ctr]
         rdy_c = g.rdy[..., ctr, wsl]
@@ -893,14 +1030,15 @@ def _dsw_winds_stage(delp, u, v, uc, vc, ua, va, divg_d, g, crx, cry,
                      + 2.0 * (gy[..., :-1, :] + gy[..., 1:, :]
                               + gx[..., :, :-1] + gx[..., :, 1:])
                      - cs_ * (u2 * dv2 + v2 * du2 + du2 * dv2))
-        heat_source = delp[..., ctr, ctr] * (0.0 - 0.25 * float(d_con) * tmp)
+        hs0 = heat_source if heat_source is not None else 0.0
+        heat_source = delp[..., ctr, ctr] * (hs0 - 0.25 * d_con_b * tmp)
 
     if fx2d is not None:
         u_new = u_new + fy2d[..., wsl, ctr]
         v_new = v_new - fx2d[..., ctr, wsl]
 
     return SimpleNamespace(
-        u=u_new, v=v_new, delp=delp_new, pt=pt_new, w=None,
+        u=u_new, v=v_new, delp=delp_new, pt=pt_new, w=w_new,
         fx=fx, fy=fy, crx=crx, cry=cry, xfx=xfx, yfx=yfx,
         ra_x=ra_x, ra_y=ra_y, divg_d=divg_out, ke=ke,
         heat_source=heat_source)

@@ -392,7 +392,7 @@ def deln_flux_add(q, fx, fy, nord, damp4, g, mass=None):
 def fv_tp_2d(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
              h=3, lim_fac=1.0, mfx=None, mfy=None,
              nord=None, damp_c=None, g=None, mass=None,
-             nord2=0, damp_c2=None):
+             nord2=0, damp_c2=None, sweep=None):
     """2-D flux-form advection operator (tp_core.F90 fv_tp_2d:85).
 
     Shapes (n = cells/side, P = n+2h, W = n+1):
@@ -405,8 +405,8 @@ def fv_tp_2d(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
       mfx/mfy:   [..., n, W] / [..., W, n]  optional mass fluxes
     Returns (fx, fy) on the compute walls, [..., n, W] and [..., W, n],
     already multiplied by the mass or area flux. The double sweep runs in
-    tp_sweep.tp2d_sweep: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor.
+    `sweep`, by default tp_sweep.tp2d_sweep: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor.
     """
     n = q.shape[-1] - 2 * h
     ctr = slice(h, h + n)
@@ -422,8 +422,9 @@ def fv_tp_2d(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
     if ra_y.shape[-2] == q.shape[-2]:
         ra_y = ra_y[..., ctr, :]
 
-    from .tp_sweep import tp2d_sweep
-    fx, fy = tp2d_sweep(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y,
+    if sweep is None:
+        from .tp_sweep import tp2d_sweep as sweep
+    fx, fy = sweep(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y,
                         dxa, dya, lim_fac=lim_fac, mfx=mfx, mfy=mfy)
 
     if g is not None and nord is not None:

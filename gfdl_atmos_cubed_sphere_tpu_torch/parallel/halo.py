@@ -73,6 +73,13 @@ class HaloExchanger:
         return self._gather(q.reshape(*q.shape[:-2], -1), self._cell_flat,
                             self._cell_shape)
 
+    def pad_cells(self, fields):
+        """The grouped cell exchange: fields [6, K_i, n, n] padded by one
+        gather over their level-concatenation. Returns a tuple."""
+        ks = [q.shape[1] for q in fields]
+        both = self.pad_cell(torch.cat(list(fields), dim=1))
+        return tuple(t.contiguous() for t in torch.split(both, ks, dim=1))
+
     def pad_corner(self, q):
         """[6, ..., n+1, n+1] corner points -> [6, ..., NW, NW]."""
         return self._gather(q.reshape(*q.shape[:-2], -1), self._corner_flat,

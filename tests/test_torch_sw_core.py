@@ -5,6 +5,8 @@ included (float64, CPU, Williamson case 2 with seeded noise).
 On the CPU the JAX d_sw takes its XLA ke_section and the port the plain
 version of its kernel; the kernel launch counters stay 0."""
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -159,21 +161,51 @@ def test_del2_cubed(case):
     _close("del2", want, got)
 
 
+def _off_cube(g):
+    """A copy of the pack that claims a non-cube (doubly periodic) grid."""
+    return SimpleNamespace(**dict(vars(g), grid_type=4))
+
+
+def _w(c):
+    """A seeded vertical-velocity field shaped like the padded delp."""
+    return 0.1 * np.random.default_rng(17).standard_normal(c["delp"].shape)
+
+
 @pytest.mark.parametrize("over", [dict(hydrostatic=False),
                                   dict(sw_mode=False),
                                   dict(nord_mask=np.zeros(1, bool)),
                                   dict(damp_w=0.1)])
 def test_d_sw_nh_arguments_raise(case, over):
-    _, gt, c = case
-    args = _args(c, ("u", "v", "uc", "vc", "ua", "va", "divg"),
-                 torch.as_tensor)
+    """The 3-D/NH arguments the shallow-water slice refused are ported now:
+    each agrees with the JAX package; on a non-cube grid d_sw still
+    raises NotImplementedError."""
+    gj, gt, c = case
+    c = dict(c, w=_w(c))
+    keys = ("delp", "pt", "w", "u", "v", "uc", "vc", "ua", "va", "divg")
+    want = jsc.d_sw(*_args(c, keys, jnp.asarray), gj, **_kw(**over))
+    got = tsc.d_sw(*_args(c, keys, torch.as_tensor), gt, **_kw(**over))
+    for nm in ("u", "v", "delp", "pt", "w", "fx", "fy"):
+        if getattr(want, nm) is None:
+            assert getattr(got, nm) is None, nm
+        else:
+            _close(nm, getattr(want, nm), getattr(got, nm))
     with pytest.raises(NotImplementedError):
-        tsc.d_sw(*_args(c, ("delp", "pt"), torch.as_tensor), None, *args,
-                 gt, **_kw(**over))
+        tsc.d_sw(*_args(c, keys, torch.as_tensor), _off_cube(gt),
+                 **_kw(**over))
 
 
 def test_c_sw_nh_raises(case):
-    _, gt, c = case
-    args = _args(c, ("delp", "pt", None, "u", "v"), torch.as_tensor)
+    """c_sw's nonhydrostatic form (w transport) agrees with the JAX
+    package; on a non-cube grid it raises NotImplementedError."""
+    gj, gt, c = case
+    c = dict(c, w=_w(c))
+    keys = ("delp", "pt", "w", "u", "v")
+    want = jsc.c_sw(*_args(c, keys, jnp.asarray), gj, 0.5 * DT,
+                    hydrostatic=False, sw_mode=True)
+    got = tsc.c_sw(*_args(c, keys, torch.as_tensor), gt, 0.5 * DT,
+                   hydrostatic=False, sw_mode=True)
+    for nm in ("delpc", "ptc", "wc", "uc", "vc", "ua", "va", "ut", "vt"):
+        _close(nm, getattr(want, nm), getattr(got, nm))
     with pytest.raises(NotImplementedError):
-        tsc.c_sw(*args, gt, 0.5 * DT, hydrostatic=False, sw_mode=True)
+        tsc.c_sw(*_args(c, keys, torch.as_tensor), _off_cube(gt), 0.5 * DT,
+                 hydrostatic=False, sw_mode=True)
