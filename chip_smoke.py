@@ -5,9 +5,11 @@
 Builds the port's CUDA kernels from gfdl_atmos_cubed_sphere_tpu_torch/csrc/
 (nvcc, one process per source, all started together, into
 build/torch_kernels/), then runs its phases and exits non-zero on the first
-failure. Two main paths run on the card: the shallow-water step (sw_c768)
-and the dry nonhydrostatic big step fv_dynamics_nh at C192L79 (c192_nh
-made dry: q = {}, no moist physics).
+failure. Three main paths run on the card: the shallow-water step
+(sw_c768), the dry nonhydrostatic big step fv_dynamics_nh at C192L79
+(c192_nh made dry: q = {}, no moist physics) and the moist c192_nh headline
+step (bench.py's six GFDL-MP tracers, MPConfig(): tracer_2d on the rank-5
+tp sweep kernel, the tracer remap, neg_adj3 and the GFDL microphysics).
 
 1. build: the seconds nvcc took for the seven sources;
 2. each kernel against its plain PyTorch version on the card, on the inputs
@@ -19,7 +21,10 @@ made dry: q = {}, no moist physics).
    one C48 float64 SW step, and the c_sw, d_sw fluxes, d_sw
    winds, sim1, tp sweep and a2b kernels on one C192L79 float32 big step
    and one C24L10 float64 big step (dt = 900 s, k_split = 1,
-   n_split = 2). Tolerance per output: max |diff| <= 1e-4 x max |ref| in
+   n_split = 2), dry and moist: the moist steps add the rank-5 tp sweep
+   (tracer_2d's [6, 6, K, P, P] tracers with shared [6, 1, K, ...] winds),
+   timed at C192L79, and every other NH kernel is checked again on the
+   moist inputs. Tolerance per output: max |diff| <= 1e-4 x max |ref| in
    float32 (the count of points over 1e-6 relative is printed: a limiter
    branch may flip under float32 rounding) and <= 1e-12 in float64; the
    non-finite points (NaN in the cube-corner halo) must coincide. Each
@@ -30,8 +35,9 @@ made dry: q = {}, no moist physics).
 3. the SW step (case 2, C48, float64, n_split=2, 4 steps) and the NH big
    step (C24L10, float64, dt = 900 s, k_split = 1, n_split = 2, 2 steps)
    on the card with the kernels against the same port on the CPU with the
-   plain versions, each field against its own maximum: <= 1e-10 on the SW
-   delp, u, v and the NH delp, pt, u, v, delz, and <= 5e-9 on the NH w.
+   plain versions, dry and moist (the six tracers and the GFDL MP), each
+   field against its own maximum: <= 1e-10 on the SW delp, u, v and the NH
+   delp, pt, u, v, delz and the six tracers, and <= 5e-9 on the NH w.
    w is the ill-conditioned field: it carries the nonhydrostatic pressure
    perturbation, a difference of ~1e5 Pa quantities, so last-bit
    differences between the card's and the CPU's exp/log move it by some
@@ -57,13 +63,21 @@ made dry: q = {}, no moist physics).
    launch counts per big step of c_sw 12, d_sw fluxes 12, d_sw winds 12,
    sim1 24, tp2d_sweep 12 (update_dz_d; the d_sw stages run 3 + 1 more
    sweeps inside their own entry points) and a2b_ord4 24 (nh_p_grad and
-   the Smagorinsky operand).
+   the Smagorinsky operand);
+6. the moist c192_nh headline step at full width (as phase 5 with
+   adiabatic = False, the moist baroclinic wave, sphum from it and the
+   five condensates at 1e-6, MPConfig()): 1 warm-up step, 5 timed steps
+   behind a scalar readback barrier, 1 step under the profiler (s/step,
+   pts*lev/s, device busy share, device ms by kernel and by op, wall ms
+   by layer, peak device memory, each tracer_2d call's subcycle count
+   nsplt). It asserts finite fields and tracers, the mass change, phase
+   5's launch counts and rank-5 tp2d_sweep launches = the sum of nsplt.
 
 Before the last line it prints the card's name and power limit and one JSON
-line with each kernel's launches, error and times; for a kernel its path
-calls at several shapes, ms, plain_ms, bound_ms and kernel_ms are means
-per launch weighted by the calls at each shape, and "shapes" lists each
-shape's own numbers. The last line is
+line with each kernel's launches (for the NH kernels those of phase 6, the
+moist path), error and times; for a kernel its path calls at several
+shapes, ms, plain_ms, bound_ms and kernel_ms are means per launch weighted
+by the calls at each shape, and "shapes" lists each shape's own numbers. The last line is
 {"ok": true, "device": {...}}. It needs one CUDA card; without one it exits
 with code 2 and prints no result.
 """
@@ -105,6 +119,7 @@ C768_DT = 225.0 / 8        # see phase 4 in the module docstring
 NH_CARD_TOL = {"w": 5e-9}
 NH_CFG = dict(hydrostatic=False, adiabatic=True, dddmp=0.2, d_con=1.0,
               do_vort_damp=True)
+TRACERS = ("sphum", "liq_wat", "rainwat", "ice_wat", "snowwat", "graupel")
 
 
 def log(msg):
@@ -255,12 +270,22 @@ def device_ms_by_op(fn):
 
 def layer_ms(nh, state):
     """Wall milliseconds of one NH big step by layer: the acoustic loops
-    (dyn_core_nh), the vertical remaps (remap_nh) and the rest, each call
-    synchronised before and after."""
+    (dyn_core_nh), the vertical remaps (remap_nh) and the rest, and on the
+    moist path the tracer transport (tracer_2d), neg_adj3 and the GFDL
+    microphysics (gfdl_mp_driver), each call synchronised before and after.
+    mapn_tracer, the tracers' share of remap_nh, is listed too and is not
+    subtracted again from the rest."""
     import torch
-    from gfdl_atmos_cubed_sphere_tpu_torch.model import dyn_core, fv_dynamics
-    acc = {"dyn_core_nh": 0.0, "remap_nh": 0.0}
+    from gfdl_atmos_cubed_sphere_tpu_torch.model import (dyn_core,
+                                                         fv_dynamics,
+                                                         tracer_2d)
+    from gfdl_atmos_cubed_sphere_tpu_torch.ops import fv_mapz, fv_sg
+    from gfdl_atmos_cubed_sphere_tpu_torch.physics import gfdl_mp
     saved = [(dyn_core, "dyn_core_nh"), (fv_dynamics, "remap_nh")]
+    if nh.moist:
+        saved += [(tracer_2d, "tracer_2d"), (fv_sg, "neg_adj3"),
+                  (gfdl_mp, "gfdl_mp_driver"), (fv_mapz, "mapn_tracer")]
+    acc = {a: 0.0 for _, a in saved}
     origs = [getattr(m, a) for m, a in saved]
 
     def timed(name, fn):
@@ -284,7 +309,8 @@ def layer_ms(nh, state):
     finally:
         for (m, a), o in zip(saved, origs):
             setattr(m, a, o)
-    acc["rest"] = total - acc["dyn_core_nh"] - acc["remap_nh"]
+    acc["rest"] = total - sum(v for k, v in acc.items()
+                              if k != "mapn_tracer")
     acc["total"] = total
     return acc
 
@@ -401,16 +427,19 @@ def compare(label, name, args, kw, n, tol, sw=False):
 
 
 def points_of(name, args, n):
-    """Output points of one call: 6 x levels x (n+1)^2."""
+    """Output points of one call: 6 x (tracers x) levels x (n+1)^2."""
     q = args[1] if name == "sim1" else args[0]
-    return q.shape[0] * q.shape[1] * (n + 1) ** 2
+    lead = 1
+    for d in q.shape[:-2]:
+        lead *= d
+    return lead * (n + 1) ** 2
 
 
 def check_kernels(cap, names, n, tol, label, measure, sw=False):
     """Kernel against plain version on the captured inputs, at every call
     shape the main path gave it. Returns {name: [record per shape]}, each
     with the shape, the calls at that shape in the captured run, the error
-    and (if measure) the times."""
+    and (if measure is True, or measure(name, shape) is) the times."""
     recs = {}
     for name in names:
         mod, attr, plain, _ = kernel_modules()[name]
@@ -421,7 +450,7 @@ def check_kernels(cap, names, n, tol, label, measure, sw=False):
             err, got = compare(f"{label} {list(shp)} x{calls}", name, args,
                                kw, n, tol, sw=sw)
             rec = {"shape": list(shp), "calls": calls, "max_abs_err": err}
-            if measure:
+            if measure is True or (callable(measure) and measure(name, shp)):
                 wrapper = getattr(mod, attr)
                 ms = time_ms(lambda: wrapper(*args, **kw))
                 plain_ms = time_ms(lambda: plain(*args, **kw), reps=5, warm=1)
@@ -495,14 +524,17 @@ def sw_setup(npx, dtype, device, geom=None):
 
 
 class NHCase:
-    """The dry nonhydrostatic big step fv_dynamics_nh on one grid:
-    Jablonowski-Williamson baroclinic wave (perturbed, dry) on set_eta(K),
-    dp0 = diff(ak) + diff(bk) * 1e5 (bench.py:83), q = {}."""
+    """The nonhydrostatic big step fv_dynamics_nh on one grid:
+    Jablonowski-Williamson baroclinic wave (perturbed) on set_eta(K),
+    dp0 = diff(ak) + diff(bk) * 1e5 (bench.py:83). Dry: q = {}. Moist
+    (bench.py:64-73, 88): the moist wave, adiabatic = False, sphum from it
+    and the other five GFDL-MP tracers at 1e-6, MPConfig(). The state is
+    the list of NAMES, then the tracers of TRACERS when moist."""
 
     NAMES = ("delp", "pt", "u", "v", "w", "delz")
 
     def __init__(self, npx, npz, dt, k_split, n_split, dtype, device,
-                 geom=None, ic=None):
+                 geom=None, ic=None, moist=False):
         from gfdl_atmos_cubed_sphere_tpu_torch.grid.fv_eta import set_eta
         from gfdl_atmos_cubed_sphere_tpu_torch.grid.metrics import (
             build_grid_geometry)
@@ -514,28 +546,151 @@ class NHCase:
             build_grid_ops, state_from_arrays)
         from gfdl_atmos_cubed_sphere_tpu_torch.model.sw_dynamics import (
             prepare_phis)
+        from gfdl_atmos_cubed_sphere_tpu_torch.physics.gfdl_mp import (
+            MPConfig)
         import numpy as np
         t0 = time.perf_counter()
+        self.moist = moist
         self.geom = geom or build_grid_geometry(npx, ng=H)
         _, self.ptop, self.ak, self.bk = set_eta(npz)
         self.ic = ic or jw_baroclinic(self.geom, npz, self.ak, self.bk,
-                                      self.ptop, perturb=True, moist=False)
+                                      self.ptop, perturb=True, moist=moist)
+        if moist and "q" not in self.ic:
+            q = {nm: np.full(self.ic["sphum"].shape, 1e-6)
+                 for nm in TRACERS}
+            q["sphum"] = self.ic["sphum"]
+            self.ic = dict(self.ic, q=q)
+        self.names = self.NAMES + (TRACERS if moist else ())
+        self.mp_cfg = MPConfig() if moist else None
         self.t_setup = time.perf_counter() - t0
         self.g = build_grid_ops(npx, dtype=dtype, device=device,
                                 geom=self.geom)
         prepare_phis(self.g, self.ic["phis"])
         self.dp0 = np.diff(self.ak) + np.diff(self.bk) * 1.0e5
         self.cfg = DynConfig(npx=npx, npz=npz, dt=dt, k_split=k_split,
-                             n_split=n_split, **NH_CFG)
+                             n_split=n_split,
+                             **dict(NH_CFG, adiabatic=not moist))
         st = state_from_arrays(self.ic, dtype=dtype, device=device)
-        self.state = [st[k] for k in self.NAMES]
+        self.state = [st[k] for k in self.NAMES] + [
+            st["q"][k] for k in self.names[len(self.NAMES):]]
 
     def step(self, state):
         from gfdl_atmos_cubed_sphere_tpu_torch.model.fv_dynamics import (
             fv_dynamics_nh)
-        r = fv_dynamics_nh(*state, {}, self.g, self.cfg, self.ak, self.bk,
-                           self.ptop, self.dp0)
-        return [getattr(r, k) for k in self.NAMES]
+        nf = len(self.NAMES)
+        q = dict(zip(self.names[nf:], state[nf:]))
+        r = fv_dynamics_nh(*state[:nf], q, self.g, self.cfg, self.ak,
+                           self.bk, self.ptop, self.dp0, mp_cfg=self.mp_cfg)
+        return ([getattr(r, k) for k in self.NAMES]
+                + [r.q[k] for k in self.names[nf:]])
+
+
+def nh_card_vs_cpu(card_case):
+    """Two C24L10 float64 big steps of `card_case` on the card against the
+    same steps of the port on the CPU, each field (and tracer) against its
+    own maximum; the same steps on the card in float32 are the control and
+    must read over every limit."""
+    import torch
+    kw = dict(geom=card_case.geom, ic=card_case.ic, moist=card_case.moist)
+    cpu = NHCase(25, 10, 900.0, 1, 2, torch.float64, "cpu", **kw)
+    f32 = NHCase(25, 10, 900.0, 1, 2, torch.float32, "cuda", **kw)
+    label = "moist" if card_case.moist else "dry"
+    scard, sc, sf = list(card_case.state), list(cpu.state), list(f32.state)
+    for _ in range(2):
+        scard = card_case.step(scard)
+        sc = cpu.step(sc)
+        sf = f32.step(sf)
+    for nm, b in zip(card_case.names, sc):
+        require(bool(torch.isfinite(b).all()),
+                f"NH {label} CPU step: NaN in {nm}")
+    bad = []
+    for nm, a, f, b in zip(card_case.names, scard, sf, sc):
+        top = float(b.abs().max())
+        r = float((a.cpu() - b).abs().max()) / top
+        ctl = float((f.cpu().double() - b).abs().max()) / top
+        tol = NH_CARD_TOL.get(nm, 1e-10)
+        log(f"  C24L10 f64 {label} 2 big steps {nm}: card vs CPU {r:.3e} x "
+            f"its max (tol {tol:g}); control, the card in float32: "
+            f"{ctl:.3e}")
+        if r > tol:
+            bad.append(nm)
+        require(ctl > tol, f"the control reads {nm} within its limit "
+                           f"{tol:g}: the check could not tell a fault")
+    log(f"phase 3 NH {label} big step card vs CPU: over the limit "
+        f"{bad or 'none'}")
+    require(not bad, f"NH {label} step on the card disagrees with the CPU "
+                     f"in {bad}")
+
+
+def nh_phase(label, case, state, mass0, card, shapes_nh):
+    """The full-width C192L79 big step of `case`: 1 warm-up step (the
+    captured step came before it), 5 timed steps behind a scalar readback
+    barrier with the launch counts and tracer_2d's subcycle counts set to 0
+    just before them and read just after, 1 step under the profiler, 1 by
+    PyTorch op and 1 by layer. Fails on a non-finite field, a mass change
+    over 1e-5 or a launch count other than NH_PER_STEP's (the rank-5 tp
+    sweep: one launch per tracer_2d subcycle). Returns the launch counts."""
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.model import tracer_2d
+    from gfdl_atmos_cubed_sphere_tpu_torch.ops import tp_sweep
+    state = case.step(state)                              # warm-up
+    float(torch.sum(state[0]))
+    nsteps = 5
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tracer_2d.reset_nsplt()
+    sec, state = timed_steps(case.step, state, nsteps)
+    launches = counts()
+    rank5 = tp_sweep.launches_rank5
+    nsplt = list(tracer_2d.nsplt_calls)
+    peak = torch.cuda.max_memory_allocated()
+    for nm, t in zip(case.names, state):
+        require(bool(torch.isfinite(t).all()),
+                f"{label}: NaN or inf in {nm}")
+    dm = abs(mass(case.g, state[0]) - mass0) / abs(mass0)
+    ptslev = 6 * 192 ** 2 * 79 / sec
+    log(f"phase {label}: {sec:.4f} s/step, {ptslev:.4e} pts*lev/s on {card}; "
+        f"mass change {dm:.3e} over {nsteps + 2} big steps; launches "
+        f"{launches}, of which rank-5 tp2d_sweep {rank5}; tracer_2d nsplt "
+        f"per call {nsplt}; peak device memory {peak / 2 ** 30:.2f} GiB "
+        f"({base / 2 ** 30:.2f} GiB allocated before the steps)")
+    require(dm <= 1e-5, f"{label}: mass drifted by {dm:.3e}")
+    require(len(nsplt) == (nsteps * case.cfg.k_split if case.moist else 0),
+            f"{label}: tracer_2d ran {len(nsplt)} times in {nsteps} steps")
+    require(rank5 == sum(nsplt), f"{label}: {rank5} rank-5 tp2d_sweep "
+                                 f"launches, tracer_2d subcycled {nsplt}")
+    for name, per in NH_PER_STEP.items():
+        want = per * nsteps + (rank5 if name == "tp2d_sweep" else 0)
+        require(launches[name] == want,
+                f"{label}: {name} launched {launches[name]} times in "
+                f"{nsteps} big steps, expected {want}")
+    by, busy = device_ms_by_kernel(lambda: case.step(state), reps=1)
+    own = own_kernels_ms(by)
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  profile of 1 big step: device busy {busy} of the wall time; "
+        f"device ms/step {sum(by.values()):.3f}, of which the port's "
+        f"kernels {own}; top: " + "; ".join(f"{k[:60]} {v:.3f}"
+                                          for k, v in top))
+    per_kernel = []
+    for nm in NH_KERNELS:
+        shapes = [sh for sh in shapes_nh[nm]
+                  if case.moist or len(sh["shape"]) != 5]
+        rec = per_launch(shapes)
+        if rec["kernel_ms_per_step"] is None:
+            continue
+        per_kernel.append(f"{nm} {rec['kernel_ms_per_step']:.3f}" + "".join(
+            f" ({sh['shape']}: {sh['kernel_ms']:.3f} x {sh['calls']})"
+            for sh in shapes if len(shapes) > 1))
+    log("  device ms per big step by kernel (kernel alone x calls, summed "
+        "over call shapes): " + ", ".join(per_kernel))
+    ops = device_ms_by_op(lambda: case.step(state))
+    log("  device ms per big step by PyTorch op (top 10): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in sorted(ops.items(),
+                                          key=lambda kv: -kv[1])[:10]))
+    log("  wall ms per big step by layer (synchronised): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in layer_ms(case, state).items()))
+    return launches
 
 
 def mass(g, delp):
@@ -567,6 +722,7 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     try:
+        from gfdl_atmos_cubed_sphere_tpu_torch.model import tracer_2d
         from gfdl_atmos_cubed_sphere_tpu_torch.model.sw_dynamics import (
             SWConfig, make_sw_step)
         from gfdl_atmos_cubed_sphere_tpu_torch.ops import _build
@@ -617,6 +773,19 @@ def main():
     nh24 = NHCase(25, 10, 900.0, 1, 2, torch.float64, "cuda")
     with Capture() as cap24:
         nh24.step(nh24.state)
+    nhm = NHCase(193, 79, 450.0, 2, 6, torch.float32, "cuda", geom=nh.geom,
+                 moist=True)
+    log(f"c192_nh moist baroclinic state: host set-up {nhm.t_setup:.1f} s")
+    nhm_mass0 = mass(nhm.g, nhm.state[0])
+    tracer_2d.reset_nsplt()
+    with Capture() as cap192m:
+        nhm_state = nhm.step(nhm.state)
+        float(torch.sum(nhm_state[0]))
+    nsplt192 = list(tracer_2d.nsplt_calls)
+    nh24m = NHCase(25, 10, 900.0, 1, 2, torch.float64, "cuda",
+                   geom=nh24.geom, moist=True)
+    with Capture() as cap24m:
+        nh24m.step(nh24m.state)
     torch.cuda.synchronize()
 
     # ---- 2. kernels against their plain versions ----------------------------
@@ -636,6 +805,24 @@ def main():
         require(got == per, f"c192_nh: {name} called {got} times in the "
                             f"captured big step, expected {per}")
     del cap192, cap24
+    moist = check_kernels(
+        cap192m, NH_KERNELS, 192, 1e-4, "c192_nh moist f32",
+        measure=lambda name, shp: name == "tp2d_sweep" and len(shp) == 5)
+    check_kernels(cap24m, NH_KERNELS, 24, 1e-12, "C24L10 moist f64",
+                  measure=False)
+    shapes_nh["tp2d_sweep"] += [r for r in moist["tp2d_sweep"]
+                                if len(r["shape"]) == 5]
+    for name, per in NH_PER_STEP.items():
+        calls = cap192m.calls.get(name, {})
+        got = sum(c for shp, c in calls.items() if len(shp) != 5)
+        require(got == per, f"c192_nh moist: {name} called {got} times at "
+                            f"rank 4 in the captured big step, expected {per}")
+    got = sum(c for shp, c in cap192m.calls["tp2d_sweep"].items()
+              if len(shp) == 5)
+    require(got == sum(nsplt192),
+            f"c192_nh moist: rank-5 tp2d_sweep called {got} times, tracer_2d "
+            f"subcycled {nsplt192}")
+    del cap192m, cap24m
     recs_sw = {k: per_launch(v) for k, v in shapes_sw.items()}
     recs_nh = {k: per_launch(v) for k, v in shapes_nh.items()}
 
@@ -656,32 +843,9 @@ def main():
     require(worst <= 1e-10, "SW step on the card disagrees with the CPU")
     del g48, gcpu
 
-    nh24c = NHCase(25, 10, 900.0, 1, 2, torch.float64, "cpu",
-                   geom=nh24.geom, ic=nh24.ic)
-    nh24f = NHCase(25, 10, 900.0, 1, 2, torch.float32, "cuda",
-                   geom=nh24.geom, ic=nh24.ic)
-    scard, sc, sf = list(nh24.state), list(nh24c.state), list(nh24f.state)
-    for _ in range(2):
-        scard = nh24.step(scard)
-        sc = nh24c.step(sc)
-        sf = nh24f.step(sf)
-    for nm, b in zip(NHCase.NAMES, sc):
-        require(bool(torch.isfinite(b).all()), f"NH CPU step: NaN in {nm}")
-    bad = []
-    for nm, a, f, b in zip(NHCase.NAMES, scard, sf, sc):
-        top = float(b.abs().max())
-        r = float((a.cpu() - b).abs().max()) / top
-        ctl = float((f.cpu().double() - b).abs().max()) / top
-        tol = NH_CARD_TOL.get(nm, 1e-10)
-        log(f"  C24L10 f64 2 big steps {nm}: card vs CPU {r:.3e} x its max "
-            f"(tol {tol:g}); control, the card in float32: {ctl:.3e}")
-        if r > tol:
-            bad.append(nm)
-        require(ctl > tol, f"the control reads {nm} within its limit "
-                           f"{tol:g}: the check could not tell a fault")
-    log(f"phase 3 NH big step card vs CPU: over the limit {bad or 'none'}")
-    require(not bad, f"NH step on the card disagrees with the CPU in {bad}")
-    del nh24, nh24c, nh24f
+    for case in (nh24, nh24m):
+        nh_card_vs_cpu(case)
+    del nh24, nh24m
 
     # ---- 4. full width sw_c768 ----------------------------------------------
     state = list(step(state))                            # warm-up
@@ -710,52 +874,20 @@ def main():
     del g, state, sw_step
 
     # ---- 5. full width c192_nh (dry) ----------------------------------------
-    nh_state = nh.step(nh_state)                          # warm-up
-    float(torch.sum(nh_state[0]))
-    nsteps = 5
-    reset_counts()
-    sec, nh_state = timed_steps(nh.step, nh_state, nsteps)
-    nh_launches = counts()
-    for nm, t in zip(NHCase.NAMES, nh_state):
-        require(bool(torch.isfinite(t).all()), f"c192_nh: NaN or inf in {nm}")
-    dm = abs(mass(nh.g, nh_state[0]) - nh_mass0) / abs(nh_mass0)
-    ptslev = 6 * 192 ** 2 * 79 / sec
-    log(f"phase 5 c192_nh dry f32: {sec:.4f} s/step, {ptslev:.4e} pts*lev/s "
-        f"on {card}; mass change {dm:.3e} over {nsteps + 2} big steps; "
-        f"launches {nh_launches}")
-    require(dm <= 1e-5, f"c192_nh mass drifted by {dm:.3e}")
-    for name, per in NH_PER_STEP.items():
-        require(nh_launches[name] == per * nsteps,
-                f"{name} launched {nh_launches[name]} times on the NH path in "
-                f"{nsteps} big steps, expected {per * nsteps}")
-    by, busy = device_ms_by_kernel(lambda: nh.step(nh_state), reps=1)
-    own = own_kernels_ms(by)
-    top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
-    log(f"  profile of 1 big step: device busy {busy} of the wall time; "
-        f"device ms/step {sum(by.values()):.3f}, of which the port's "
-        f"kernels {own}; top: " + "; ".join(f"{k[:60]} {v:.3f}"
-                                          for k, v in top))
-    log("  device ms per big step by kernel (kernel alone x calls, summed "
-        "over call shapes): " + ", ".join(
-            f"{nm} {recs_nh[nm]['kernel_ms_per_step']:.3f}" + "".join(
-                f" ({s['shape'][1]} levels: {s['kernel_ms']:.3f} x "
-                f"{s['calls']})" for s in shapes_nh[nm]
-                if len(shapes_nh[nm]) > 1)
-            for nm in NH_KERNELS
-            if recs_nh[nm]["kernel_ms_per_step"] is not None))
-    ops = device_ms_by_op(lambda: nh.step(nh_state))
-    log("  device ms per big step by PyTorch op (top 10): " + "; ".join(
-        f"{k} {v:.3f}" for k, v in sorted(ops.items(),
-                                          key=lambda kv: -kv[1])[:10]))
-    log("  wall ms per big step by layer (synchronised): " + ", ".join(
-        f"{k} {v:.1f}" for k, v in layer_ms(nh, nh_state).items()))
+    nh_launches = nh_phase("5 c192_nh dry f32", nh, nh_state, nh_mass0, card,
+                           shapes_nh)
+    del nh, nh_state
+
+    # ---- 6. full width c192_nh moist (the headline step) --------------------
+    m_launches = nh_phase("6 c192_nh moist f32", nhm, nhm_state, nhm_mass0,
+                          card, shapes_nh)
 
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "kernel_ms")
     for name in REPLACES:
         on_nh = name in NH_KERNELS
         rec = recs_nh[name] if on_nh else recs_sw[name]
-        launches = nh_launches[name] if on_nh else sw_launches[name]
+        launches = m_launches[name] if on_nh else sw_launches[name]
         entry = {
             "name": name, "route": "cuda",
             "source": f"gfdl_atmos_cubed_sphere_tpu_torch/csrc/{name}.cu",
@@ -764,8 +896,10 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
             "kernel_ms": rec["kernel_ms"],
-            "path": "c192_nh" if on_nh else "sw_c768",
+            "path": "c192_nh moist" if on_nh else "sw_c768",
             "shapes": (shapes_nh if on_nh else shapes_sw)[name]}
+        if on_nh:
+            entry["c192_nh_dry"] = {"launches": nh_launches[name]}
         if on_nh and name in recs_sw:
             sw = recs_sw[name]
             entry["sw_c768"] = {"launches": sw_launches[name],

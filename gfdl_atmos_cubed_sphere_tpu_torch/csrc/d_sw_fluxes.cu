@@ -387,8 +387,9 @@ int sweep(const FluxArgs<T>& a, const Work<T>& w, const T* q, int hord,
   // every operand but area, dxa, dya carries K levels
   const int kvar = a.K > 1 ? (0x3FFF & ~((1 << 7) | (1 << 10) | (1 << 11)))
                            : 0;
-  return tpk::tp2d_sweep(in, fx, fy, a.n, a.K, kvar, hord == 10 ? 8 : hord,
-                         hord, mfx != nullptr, sizeof(T) == 8 ? 1 : 0, s);
+  return tpk::tp2d_sweep(in, fx, fy, a.n, 1, a.K, 0, kvar,
+                         hord == 10 ? 8 : hord, hord, mfx != nullptr,
+                         sizeof(T) == 8 ? 1 : 0, s);
 }
 
 template <typename T>

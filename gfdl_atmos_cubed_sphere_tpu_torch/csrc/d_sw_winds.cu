@@ -353,7 +353,7 @@ int run(const void* const* in, const void* const* met, void* const* out,
                          w.yfx_c, a.m.area, w.rax_c, w.ray_c, a.m.dxa,
                          a.m.dya, nullptr, nullptr};
   const int kvar = K > 1 ? (0x3FFF & ~((1 << 7) | (1 << 10) | (1 << 11))) : 0;
-  if ((rc = tpk::tp2d_sweep(tin, w.fxv, w.fyv, n, K, kvar,
+  if ((rc = tpk::tp2d_sweep(tin, w.fxv, w.fyv, n, 1, K, 0, kvar,
                             hord_vt == 10 ? 8 : hord_vt, hord_vt, 0, dcode,
                             s)))
     return rc;

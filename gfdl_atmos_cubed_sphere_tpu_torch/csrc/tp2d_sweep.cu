@@ -1,8 +1,11 @@
 // fv_tp_2d double PPM sweep (FV3 model/tp_core.F90 fv_tp_2d:85) for Hopper.
 //
 // Replaces the TPU kernel tp2d_sweep_pallas
-// (gfdl_atmos_cubed_sphere_tpu/ops/pallas_tp.py:177, body _tp2d_body :25).
-// For one (tile, level) face it computes
+// (gfdl_atmos_cubed_sphere_tpu/ops/pallas_tp.py:177, body _tp2d_body :25),
+// in both its forms: q [6, K, P, P] and the batched-tracer q [6, T, K, P, P]
+// of tracer_2d (rank-5 grid pallas_tp.py:217-245), whose wind and metric
+// operands [6, 1, K or 1, ...] are shared by the T tracers.
+// For one (tile, tracer, level) face it computes
 //   fy2  = yppm(qy; cry)          inner y sweep, all padded columns
 //   q_i  = (q*area + yfx*fy2 (j) - yfx*fy2 (j+1)) / ra_y
 //   fx   = 0.5*(xppm(q_i; crx) + xppm(qx; crx)) * (mfx or xfx)
@@ -11,11 +14,14 @@
 //
 // Bound on an H100: bytes. Each point moves 12 input and 2 output operands
 // with a few hundred flops of PPM arithmetic, far below the card's f32 rate.
-// Design: one block owns a TY x TX tile of one face and level. It evaluates
-// the inner sweeps for its tile plus the 3-cell stencil halo into shared
-// memory (fy2, q_i, fx2, q_j), then the outer sweeps and the flux
+// Design: one block owns a TY x TX tile of one face, tracer and level. It
+// evaluates the inner sweeps for its tile plus the 3-cell stencil halo into
+// shared memory (fy2, q_i, fx2, q_j), then the outer sweeps and the flux
 // combination from there: one launch, each operand read from device memory
 // about once (halo re-reads hit L1/L2), intermediates never leave the SM.
+// An operand shared across tracers has tracer stride 0: the blocks of the T
+// tracers of one (tile, level) each read it, so a shared wind plane is read
+// once per tracer (mostly from L2 when the tracers' blocks run together).
 // The limiter branches are selects on values, never a multiply by a mask,
 // so NaN held in the cube-corner halo of a metric cannot leak.
 // Built with --fmad=false: no contraction, so the arithmetic rounds as the
@@ -205,7 +211,9 @@ template <typename T> struct TpArgs {
   const T* in[14];
   T* fx;
   T* fy;
-  int n, K, kvar, ord_in, ord_ou, with_mf;
+  // tvar / kvar bit b: operand b carries the tracer / level axis, else it
+  // is [6, 1, ...] along that axis (stride 0)
+  int n, nt, K, tvar, kvar, ord_in, ord_ou, with_mf;
 };
 
 template <typename T>
@@ -213,7 +221,7 @@ __global__ void __launch_bounds__(NTHREADS)
 tp2d_sweep_kernel(TpArgs<T> a) {
   const int n = a.n, P = n + 2 * H, W = n + 1;
   const int tk = blockIdx.z;
-  const int t = tk / a.K, k = tk % a.K;
+  const int t = tk / (a.nt * a.K), tr = (tk / a.K) % a.nt, k = tk % a.K;
   // plane sizes of the 14 operands
   const long long sz[14] = {(long long)P * P, (long long)P * P,
                             (long long)P * P, (long long)P * W,
@@ -226,14 +234,18 @@ tp2d_sweep_kernel(TpArgs<T> a) {
 #pragma unroll
   for (int b = 0; b < 14; ++b) {
     if (a.in[b] == nullptr) { p[b] = nullptr; continue; }
-    bool kv = (a.kvar >> b) & 1;
-    p[b] = a.in[b] + (kv ? ((long long)t * a.K + k) : (long long)t) * sz[b];
+    const bool tv = (a.tvar >> b) & 1, kv = (a.kvar >> b) & 1;
+    const long long plane =
+        ((long long)t * (tv ? a.nt : 1) + (tv ? tr : 0)) * (kv ? a.K : 1) +
+        (kv ? k : 0);
+    p[b] = a.in[b] + plane * sz[b];
   }
   const T *q = p[0], *qx = p[1], *qy = p[2], *crx = p[3], *cry = p[4],
           *xfx = p[5], *yfx = p[6], *area = p[7], *ra_x = p[8], *ra_y = p[9],
           *dxa = p[10], *dya = p[11], *mfx = p[12], *mfy = p[13];
-  T* fx = a.fx + ((long long)t * a.K + k) * n * W;
-  T* fy = a.fy + ((long long)t * a.K + k) * W * n;
+  const long long face = ((long long)t * a.nt + tr) * a.K + k;
+  T* fx = a.fx + face * n * W;
+  T* fy = a.fy + face * W * n;
 
   const int j0 = blockIdx.y * TY, i0 = blockIdx.x * TX;
   __shared__ T fy2s[TY + 1][TX + 5];   // fy2 at walls j0.., padded cols i0..
@@ -317,20 +329,23 @@ tp2d_sweep_kernel(TpArgs<T> a) {
 }
 
 template <typename T>
-int launch(const void* const* in, void* fx, void* fy, int n, int K, int kvar,
-           int ord_in, int ord_ou, int with_mf, cudaStream_t stream) {
+int launch(const void* const* in, void* fx, void* fy, int n, int nt, int K,
+           int tvar, int kvar, int ord_in, int ord_ou, int with_mf,
+           cudaStream_t stream) {
   TpArgs<T> a;
   for (int b = 0; b < 14; ++b) a.in[b] = static_cast<const T*>(in[b]);
   a.fx = static_cast<T*>(fx);
   a.fy = static_cast<T*>(fy);
   a.n = n;
+  a.nt = nt;
   a.K = K;
+  a.tvar = tvar;
   a.kvar = kvar;
   a.ord_in = ord_in;
   a.ord_ou = ord_ou;
   a.with_mf = with_mf;
   const int W = n + 1;
-  dim3 grid((W + TX - 1) / TX, (W + TY - 1) / TY, 6 * K);
+  dim3 grid((W + TX - 1) / TX, (W + TY - 1) / TY, 6 * nt * K);
   tp2d_sweep_kernel<T><<<grid, NTHREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -338,13 +353,17 @@ int launch(const void* const* in, void* fx, void* fy, int n, int K, int kvar,
 }  // namespace
 
 // Plain C entry point. in: 14 device pointers in the order of TpArgs (mfx,
-// mfy may be null); kvar bit b set when operand b carries K levels, else it
-// is [6, 1, ...]. dtype 0 = float32, 1 = float64. Returns cudaGetLastError.
+// mfy may be null), each operand [6, T or 1, K or 1, ...]; tvar / kvar bit b
+// set when operand b carries the T tracers / K levels. fx, fy:
+// [6, T, K, n, n+1] / [6, T, K, n+1, n]. dtype 0 = float32, 1 = float64.
+// Returns cudaGetLastError.
 extern "C" int tp2d_sweep(const void* const* in, void* fx, void* fy, int n,
-                          int K, int kvar, int ord_in, int ord_ou,
-                          int with_mf, int dtype, void* stream) {
+                          int nt, int K, int tvar, int kvar, int ord_in,
+                          int ord_ou, int with_mf, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(in, fx, fy, n, K, kvar, ord_in, ord_ou, with_mf, s);
-  return launch<double>(in, fx, fy, n, K, kvar, ord_in, ord_ou, with_mf, s);
+    return launch<float>(in, fx, fy, n, nt, K, tvar, kvar, ord_in, ord_ou,
+                         with_mf, s);
+  return launch<double>(in, fx, fy, n, nt, K, tvar, kvar, ord_in, ord_ou,
+                        with_mf, s);
 }

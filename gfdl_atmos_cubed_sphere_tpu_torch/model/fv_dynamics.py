@@ -3,14 +3,16 @@ acoustic core, PyTorch port.
 
 Counterpart of gfdl_atmos_cubed_sphere_tpu/model/fv_dynamics.py
 (fv_dynamics_nh, remap_nh; FV3 model/fv_dynamics.F90 and the
-nonhydrostatic branch of model/fv_mapz.F90 Lagrangian_to_Eulerian:56) for
-the dry adiabatic step: tracers (q), moist physics, the Rayleigh sponges
-and the energy / angular-momentum fixers are not ported and raise
-NotImplementedError.
+nonhydrostatic branch of model/fv_mapz.F90 Lagrangian_to_Eulerian:56):
+the acoustic loop, the large-timestep tracer transport (tracer_2d), the
+vertical remap with the tracers (mapn_tracer), the negative-moisture
+adjustment (neg_adj3) and the GFDL microphysics (gfdl_mp_driver). The
+Rayleigh sponges, the energy and angular-momentum fixers and the inline
+fast physics are not ported and raise NotImplementedError.
 
 State carried between calls: u, v (D winds), delp, pt = TEMPERATURE, w
-(m/s), delz (m, negative). Inside the step pt becomes virtual potential
-temperature and is converted back on the last remap.
+(m/s), delz (m, negative), the tracer dict q. Inside the step pt becomes
+virtual potential temperature and is converted back on the last remap.
 """
 
 from types import SimpleNamespace
@@ -18,9 +20,11 @@ from types import SimpleNamespace
 import torch
 
 from .. import constants as con
-from ..ops import fv_mapz
+from ..ops import fv_mapz, fv_sg
 from ..ops.sw_core import _rl, _cl
 from ..ops.fill_corners import fi
+from ..physics import gfdl_mp
+from . import tracer_2d as tracer
 from .dyn_core import DynConfig
 
 H = 3
@@ -48,12 +52,13 @@ def _omega(conv, dt):
     return torch.cumsum(conv, dim=1) / dt
 
 
-def remap_nh(delp, ptv, u, v, w, delz, ws, pe_pad, peln_pad, ak, bk, g,
+def remap_nh(delp, ptv, u, v, w, delz, ws, q, pe_pad, peln_pad, ak, bk, g,
              cfg, akap, kord_wz=9):
     """Nonhydrostatic vertical remap (fv_mapz.F90 Lagrangian_to_Eulerian,
     hydrostatic=.false., kord_tm<0): theta_v -> T_v through the gas law,
     T_v remapped on log-p, w with the ws bottom value (iv=-2), delz as
-    specific volume, the winds on pe. ak, bk: [K+1] tensors."""
+    specific volume, the tracers on pe in one mapn_tracer call, the winds
+    on pe. ak, bk: [K+1] tensors; q: the tracer dict (may be empty)."""
     f = fi
     npx = g.npx
     n = g.n
@@ -82,6 +87,14 @@ def remap_nh(delp, ptv, u, v, w, delz, ws, pe_pad, peln_pad, ak, bk, g,
     sv_new = fv_mapz.map1_ppm(sv, pe1, pe2, iv=1, kord=abs(cfg.kord_tm))
     delz_new = _k_lev(-sv_new * dp2)
 
+    q_new = {}
+    if q:
+        names = list(q.keys())
+        qk = fv_mapz.mapn_tracer(
+            torch.stack([_k_last(q[k]) for k in names], 0), pe1, pe2,
+            kord=cfg.kord_tr, fill=cfg.fill)
+        q_new = {k: _k_lev(qk[i]) for i, k in enumerate(names)}
+
     pe_u0 = _k_last(0.5 * (pe_pad[..., wsl, ctr] + _rl(pe_pad)[..., wsl, ctr]))
     pe_u1 = akl + bkl * pe_u0[..., -1:]
     u_new = fv_mapz.map1_ppm(_k_last(u), pe_u0, pe_u1, iv=-1,
@@ -96,15 +109,16 @@ def remap_nh(delp, ptv, u, v, w, delz, ws, pe_pad, peln_pad, ak, bk, g,
     pkz_new = torch.exp(akap * torch.log(rrg * delp_k / delz_new * tvk))
     return SimpleNamespace(delp=delp_k, tv=tvk, u=_k_lev(u_new),
                            v=_k_lev(v_new), w=_k_lev(w_new), delz=delz_new,
-                           pkz=pkz_new, pk2=_k_lev(pk2), ps=ps[..., 0])
+                           q=q_new or None, pkz=pkz_new, pk2=_k_lev(pk2),
+                           ps=ps[..., 0])
 
 
-def _check_dry(q, cfg):
+def _check_config(cfg):
     unsupported = {
-        "tracers (a non-empty q)": bool(q),
         "consv_te > 0 (energy fixer)": cfg.consv_te > 0.0,
         "consv_am (angular-momentum fixer)": cfg.consv_am,
         "tau > 0 (Rayleigh sponges)": cfg.tau > 0.0,
+        "do_fast_phys (inline fast physics)": cfg.do_fast_phys,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -113,40 +127,64 @@ def _check_dry(q, cfg):
 
 
 def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
-                   ptop, dp0):
-    """One big timestep of dry nonhydrostatic dynamics (fv_dynamics.F90,
+                   ptop, dp0, mp_cfg=None):
+    """One big timestep of nonhydrostatic dynamics (fv_dynamics.F90,
     hydrostatic=.false.). pt in/out is TEMPERATURE; w vertical velocity
-    (m/s); delz layer thickness (m, negative); q must be empty. ak, bk:
-    [K+1] (numpy or tensors); dp0: the reference pressure-thickness
-    profile. Returns SimpleNamespace(delp, pt, u, v, w, delz, q, ps,
+    (m/s); delz layer thickness (m, negative); q: the tracer dict (may be
+    empty); with "sphum" in q and cfg.adiabatic False the virtual-
+    temperature (zvir) path is on, and with the six GFDL-MP categories
+    neg_adj3 runs, then gfdl_mp_driver when mp_cfg is given. ak, bk: [K+1]
+    (numpy or tensors); dp0: the reference pressure-thickness profile.
+    Returns SimpleNamespace(delp, pt, u, v, w, delz, q, ps, mp_diag,
     omga)."""
     from .dyn_core import dyn_core_nh
-    _check_dry(q, cfg)
+    _check_config(cfg)
     akap = con.KAPPA
     rrg = -con.RDGAS / con.GRAV
     mdt = cfg.dt / cfg.k_split
+    zvir = con.ZVIR if q and "sphum" in q and not cfg.adiabatic else 0.0
     ak = torch.as_tensor(ak, dtype=delp.dtype, device=delp.device)
     bk = torch.as_tensor(bk, dtype=delp.dtype, device=delp.device)
     u, v = g.halo.reconcile_dgrid(u, v)
 
     # entry: layer p**kappa from the gas law, pt -> theta_v
-    pkz = torch.exp(akap * torch.log(rrg * delp / delz * pt))
-    ptv = pt / pkz
+    tv = pt * (1.0 + zvir * q["sphum"]) if zvir else pt
+    pkz = torch.exp(akap * torch.log(rrg * delp / delz * tv))
+    ptv = tv / pkz
 
     conv = torch.zeros_like(delp)
     for n_map in range(cfg.k_split):
         last = n_map == cfg.k_split - 1
+        dp1 = delp
         res = dyn_core_nh(delp, ptv, u, v, w, delz, g, cfg, akap, ptop,
                           cfg.n_split, mdt / cfg.n_split, dp0)
         conv = conv + _mass_convergence(res.mfx, res.mfy, g)
+        if q:
+            q, _ = tracer.tracer_2d(q, dp1, res.mfx, res.mfy, res.cx,
+                                    res.cy, g, hord_tr=cfg.hord_tr,
+                                    q_split=cfg.q_split if cfg.use_scan
+                                    else max(1, cfg.q_split))
         rm = remap_nh(res.delp, res.pt, res.u, res.v, res.w, res.delz,
-                      res.ws, res.pe, res.peln, ak, bk, g, cfg, akap,
+                      res.ws, q, res.pe, res.peln, ak, bk, g, cfg, akap,
                       kord_wz=cfg.kord_wz)
         delp, u, v, w, delz = rm.delp, rm.u, rm.v, rm.w, rm.delz
+        q = rm.q
         if last:
-            pt = rm.tv         # no energy fixer: the dry adiabatic step
+            pt = rm.tv         # no energy fixer
+            if zvir:
+                pt = pt / (1.0 + zvir * q["sphum"])
         else:
             ptv = rm.tv / rm.pkz
 
+    mp_diag = None
+    if q and not cfg.adiabatic and "liq_wat" in q:
+        pt, q = fv_sg.neg_adj3(pt, delp, q, hydrostatic=False)
+        if mp_cfg is not None:
+            pt, q, mp_diag = gfdl_mp.gfdl_mp_driver(
+                pt, delp, delz, q, cfg.dt, ptop, cfg=mp_cfg,
+                hydrostatic=False, w=w)
+            w = mp_diag.pop("w", w)
+
     return SimpleNamespace(delp=delp, pt=pt, u=u, v=v, w=w, delz=delz,
-                           q=q, ps=rm.ps, omga=_omega(conv, cfg.dt))
+                           q=q, ps=rm.ps, mp_diag=mp_diag,
+                           omga=_omega(conv, cfg.dt))

@@ -147,10 +147,16 @@ def state_from_arrays(arrays, dtype=torch.float32, device="cuda"):
     """The carry-across function: tensors on `device` for the numpy state
     arrays of `arrays` (the shallow-water delp, u, v, phis, uc, vc and the
     nonhydrostatic delp, pt, u, v, w, delz, phis with the ak, bk
-    coefficients: whichever are present), so both packages can run on
-    identical state."""
+    coefficients, and the tracer dict under "q": whichever are present), so
+    both packages can run on identical state."""
     dev = resolve_device(device)
-    return {k: torch.as_tensor(np.array(arrays[k], order="C"), dtype=dtype,
+
+    def t(a):
+        return torch.as_tensor(np.array(a, order="C"), dtype=dtype,
                                device=dev)
-            for k in STATE_NAMES if k in arrays}
+
+    out = {k: t(arrays[k]) for k in STATE_NAMES if k in arrays}
+    if "q" in arrays:
+        out["q"] = {k: t(a) for k, a in arrays["q"].items()}
+    return out
 

@@ -2,9 +2,10 @@
 PyTorch port.
 
 Counterpart of gfdl_atmos_cubed_sphere_tpu/ops/fv_mapz.py (FV3
-model/fv_operators.F90 cs_profile:919, cs_limiters:1303, map1_ppm:137) for
-the kord/iv pairs the nonhydrostatic remap uses: kord 8 with iv = 1 and
-iv = -1, kord 9 with iv = -2. The level axis is LAST. No TPU kernel runs
+model/fv_operators.F90 cs_profile:919, cs_limiters:1303, map1_ppm:137,
+mapn_tracer:234; model/fv_fill.F90 fillz:34) for the kord/iv pairs the
+nonhydrostatic remap uses: kord 8 with iv = 1, iv = -1 and (the tracers)
+iv = 0, kord 9 with iv = -2. The level axis is LAST. No TPU kernel runs
 here; the tridiagonal sweeps are Python loops over levels.
 
 The reconstruction produces per-layer PPM coefficients (al, ar, a6) with
@@ -73,7 +74,25 @@ def _tridiag_interfaces(a1, delp, qs, iv):
 
 
 def _cs_limiter(a1, al, ar, a6, extm, iv):
-    """cs_limiters (fv_operators.F90:1303) for iv = 1 and 2."""
+    """cs_limiters (fv_operators.F90:1303) for iv = 0, 1 and 2."""
+    zero = torch.zeros((), dtype=a1.dtype, device=a1.device)
+    if iv == 0:
+        # positive-definite: flatten or one-side a profile whose minimum
+        # dips below zero; a non-positive mean gives a constant layer
+        da1 = ar - al
+        cond = (torch.abs(da1) < -a6) & (
+            a1 + 0.25 * da1 * da1 / torch.where(a6 == 0, 1.0, a6)
+            + a6 * R12 < 0.0)
+        both = (a1 < ar) & (a1 < al)
+        up = ar > al
+        al_n = torch.where(both, a1, torch.where(up, al, ar - 3.0 * (ar - a1)))
+        ar_n = torch.where(both, a1, torch.where(up, al - 3.0 * (al - a1), ar))
+        a6_n = torch.where(both, zero, torch.where(up, 3.0 * (al - a1),
+                                                   3.0 * (ar - a1)))
+        neg = a1 <= 0.0
+        return (torch.where(neg, a1, torch.where(cond, al_n, al)),
+                torch.where(neg, a1, torch.where(cond, ar_n, ar)),
+                torch.where(neg, zero, torch.where(cond, a6_n, a6)))
     if iv == 1:
         ext = (a1 - al) * (a1 - ar) >= 0.0
     else:
@@ -89,18 +108,18 @@ def _cs_limiter(a1, al, ar, a6, extm, iv):
     ar2 = torch.where(a6da < -da2, ar_lo, ar)
     a62 = torch.where(a6da < -da2, a6_lo,
                       torch.where(a6da > da2, a6_hi, a6))
-    zero = torch.zeros((), dtype=a1.dtype, device=a1.device)
     return (torch.where(ext, a1, al2), torch.where(ext, a1, ar2),
             torch.where(ext, zero, a62))
 
 
 def cs_profile(a1, delp, qs=None, iv=1, kord=8, qmin=None):
     """PPM/cubic-spline reconstruction (cs_profile / scalar_profile) for
-    kord 8 and 9 with iv in (1, -1, -2). a1, delp: [..., km]; qs: bottom BC
-    [...] (iv = -2). Returns (al, ar, a6): [..., km]."""
+    kord 8 and 9 with iv in (0, 1, -1, -2). a1: [..., km]; delp: [..., km],
+    or without a1's leading axes (the tracers of mapn_tracer share their
+    edges); qs: bottom BC [...] (iv = -2). Returns (al, ar, a6): [..., km]."""
     km = a1.shape[-1]
     akord = abs(kord)
-    if akord not in (8, 9) or iv not in (1, -1, -2):
+    if akord not in (8, 9) or iv not in (0, 1, -1, -2):
         raise NotImplementedError(
             f"cs_profile: kord {kord} with iv {iv} is not ported")
     if qs is None:
@@ -122,6 +141,8 @@ def cs_profile(a1, delp, qs=None, iv=1, kord=8, qmin=None):
     loc_max = gkm1 > 0.0
     q_max = torch.maximum(qmid, lo_m)
     q_min = torch.minimum(qmid, hi_m)
+    if iv == 0:
+        q_min = torch.clamp_min(q_min, 0.0)
     qmid_n = torch.where(gkm1 * gkp1 > 0.0,
                          torch.minimum(torch.maximum(qmid, lo_m), hi_m),
                          torch.where(loc_max, q_max, q_min))
@@ -137,7 +158,9 @@ def cs_profile(a1, delp, qs=None, iv=1, kord=8, qmin=None):
     extm = torch.cat([ext_edge[..., :1], ext_int, ext_edge[..., -1:]], -1)
 
     # ---- top boundary subgrid constraints --------------------------------
-    if iv == -1:
+    if iv == 0:
+        al = torch.cat([torch.clamp_min(al[..., :1], 0.0), al[..., 1:]], -1)
+    elif iv == -1:
         al = torch.cat([torch.where(al[..., :1] * a1[..., :1] <= 0.0, zero,
                                     al[..., :1]), al[..., 1:]], -1)
 
@@ -171,12 +194,16 @@ def cs_profile(a1, delp, qs=None, iv=1, kord=8, qmin=None):
         al_i = torch.where(noisy, a1, torch.where(nonmono, al_h, al))
         ar_i = torch.where(noisy, a1, torch.where(nonmono, ar_h, ar))
         a6_i = torch.where(noisy, zero, 3.0 * (2.0 * a1 - (al_i + ar_i)))
+    if iv == 0:
+        al_i, ar_i, a6_i = _cs_limiter(a1, al_i, ar_i, a6_i, extm, 0)
 
     # ---- layers 0, 1, km-2, km-1 use the monotone limiters ---------------
     a6_b = 3.0 * (2.0 * a1 - (al + ar))
     al0, ar0, a60 = _cs_limiter(a1, al, ar, a6_b, extm, 1)
     al1, ar1, a61 = _cs_limiter(a1, al, ar, a6_b, extm, 2)
-    if iv == -1:
+    if iv == 0:
+        ar_bot = torch.clamp_min(ar, 0.0)
+    elif iv == -1:
         ar_bot = torch.where(ar * a1 <= 0.0, zero, ar)
     else:
         ar_bot = ar
@@ -225,3 +252,53 @@ def map1_ppm(q, pe1, pe2, qs=None, iv=1, kord=8, qmin=None):
     al, ar, a6 = cs_profile(q, pe1[..., 1:] - pe1[..., :-1], qs=qs, iv=iv,
                             kord=abs(kord), qmin=qmin)
     return remap_ppm(q, pe1, pe2, al, ar, a6)
+
+
+def mapn_tracer(qstack, pe1, pe2, kord=8, fill=False):
+    """All tracers remapped at once (fv_operators.F90 mapn_tracer:234).
+    qstack: [nq, ..., km]; pe1 / pe2: [..., km+1] / [..., kn+1] edges shared
+    by the tracers. The positive-definite (iv = 0) reconstructions run over
+    the stacked axis; the overlap integration contracts three weight tables
+    W1, W2, W3 [points, kn+1, km], shared by the tracers, against the
+    (al, ar - al, a6) coefficients, as the JAX formulation does. The tables
+    are built in chunks of points so their size stays bounded at full
+    width; the arithmetic of each column is unchanged."""
+    dp1 = pe1[..., 1:] - pe1[..., :-1]
+    al, ar, a6 = cs_profile(qstack, dp1, iv=0, kord=abs(kord))
+    nq, km, kn1 = qstack.shape[0], qstack.shape[-1], pe2.shape[-1]
+    lead = pe1.shape[:-1]
+    coef = [c.reshape(nq, -1, km) for c in (al, ar - al, a6)]
+    p1, p2, d1 = (t.reshape(-1, t.shape[-1]) for t in (pe1, pe2, dp1))
+    chunk = max(1, _REMAP_CHUNK_ELEMS // (kn1 * km))
+    outs = []
+    for s0 in range(0, p1.shape[0], chunk):
+        e1, e2, dp = (t[s0:s0 + chunk] for t in (p1, p2, d1))
+        s = torch.clamp((e2[:, :, None] - e1[:, None, :-1]) / dp[:, None, :],
+                        0.0, 1.0)
+        s2 = s * s
+        w1 = dp[:, None, :] * s
+        w2 = dp[:, None, :] * 0.5 * s2
+        w3 = dp[:, None, :] * (0.5 * s2 - R3 * s2 * s)
+        # Q[q, p, n] = sum_k W[p, n, k] * coeff[q, p, k]
+        Q = sum(torch.einsum("pnk,qpk->qpn", w, c[:, s0:s0 + chunk])
+                for w, c in zip((w1, w2, w3), coef))
+        outs.append((Q[..., 1:] - Q[..., :-1]) / (e2[:, 1:] - e2[:, :-1]))
+    q2 = torch.cat(outs, 1).reshape(nq, *lead, kn1 - 1)
+    if fill:
+        q2 = fillz(q2, (pe2[..., 1:] - pe2[..., :-1]).expand(q2.shape))
+    return q2
+
+
+def fillz(q, dp):
+    """Vertical negative-tracer filler (fv_fill.F90 fillz:34) as the JAX
+    package writes it: top-down borrowing, exactly conservative; a debt left
+    at the bottom goes into the bottom layer. q, dp: [..., km]."""
+    qd = q * dp
+    debt = torch.zeros_like(qd[..., 0])
+    out = []
+    for k in range(q.shape[-1]):
+        avail = qd[..., k] + debt
+        out.append(torch.clamp_min(avail, 0.0))
+        debt = torch.clamp_max(avail, 0.0)
+    out[-1] = out[-1] + debt
+    return torch.stack(out, -1) / dp

@@ -1,17 +1,20 @@
 """The fv_tp_2d double PPM sweep: CUDA kernel wrapper and plain version.
 
 Replaces the TPU kernel tp2d_sweep_pallas
-(gfdl_atmos_cubed_sphere_tpu/ops/pallas_tp.py:177). The kernel,
-csrc/tp2d_sweep.cu, runs both directional sweeps of one (tile, level) face
-tile in one launch with its intermediates in shared memory. It is bound by
-device-memory bytes: it reads 12 planes (q, its two corner-filled copies,
-four wind planes, five metric planes) and writes 2, 14 f32 planes of
-[6, 1, 774, 774] at C768 (~0.2 GB, ~60 us at 3.35 TB/s); the function's own
-arguments and outputs (12 planes) bound it at ~51 us.
+(gfdl_atmos_cubed_sphere_tpu/ops/pallas_tp.py:177) in both its forms: q
+[6, K, P, P], and the batched-tracer q [6, T, K, P, P] of tracer_2d, whose
+wind and metric operands [6, 1, K or 1, ...] are shared by the T tracers
+(pallas_tp.py:217-245). The kernel, csrc/tp2d_sweep.cu, runs both
+directional sweeps of one (tile, tracer, level) face tile in one launch with
+its intermediates in shared memory. It is bound by device-memory bytes: it
+reads 12 planes (q, its two corner-filled copies, four wind planes, five
+metric planes) and writes 2, 14 f32 planes of [6, 1, 774, 774] at C768
+(~0.2 GB, ~60 us at 3.35 TB/s); the function's own arguments and outputs
+(12 planes) bound it at ~51 us. At C192L79 with T = 6 tracers the rank-5
+call moves ~2.8 GB (~0.8 ms).
 
 `tp2d_sweep` launches the kernel for a CUDA tensor and takes the plain
-version, `tp2d_sweep_ref`, only for a CPU tensor. The rank-4 form
-[6, K, P, P] is ported; the batched-tracer rank-5 form waits for tracer_2d.
+version, `tp2d_sweep_ref`, only for a CPU tensor.
 """
 
 import ctypes
@@ -25,13 +28,16 @@ from ..parallel.halo import copy_corners
 H = 3
 KERNEL_HORDS = (5, 6, 8, 10)
 
-#: kernel launches since the last reset (plain-version calls do not count)
+#: kernel launches since the last reset (plain-version calls do not count),
+#: and of those the launches on a rank-5 (batched-tracer) q
 launches = 0
+launches_rank5 = 0
 
 
 def reset_launches():
-    global launches
+    global launches, launches_rank5
     launches = 0
+    launches_rank5 = 0
 
 
 def tp2d_sweep_ref(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
@@ -71,8 +77,10 @@ def tp2d_sweep_ref(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
 def tp2d_sweep(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
                lim_fac=1.0, mfx=None, mfy=None):
     """Double sweep with cube-edge stencils: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor. q: [6, K, P, P]; the other
-    operands [6, K or 1, ...] as tp2d_sweep_ref takes them."""
+    tensor, the plain version for a CPU tensor. q: [6, K, P, P] with the
+    other operands [6, K or 1, ...], or q: [6, T, K, P, P] with the other
+    operands [6, T or 1, K or 1, ...]; the walls as tp2d_sweep_ref takes
+    them."""
     if not q.is_cuda:
         return tp2d_sweep_ref(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y,
                               dxa, dya, lim_fac=lim_fac, mfx=mfx, mfy=mfy)
@@ -82,27 +90,34 @@ def tp2d_sweep(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
 
 def _launch(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
             mfx, mfy):
-    global launches
+    global launches, launches_rank5
     if hord not in KERNEL_HORDS:
         raise ValueError(f"tp2d_sweep kernel supports hord {KERNEL_HORDS}, "
                          f"not {hord}")
-    if q.ndim != 4 or q.shape[0] != 6:
-        raise ValueError(f"tp2d_sweep kernel takes q [6, K, P, P], got "
-                         f"{tuple(q.shape)}")
+    if q.ndim not in (4, 5) or q.shape[0] != 6:
+        raise ValueError(f"tp2d_sweep kernel takes q [6, K, P, P] or "
+                         f"[6, T, K, P, P], got {tuple(q.shape)}")
     if (mfx is None) != (mfy is None):
         raise ValueError("mfx and mfy come together")
-    K, P = q.shape[1], q.shape[-1]
+    rank5 = q.ndim == 5
+    # the rank-4 form is the rank-5 one with a single tracer
+    lift = (lambda a: a) if rank5 else (lambda a: a.unsqueeze(1))
+    T, K, P = (q.shape[1], q.shape[2], q.shape[-1]) if rank5 else \
+        (1, q.shape[1], q.shape[-1])
     n = P - 2 * H
     W = n + 1
     if n < 6:
         raise ValueError("tp2d_sweep kernel needs at least 6 cells per side")
+    if 6 * T * K > 65535:
+        raise ValueError(f"tp2d_sweep kernel: 6 x {T} tracers x {K} levels "
+                         f"exceeds the grid's z extent")
     qx = copy_corners(q, H, 1)
     qy = copy_corners(q, H, 2)
     ops = [q, qx, qy, crx, cry, xfx, yfx, area, ra_x, ra_y, dxa, dya,
            mfx, mfy]
     shapes = [(P, P), (P, P), (P, P), (P, W), (W, P), (P, W), (W, P),
               (P, P), (P, n), (n, P), (P, P), (P, P), (n, W), (W, n)]
-    ptrs, kvar = [], 0
+    ptrs, tvar, kvar = [], 0, 0
     for b, (a, shp) in enumerate(zip(ops, shapes)):
         if a is None:
             ptrs.append(None)
@@ -110,27 +125,35 @@ def _launch(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
         if not a.is_cuda or a.device != q.device or a.dtype != q.dtype:
             raise ValueError(f"tp2d_sweep operand {b}: device/dtype differ "
                              f"from q")
-        if (a.ndim != 4 or a.shape[0] != 6 or a.shape[1] not in (1, K)
-                or tuple(a.shape[2:]) != shp):
+        if a.ndim != q.ndim:
+            raise ValueError(f"tp2d_sweep operand {b}: rank {a.ndim}, q has "
+                             f"rank {q.ndim}")
+        a = lift(a)
+        if (a.shape[0] != 6 or a.shape[1] not in (1, T)
+                or a.shape[2] not in (1, K) or tuple(a.shape[3:]) != shp):
             raise ValueError(f"tp2d_sweep operand {b}: shape "
-                             f"{tuple(a.shape)}, want [6, 1|{K}, {shp}]")
-        if not a.is_contiguous():
-            a = a.contiguous()
-            ops[b] = a
-        if a.shape[1] == K and K > 1:
+                             f"{tuple(a.shape)}, want [6, 1|{T}, 1|{K}, "
+                             f"{shp}]")
+        a = a.contiguous()
+        ops[b] = a
+        if a.shape[1] == T and T > 1:
+            tvar |= 1 << b
+        if a.shape[2] == K and K > 1:
             kvar |= 1 << b
         ptrs.append(a.data_ptr())
-    fx = torch.empty((6, K, n, W), dtype=q.dtype, device=q.device)
-    fy = torch.empty((6, K, W, n), dtype=q.dtype, device=q.device)
+    lead = (6, T, K) if rank5 else (6, K)
+    fx = torch.empty(lead + (n, W), dtype=q.dtype, device=q.device)
+    fy = torch.empty(lead + (W, n), dtype=q.dtype, device=q.device)
     lib = _build.library("tp2d_sweep")
     fn = lib.tp2d_sweep
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-                   ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+                   ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     arr = (ctypes.c_void_p * 14)(*ptrs)
-    rc = fn(arr, fx.data_ptr(), fy.data_ptr(), n, K, kvar,
+    rc = fn(arr, fx.data_ptr(), fy.data_ptr(), n, T, K, tvar, kvar,
             8 if hord == 10 else hord, hord, int(mfx is not None),
             _build.dtype_code(q), _build.stream_ptr(q))
     _build.check(rc, "tp2d_sweep")
     launches += 1
+    launches_rank5 += int(rank5)
     return fx, fy
