@@ -5,13 +5,16 @@
 Builds the port's CUDA kernels from gfdl_atmos_cubed_sphere_tpu_torch/csrc/
 (nvcc, one process per source, all started together, into
 build/torch_kernels/), then runs its phases and exits non-zero on the first
-failure. Three main paths run on the card: the shallow-water step
+failure. Four main paths run on the card: the shallow-water step
 (sw_c768), the dry nonhydrostatic big step fv_dynamics_nh at C192L79
-(c192_nh made dry: q = {}, no moist physics) and the moist c192_nh headline
+(c192_nh made dry: q = {}, no moist physics), the moist c192_nh headline
 step (bench.py's six GFDL-MP tracers, MPConfig(): tracer_2d on the rank-5
-tp sweep kernel, the tracer remap, neg_adj3 and the GFDL microphysics).
+tp sweep kernel, the tracer remap, neg_adj3 and the GFDL microphysics) and
+the moist hydrostatic c192_hydro step fv_dynamics_hydro (bench.py:34-35:
+the hydrostatic forms of c_sw and d_sw, the column kernels pgradc_fused,
+pkgz and geopk, one_grad_p's batched a2b, the same tracers and physics).
 
-1. build: the seconds nvcc took for the seven sources;
+1. build: the seconds nvcc took for the eight sources;
 2. each kernel against its plain PyTorch version on the card, on the inputs
    the main paths hand it (the first call of each wrapper at each call
    shape, captured, with the calls at that shape counted: on the NH path
@@ -24,7 +27,12 @@ tp sweep kernel, the tracer remap, neg_adj3 and the GFDL microphysics).
    n_split = 2), dry and moist: the moist steps add the rank-5 tp sweep
    (tracer_2d's [6, 6, K, P, P] tracers with shared [6, 1, K, ...] winds),
    timed at C192L79, and every other NH kernel is checked again on the
-   moist inputs. Tolerance per output: max |diff| <= 1e-4 x max |ref| in
+   moist inputs; the c_sw (hydrostatic form), d_sw fluxes (hydrostatic
+   form), d_sw winds, pgradc_fused, pkgz, geopk, tp sweep (rank 5) and a2b
+   (one_grad_p's [6, 2(K+1), P, P]) kernels on one C192L79 float32 and one
+   C24L10 float64 c192_hydro step, all timed at C192L79, and
+   fv_tp_2d_kernel, which no path calls, on that step's d_sw pt-transport
+   operands. Tolerance per output: max |diff| <= 1e-4 x max |ref| in
    float32 (the count of points over 1e-6 relative is printed: a limiter
    branch may flip under float32 rounding) and <= 1e-12 in float64; the
    non-finite points (NaN in the cube-corner halo) must coincide. Each
@@ -35,14 +43,21 @@ tp sweep kernel, the tracer remap, neg_adj3 and the GFDL microphysics).
 3. the SW step (case 2, C48, float64, n_split=2, 4 steps) and the NH big
    step (C24L10, float64, dt = 900 s, k_split = 1, n_split = 2, 2 steps)
    on the card with the kernels against the same port on the CPU with the
-   plain versions, dry and moist (the six tracers and the GFDL MP), each
-   field against its own maximum: <= 1e-10 on the SW delp, u, v and the NH
-   delp, pt, u, v, delz and the six tracers, and <= 5e-9 on the NH w.
-   w is the ill-conditioned field: it carries the nonhydrostatic pressure
-   perturbation, a difference of ~1e5 Pa quantities, so last-bit
-   differences between the card's and the CPU's exp/log move it by some
-   1e-10 of its maximum (devtools/nh_w_conditioning.py measures how far
-   on the CPU). As a control, the same two big steps run on the card in
+   plain versions, dry and moist (the six tracers and the GFDL MP), and
+   the moist hydrostatic big step likewise, each field against its own
+   maximum: <= 1e-10 on the SW delp, u, v, the NH delp, pt, u, v, delz,
+   the hydrostatic delp, pt, u, v and the six tracers but for the
+   hydrostatic ice_wat, <= 5e-9 on the NH w and <= 1e-8 on the hydrostatic
+   ice_wat. Those two are the ill-conditioned fields. w carries the
+   nonhydrostatic pressure perturbation, a difference of ~1e5 Pa
+   quantities, so last-bit differences between the card's and the CPU's
+   exp/log move it by some 1e-10 of its maximum. The moist steps make
+   only ~5e-9 kg/kg of ice in two steps, the remainder of the
+   microphysics' larger exchanges, and the same last-bit differences move
+   it by 3e-11 to 3.1e-9 of that maximum on the hydrostatic step (4e-11 to
+   9e-10 on the NH step, where the card reads under 1e-10;
+   devtools/nh_w_conditioning.py [--moist] [--hydro] measures how far on
+   the CPU). As a control, the same two big steps run on the card in
    float32; every field of the control must read over its limit, so the
    limits sit between a sound reading and a fault of float32 size;
 4. the full-width sw_c768 step (npx=769, n_split=1, case 2, float32):
@@ -71,13 +86,20 @@ tp sweep kernel, the tracer remap, neg_adj3 and the GFDL microphysics).
    pts*lev/s, device busy share, device ms by kernel and by op, wall ms
    by layer, peak device memory, each tracer_2d call's subcycle count
    nsplt). It asserts finite fields and tracers, the mass change, phase
-   5's launch counts and rank-5 tp2d_sweep launches = the sum of nsplt.
+   5's launch counts and rank-5 tp2d_sweep launches = the sum of nsplt;
+7. the moist c192_hydro step at full width (C192L79, float32, dt = 450 s,
+   k_split = 1, n_split = 6, DynConfig's defaults otherwise, the moist
+   state of phase 6) as phase 6: launch counts per big step of c_sw 6,
+   d_sw fluxes 6, d_sw winds 6, pgradc_fused 6, pkgz 6, geopk 1,
+   a2b_ord4 6, sim1 0, and rank-5 tp2d_sweep launches = the sum of nsplt.
 
 Before the last line it prints the card's name and power limit and one JSON
-line with each kernel's launches (for the NH kernels those of phase 6, the
-moist path), error and times; for a kernel its path calls at several
-shapes, ms, plain_ms, bound_ms and kernel_ms are means per launch weighted
-by the calls at each shape, and "shapes" lists each shape's own numbers. The last line is
+line with each kernel's launches (those of its path's timed phase: 6 for
+the NH kernels, 7 for the column kernels and fv_tp_2d, which no path
+calls), error and times, and the kernel's numbers on the other paths it
+runs on; for a kernel its path calls at several shapes, ms, plain_ms,
+bound_ms and kernel_ms are means per launch weighted by the calls at each
+shape, and "shapes" lists each shape's own numbers. The last line is
 {"ok": true, "device": {...}}. It needs one CUDA card; without one it exits
 with code 2 and prints no result.
 """
@@ -95,7 +117,8 @@ PEAK_FLOPS = {"float32": 67e12}    # H100 SXM, outside the tensor cores
 # source (the PPM limiter work dominates); far below the byte bound
 OPS_PER_POINT = {"tp2d_sweep": 200, "ke_section": 150, "a2b_ord4": 80,
                  "c_sw": 250, "d_sw_fluxes": 900, "d_sw_winds": 600,
-                 "sim1": 80}
+                 "sim1": 80, "pgradc_fused": 60, "pkgz": 30, "geopk": 40,
+                 "fv_tp_2d": 260}
 REPLACES = {
     "tp2d_sweep": "gfdl_atmos_cubed_sphere_tpu/ops/pallas_tp.py:177",
     "ke_section": "gfdl_atmos_cubed_sphere_tpu/ops/pallas_sw.py:34",
@@ -104,21 +127,39 @@ REPLACES = {
     "d_sw_fluxes": "gfdl_atmos_cubed_sphere_tpu/ops/pallas_dsw.py:155",
     "d_sw_winds": "gfdl_atmos_cubed_sphere_tpu/ops/pallas_dsw.py:155",
     "sim1": "gfdl_atmos_cubed_sphere_tpu/ops/pallas_nh.py:158",
+    "pgradc_fused": "gfdl_atmos_cubed_sphere_tpu/ops/pallas_col.py:234",
+    "pkgz": "gfdl_atmos_cubed_sphere_tpu/ops/pallas_col.py:301",
+    "geopk": "gfdl_atmos_cubed_sphere_tpu/ops/pallas_col.py:80",
+    "fv_tp_2d": "gfdl_atmos_cubed_sphere_tpu/ops/pallas_tp.py:80",
 }
+#: the CUDA source of each kernel where it is not csrc/<name>.cu
+SOURCE = {"pgradc_fused": "col_pressure", "pkgz": "col_pressure",
+          "geopk": "col_pressure", "fv_tp_2d": "tp2d_sweep"}
 SW_KERNELS = ("tp2d_sweep", "ke_section", "a2b_ord4")
 NH_KERNELS = ("c_sw", "d_sw_fluxes", "d_sw_winds", "sim1", "tp2d_sweep",
               "a2b_ord4")
+HYDRO_KERNELS = ("c_sw", "d_sw_fluxes", "d_sw_winds", "pgradc_fused", "pkgz",
+                 "geopk", "tp2d_sweep", "a2b_ord4")
 SW_PER_STEP = {"tp2d_sweep": 2, "ke_section": 1, "a2b_ord4": 3}
+# launches per big step at rank 4 (tracer_2d's rank-5 sweeps come on top:
+# one per subcycle); fv_tp_2d_kernel is on no path
 NH_PER_STEP = {"c_sw": 12, "d_sw_fluxes": 12, "d_sw_winds": 12, "sim1": 24,
-               "tp2d_sweep": 12, "a2b_ord4": 24, "ke_section": 0}
+               "tp2d_sweep": 12, "a2b_ord4": 24, "ke_section": 0,
+               "pgradc_fused": 0, "pkgz": 0, "geopk": 0, "fv_tp_2d": 0}
+HYDRO_PER_STEP = {"c_sw": 6, "d_sw_fluxes": 6, "d_sw_winds": 6, "sim1": 0,
+                  "tp2d_sweep": 0, "a2b_ord4": 6, "ke_section": 0,
+                  "pgradc_fused": 6, "pkgz": 6, "geopk": 1, "fv_tp_2d": 0}
 # position of the hord argument in the calls of the wrappers that take one
 HORD_ARG = {"tp2d_sweep": 3, "ke_section": 13}
 C768_DT = 225.0 / 8        # see phase 4 in the module docstring
-# NH card vs CPU, x each field's own maximum: 1e-10, and w's own limit (see
-# phase 3 in the module docstring)
-NH_CARD_TOL = {"w": 5e-9}
+# card vs CPU, x each field's own maximum: 1e-10, and the own limits of the
+# ill-conditioned fields, the NH w and the hydrostatic ice_wat (see phase 3
+# in the module docstring)
+CARD_TOL = {"NH": {"w": 5e-9}, "hydro": {"ice_wat": 1e-8}}
 NH_CFG = dict(hydrostatic=False, adiabatic=True, dddmp=0.2, d_con=1.0,
               do_vort_damp=True)
+# bench.py:34-35: c192_hydro takes DynConfig's defaults otherwise
+HYDRO_CFG = dict(hydrostatic=True, adiabatic=True)
 TRACERS = ("sphum", "liq_wat", "rainwat", "ice_wat", "snowwat", "graupel")
 
 
@@ -134,7 +175,7 @@ def require(cond, msg):
 def kernel_modules():
     """name: (module, wrapper attribute, plain version, launch count)."""
     from gfdl_atmos_cubed_sphere_tpu_torch.ops import (a2b, csw, dsw, ke,
-                                                       sim1, tp_sweep)
+                                                       pg_col, sim1, tp_sweep)
     return {
         "tp2d_sweep": (tp_sweep, "tp2d_sweep", tp_sweep.tp2d_sweep_ref,
                        lambda: tp_sweep.launches),
@@ -148,6 +189,14 @@ def kernel_modules():
         "d_sw_winds": (dsw, "d_sw_winds", dsw.d_sw_winds_ref,
                        lambda: dsw.launches["winds"]),
         "sim1": (sim1, "sim1", sim1.sim1_solver, lambda: sim1.launches),
+        "pgradc_fused": (pg_col, "pgradc_fused", pg_col.pgradc_fused_ref,
+                         lambda: pg_col.launches["pgradc_fused"]),
+        "pkgz": (pg_col, "pkgz", pg_col.pkgz_ref,
+                 lambda: pg_col.launches["pkgz"]),
+        "geopk": (pg_col, "geopk", pg_col.geopk_ref,
+                  lambda: pg_col.launches["geopk"]),
+        "fv_tp_2d": (tp_sweep, "fv_tp_2d_kernel", tp_sweep.fv_tp_2d_ref,
+                     lambda: tp_sweep.launches_fv_tp_2d),
     }
 
 
@@ -269,19 +318,20 @@ def device_ms_by_op(fn):
 
 
 def layer_ms(nh, state):
-    """Wall milliseconds of one NH big step by layer: the acoustic loops
-    (dyn_core_nh), the vertical remaps (remap_nh) and the rest, and on the
-    moist path the tracer transport (tracer_2d), neg_adj3 and the GFDL
-    microphysics (gfdl_mp_driver), each call synchronised before and after.
-    mapn_tracer, the tracers' share of remap_nh, is listed too and is not
-    subtracted again from the rest."""
+    """Wall milliseconds of one big step by layer: the acoustic loops
+    (dyn_core_nh or dyn_core_hydro), the vertical remaps (remap_nh or
+    remap_hydro) and the rest, and on the moist path the tracer transport
+    (tracer_2d), neg_adj3 and the GFDL microphysics (gfdl_mp_driver), each
+    call synchronised before and after. mapn_tracer, the tracers' share of
+    the remap, is listed too and is not subtracted again from the rest."""
     import torch
     from gfdl_atmos_cubed_sphere_tpu_torch.model import (dyn_core,
                                                          fv_dynamics,
                                                          tracer_2d)
     from gfdl_atmos_cubed_sphere_tpu_torch.ops import fv_mapz, fv_sg
     from gfdl_atmos_cubed_sphere_tpu_torch.physics import gfdl_mp
-    saved = [(dyn_core, "dyn_core_nh"), (fv_dynamics, "remap_nh")]
+    form = "hydro" if nh.hydro else "nh"
+    saved = [(dyn_core, f"dyn_core_{form}"), (fv_dynamics, f"remap_{form}")]
     if nh.moist:
         saved += [(tracer_2d, "tracer_2d"), (fv_sg, "neg_adj3"),
                   (gfdl_mp, "gfdl_mp_driver"), (fv_mapz, "mapn_tracer")]
@@ -358,7 +408,8 @@ def metric_operands(name, args):
     names = {"a2b_ord4": ("dxa", "dya", "a2b_corner_w", "edge_w_full",
                           "edge_e_full", "edge_s_full", "edge_n_full"),
              "c_sw": csw.METRICS, "d_sw_fluxes": dsw.FLUX_METRICS,
-             "d_sw_winds": dsw.WIND_METRICS}.get(name, ())
+             "d_sw_winds": dsw.WIND_METRICS,
+             "pgradc_fused": ("rdxc", "rdyc")}.get(name, ())
     return [getattr(g, nm) for nm in names]
 
 
@@ -435,6 +486,32 @@ def points_of(name, args, n):
     return lead * (n + 1) ** 2
 
 
+def check_call(label, name, args, kw, calls, n, tol, measure, sw=False):
+    """One kernel call against its plain version (and, if measure, its
+    times and bound): the record of that call shape with the calls the path
+    makes at it per step."""
+    mod, attr, plain, _ = kernel_modules()[name]
+    shp = list(call_shape(args))
+    err, got = compare(f"{label} {shp} x{calls}", name, args, kw, n, tol,
+                       sw=sw)
+    rec = {"shape": shp, "calls": calls, "max_abs_err": err}
+    if measure:
+        wrapper = getattr(mod, attr)
+        ms = time_ms(lambda: wrapper(*args, **kw))
+        plain_ms = time_ms(lambda: plain(*args, **kw), reps=5, warm=1)
+        bound, by = kernel_bound_ms(name, args, kw, got,
+                                    points_of(name, args, n),
+                                    str(got[0].dtype).split(".")[-1])
+        kms = own_kernels_ms(device_ms_by_kernel(
+            lambda: wrapper(*args, **kw))[0])
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   kernel_ms=kms)
+        log(f"    {name} {shp}: wrapper {ms:.4f} ms (kernel alone {kms} "
+            f"ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+            f"{calls} calls per step")
+    return rec
+
+
 def check_kernels(cap, names, n, tol, label, measure, sw=False):
     """Kernel against plain version on the captured inputs, at every call
     shape the main path gave it. Returns {name: [record per shape]}, each
@@ -442,29 +519,12 @@ def check_kernels(cap, names, n, tol, label, measure, sw=False):
     and (if measure is True, or measure(name, shape) is) the times."""
     recs = {}
     for name in names:
-        mod, attr, plain, _ = kernel_modules()[name]
         require(name in cap.args, f"{label}: main path never reached {name}")
-        recs[name] = []
-        for shp, (args, kw) in cap.args[name].items():
-            calls = cap.calls[name][shp]
-            err, got = compare(f"{label} {list(shp)} x{calls}", name, args,
-                               kw, n, tol, sw=sw)
-            rec = {"shape": list(shp), "calls": calls, "max_abs_err": err}
-            if measure is True or (callable(measure) and measure(name, shp)):
-                wrapper = getattr(mod, attr)
-                ms = time_ms(lambda: wrapper(*args, **kw))
-                plain_ms = time_ms(lambda: plain(*args, **kw), reps=5, warm=1)
-                bound, by = kernel_bound_ms(name, args, kw, got,
-                                            points_of(name, args, n),
-                                            str(got[0].dtype).split(".")[-1])
-                kms = own_kernels_ms(device_ms_by_kernel(
-                    lambda: wrapper(*args, **kw))[0])
-                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                           bound_by=by, kernel_ms=kms)
-                log(f"    {name} {list(shp)}: wrapper {ms:.4f} ms (kernel "
-                    f"alone {kms} ms), plain {plain_ms:.4f} ms, bound "
-                    f"{bound:.4f} ms ({by}); {calls} calls per step")
-            recs[name].append(rec)
+        recs[name] = [
+            check_call(label, name, args, kw, cap.calls[name][shp], n, tol,
+                       measure is True or (callable(measure)
+                                           and measure(name, shp)), sw=sw)
+            for shp, (args, kw) in cap.args[name].items()]
     return recs
 
 
@@ -475,12 +535,15 @@ def per_launch(shapes):
     error, the bound_by of the shape with the largest summed bound, and the
     device ms per step of the kernel alone (kernel ms x calls, summed)."""
     calls = sum(s["calls"] for s in shapes)
+    # a kernel no path calls (fv_tp_2d) weighs its shapes alike
+    wts = [s["calls"] for s in shapes] if calls else [1] * len(shapes)
     out = {"max_abs_err": max(s["max_abs_err"] for s in shapes)}
     for key in ("ms", "plain_ms", "bound_ms", "kernel_ms"):
         vals = [s.get(key) for s in shapes]
         out[key] = (None if None in vals else
-                    sum(v * s["calls"] for v, s in zip(vals, shapes)) / calls)
-    out["bound_by"] = max(shapes, key=lambda s: s["bound_ms"] * s["calls"])[
+                    sum(v * w for v, w in zip(vals, wts)) / sum(wts))
+    out["bound_by"] = max(zip(shapes, wts),
+                          key=lambda sw: sw[0]["bound_ms"] * sw[1])[0][
         "bound_by"]
     out["kernel_ms_per_step"] = (None if out["kernel_ms"] is None
                                  else out["kernel_ms"] * calls)
@@ -523,18 +586,17 @@ def sw_setup(npx, dtype, device, geom=None):
     return g, geom, state, t_metrics
 
 
-class NHCase:
-    """The nonhydrostatic big step fv_dynamics_nh on one grid:
-    Jablonowski-Williamson baroclinic wave (perturbed) on set_eta(K),
-    dp0 = diff(ak) + diff(bk) * 1e5 (bench.py:83). Dry: q = {}. Moist
-    (bench.py:64-73, 88): the moist wave, adiabatic = False, sphum from it
-    and the other five GFDL-MP tracers at 1e-6, MPConfig(). The state is
-    the list of NAMES, then the tracers of TRACERS when moist."""
-
-    NAMES = ("delp", "pt", "u", "v", "w", "delz")
+class BigStep:
+    """The big step on one grid: fv_dynamics_nh, or fv_dynamics_hydro when
+    hydro. Jablonowski-Williamson baroclinic wave (perturbed) on
+    set_eta(K), dp0 = diff(ak) + diff(bk) * 1e5 (bench.py:83). Dry: q = {}.
+    Moist (bench.py:64-80, 88): the moist wave, adiabatic = False, sphum
+    from it and the other five GFDL-MP tracers at 1e-6, MPConfig(). The
+    state is the list of fields (delp, pt, u, v, and w, delz on the
+    nonhydrostatic path), then the tracers of TRACERS when moist."""
 
     def __init__(self, npx, npz, dt, k_split, n_split, dtype, device,
-                 geom=None, ic=None, moist=False):
+                 geom=None, ic=None, moist=False, hydro=False):
         from gfdl_atmos_cubed_sphere_tpu_torch.grid.fv_eta import set_eta
         from gfdl_atmos_cubed_sphere_tpu_torch.grid.metrics import (
             build_grid_geometry)
@@ -551,6 +613,9 @@ class NHCase:
         import numpy as np
         t0 = time.perf_counter()
         self.moist = moist
+        self.hydro = hydro
+        self.fields = ("delp", "pt", "u", "v") + (() if hydro
+                                                  else ("w", "delz"))
         self.geom = geom or build_grid_geometry(npx, ng=H)
         _, self.ptop, self.ak, self.bk = set_eta(npz)
         self.ic = ic or jw_baroclinic(self.geom, npz, self.ak, self.bk,
@@ -560,7 +625,7 @@ class NHCase:
                  for nm in TRACERS}
             q["sphum"] = self.ic["sphum"]
             self.ic = dict(self.ic, q=q)
-        self.names = self.NAMES + (TRACERS if moist else ())
+        self.names = self.fields + (TRACERS if moist else ())
         self.mp_cfg = MPConfig() if moist else None
         self.t_setup = time.perf_counter() - t0
         self.g = build_grid_ops(npx, dtype=dtype, device=device,
@@ -569,32 +634,44 @@ class NHCase:
         self.dp0 = np.diff(self.ak) + np.diff(self.bk) * 1.0e5
         self.cfg = DynConfig(npx=npx, npz=npz, dt=dt, k_split=k_split,
                              n_split=n_split,
-                             **dict(NH_CFG, adiabatic=not moist))
+                             **dict(HYDRO_CFG if hydro else NH_CFG,
+                                    adiabatic=not moist))
         st = state_from_arrays(self.ic, dtype=dtype, device=device)
-        self.state = [st[k] for k in self.NAMES] + [
-            st["q"][k] for k in self.names[len(self.NAMES):]]
+        self.state = [st[k] for k in self.fields] + [
+            st["q"][k] for k in self.names[len(self.fields):]]
 
     def step(self, state):
         from gfdl_atmos_cubed_sphere_tpu_torch.model.fv_dynamics import (
-            fv_dynamics_nh)
-        nf = len(self.NAMES)
+            fv_dynamics_hydro, fv_dynamics_nh)
+        nf = len(self.fields)
         q = dict(zip(self.names[nf:], state[nf:]))
-        r = fv_dynamics_nh(*state[:nf], q, self.g, self.cfg, self.ak,
-                           self.bk, self.ptop, self.dp0, mp_cfg=self.mp_cfg)
-        return ([getattr(r, k) for k in self.NAMES]
+        if self.hydro:
+            r = fv_dynamics_hydro(*state[:nf], q, self.g, self.cfg, self.ak,
+                                  self.bk, self.ptop, mp_cfg=self.mp_cfg)
+        else:
+            r = fv_dynamics_nh(*state[:nf], q, self.g, self.cfg, self.ak,
+                               self.bk, self.ptop, self.dp0,
+                               mp_cfg=self.mp_cfg)
+        return ([getattr(r, k) for k in self.fields]
                 + [r.q[k] for k in self.names[nf:]])
 
+    @property
+    def label(self):
+        return (("hydro " if self.hydro else "NH ")
+                + ("moist" if self.moist else "dry"))
 
-def nh_card_vs_cpu(card_case):
+
+def card_vs_cpu(card_case):
     """Two C24L10 float64 big steps of `card_case` on the card against the
     same steps of the port on the CPU, each field (and tracer) against its
     own maximum; the same steps on the card in float32 are the control and
     must read over every limit."""
     import torch
-    kw = dict(geom=card_case.geom, ic=card_case.ic, moist=card_case.moist)
-    cpu = NHCase(25, 10, 900.0, 1, 2, torch.float64, "cpu", **kw)
-    f32 = NHCase(25, 10, 900.0, 1, 2, torch.float32, "cuda", **kw)
-    label = "moist" if card_case.moist else "dry"
+    kw = dict(geom=card_case.geom, ic=card_case.ic, moist=card_case.moist,
+              hydro=card_case.hydro)
+    cpu = BigStep(25, 10, 900.0, 1, 2, torch.float64, "cpu", **kw)
+    f32 = BigStep(25, 10, 900.0, 1, 2, torch.float32, "cuda", **kw)
+    label = card_case.label
     scard, sc, sf = list(card_case.state), list(cpu.state), list(f32.state)
     for _ in range(2):
         scard = card_case.step(scard)
@@ -602,13 +679,13 @@ def nh_card_vs_cpu(card_case):
         sf = f32.step(sf)
     for nm, b in zip(card_case.names, sc):
         require(bool(torch.isfinite(b).all()),
-                f"NH {label} CPU step: NaN in {nm}")
+                f"{label} CPU step: NaN in {nm}")
     bad = []
     for nm, a, f, b in zip(card_case.names, scard, sf, sc):
         top = float(b.abs().max())
         r = float((a.cpu() - b).abs().max()) / top
         ctl = float((f.cpu().double() - b).abs().max()) / top
-        tol = NH_CARD_TOL.get(nm, 1e-10)
+        tol = CARD_TOL[label.split()[0]].get(nm, 1e-10)
         log(f"  C24L10 f64 {label} 2 big steps {nm}: card vs CPU {r:.3e} x "
             f"its max (tol {tol:g}); control, the card in float32: "
             f"{ctl:.3e}")
@@ -616,20 +693,22 @@ def nh_card_vs_cpu(card_case):
             bad.append(nm)
         require(ctl > tol, f"the control reads {nm} within its limit "
                            f"{tol:g}: the check could not tell a fault")
-    log(f"phase 3 NH {label} big step card vs CPU: over the limit "
+    log(f"phase 3 {label} big step card vs CPU: over the limit "
         f"{bad or 'none'}")
-    require(not bad, f"NH {label} step on the card disagrees with the CPU "
+    require(not bad, f"{label} step on the card disagrees with the CPU "
                      f"in {bad}")
 
 
-def nh_phase(label, case, state, mass0, card, shapes_nh):
+def step_phase(label, case, state, mass0, card, shapes, per_step, kernels):
     """The full-width C192L79 big step of `case`: 1 warm-up step (the
     captured step came before it), 5 timed steps behind a scalar readback
     barrier with the launch counts and tracer_2d's subcycle counts set to 0
     just before them and read just after, 1 step under the profiler, 1 by
     PyTorch op and 1 by layer. Fails on a non-finite field, a mass change
-    over 1e-5 or a launch count other than NH_PER_STEP's (the rank-5 tp
-    sweep: one launch per tracer_2d subcycle). Returns the launch counts."""
+    over 1e-5 or a launch count other than per_step's (the rank-5 tp
+    sweep: one launch per tracer_2d subcycle on top). shapes: the path's
+    kernel records by call shape (device ms by kernel). Returns the launch
+    counts."""
     import torch
     from gfdl_atmos_cubed_sphere_tpu_torch.model import tracer_2d
     from gfdl_atmos_cubed_sphere_tpu_torch.ops import tp_sweep
@@ -660,7 +739,7 @@ def nh_phase(label, case, state, mass0, card, shapes_nh):
             f"{label}: tracer_2d ran {len(nsplt)} times in {nsteps} steps")
     require(rank5 == sum(nsplt), f"{label}: {rank5} rank-5 tp2d_sweep "
                                  f"launches, tracer_2d subcycled {nsplt}")
-    for name, per in NH_PER_STEP.items():
+    for name, per in per_step.items():
         want = per * nsteps + (rank5 if name == "tp2d_sweep" else 0)
         require(launches[name] == want,
                 f"{label}: {name} launched {launches[name]} times in "
@@ -673,15 +752,14 @@ def nh_phase(label, case, state, mass0, card, shapes_nh):
         f"kernels {own}; top: " + "; ".join(f"{k[:60]} {v:.3f}"
                                           for k, v in top))
     per_kernel = []
-    for nm in NH_KERNELS:
-        shapes = [sh for sh in shapes_nh[nm]
-                  if case.moist or len(sh["shape"]) != 5]
-        rec = per_launch(shapes)
+    for nm in kernels:
+        shp = [sh for sh in shapes[nm] if case.moist or len(sh["shape"]) != 5]
+        rec = per_launch(shp)
         if rec["kernel_ms_per_step"] is None:
             continue
         per_kernel.append(f"{nm} {rec['kernel_ms_per_step']:.3f}" + "".join(
             f" ({sh['shape']}: {sh['kernel_ms']:.3f} x {sh['calls']})"
-            for sh in shapes if len(shapes) > 1))
+            for sh in shp if len(shp) > 1))
     log("  device ms per big step by kernel (kernel alone x calls, summed "
         "over call shapes): " + ", ".join(per_kernel))
     ops = device_ms_by_op(lambda: case.step(state))
@@ -691,6 +769,21 @@ def nh_phase(label, case, state, mass0, card, shapes_nh):
     log("  wall ms per big step by layer (synchronised): " + ", ".join(
         f"{k} {v:.1f}" for k, v in layer_ms(case, state).items()))
     return launches
+
+
+def fv_tp_2d_operands(cap):
+    """fv_tp_2d_kernel's arguments for d_sw's pt transport on the captured
+    step: the first fluxes-stage call's pt, delp and keywords, and the
+    Courant numbers, area and mass fluxes that stage computes from them
+    (its kernel, launched here outside any counted run)."""
+    from gfdl_atmos_cubed_sphere_tpu_torch.ops import dsw
+    (delp, pt, w, uc, vc, g), kw = next(iter(cap.args["d_sw_fluxes"]
+                                             .values()))
+    fl = dsw.d_sw_fluxes(delp, pt, w, uc, vc, g, **kw)
+    args = [pt, fl.crx, fl.cry, kw["hord_tm"], fl.xfx, fl.yfx, g.area,
+            fl.ra_x, fl.ra_y, g.dxa, g.dya]
+    return args, dict(mfx=fl.fx, mfy=fl.fy, nord=kw["nord_v"],
+                      damp_c=kw["damp_v"], g=g, mass=delp)
 
 
 def mass(g, delp):
@@ -714,6 +807,20 @@ def timed_steps(step, state, nsteps):
         state = list(step(state))
     float(torch.sum(state[0]))                           # readback barrier
     return (time.perf_counter() - t0) / nsteps, state
+
+
+def captured_calls(label, cap, per_step, nsplt):
+    """The calls of each wrapper in a captured big step: per_step's at rank
+    4 and one rank-5 tp sweep per tracer_2d subcycle."""
+    for name, per in per_step.items():
+        calls = cap.calls.get(name, {})
+        got = sum(c for shp, c in calls.items() if len(shp) != 5)
+        require(got == per, f"{label}: {name} called {got} times at rank 4 "
+                            f"in the captured big step, expected {per}")
+    got = sum(c for shp, c in cap.calls.get("tp2d_sweep", {}).items()
+              if len(shp) == 5)
+    require(got == sum(nsplt), f"{label}: rank-5 tp2d_sweep called {got} "
+                               f"times, tracer_2d subcycled {nsplt}")
 
 
 def main():
@@ -763,18 +870,18 @@ def main():
         make_sw_step(g48, SWConfig(npx=49, dt=1800.0, n_split=2))(
             *st48, None, None)
 
-    nh = NHCase(193, 79, 450.0, 2, 6, torch.float32, "cuda")
+    nh = BigStep(193, 79, 450.0, 2, 6, torch.float32, "cuda")
     log(f"c192_nh grid + baroclinic state: host precompute "
         f"{nh.t_setup:.1f} s")
     nh_mass0 = mass(nh.g, nh.state[0])
     with Capture() as cap192:
         nh_state = nh.step(nh.state)
         float(torch.sum(nh_state[0]))
-    nh24 = NHCase(25, 10, 900.0, 1, 2, torch.float64, "cuda")
+    nh24 = BigStep(25, 10, 900.0, 1, 2, torch.float64, "cuda")
     with Capture() as cap24:
         nh24.step(nh24.state)
-    nhm = NHCase(193, 79, 450.0, 2, 6, torch.float32, "cuda", geom=nh.geom,
-                 moist=True)
+    nhm = BigStep(193, 79, 450.0, 2, 6, torch.float32, "cuda", geom=nh.geom,
+                  moist=True)
     log(f"c192_nh moist baroclinic state: host set-up {nhm.t_setup:.1f} s")
     nhm_mass0 = mass(nhm.g, nhm.state[0])
     tracer_2d.reset_nsplt()
@@ -782,10 +889,23 @@ def main():
         nhm_state = nhm.step(nhm.state)
         float(torch.sum(nhm_state[0]))
     nsplt192 = list(tracer_2d.nsplt_calls)
-    nh24m = NHCase(25, 10, 900.0, 1, 2, torch.float64, "cuda",
-                   geom=nh24.geom, moist=True)
+    nh24m = BigStep(25, 10, 900.0, 1, 2, torch.float64, "cuda",
+                    geom=nh24.geom, moist=True)
     with Capture() as cap24m:
         nh24m.step(nh24m.state)
+    # c192_hydro (bench.py:34-35): the moist state and geometry of phase 6
+    hy = BigStep(193, 79, 450.0, 1, 6, torch.float32, "cuda", geom=nh.geom,
+                 ic=nhm.ic, moist=True, hydro=True)
+    hy_mass0 = mass(hy.g, hy.state[0])
+    tracer_2d.reset_nsplt()
+    with Capture() as cap192h:
+        hy_state = hy.step(hy.state)
+        float(torch.sum(hy_state[0]))
+    nsplt192h = list(tracer_2d.nsplt_calls)
+    hy24 = BigStep(25, 10, 900.0, 1, 2, torch.float64, "cuda",
+                   geom=nh24.geom, ic=nh24m.ic, moist=True, hydro=True)
+    with Capture() as cap24h:
+        hy24.step(hy24.state)
     torch.cuda.synchronize()
 
     # ---- 2. kernels against their plain versions ----------------------------
@@ -800,10 +920,7 @@ def main():
     shapes_nh = check_kernels(cap192, NH_KERNELS, 192, 1e-4, "c192_nh f32",
                               measure=True)
     check_kernels(cap24, NH_KERNELS, 24, 1e-12, "C24L10 f64", measure=False)
-    for name, per in NH_PER_STEP.items():
-        got = sum(cap192.calls.get(name, {}).values())
-        require(got == per, f"c192_nh: {name} called {got} times in the "
-                            f"captured big step, expected {per}")
+    captured_calls("c192_nh", cap192, NH_PER_STEP, [])
     del cap192, cap24
     moist = check_kernels(
         cap192m, NH_KERNELS, 192, 1e-4, "c192_nh moist f32",
@@ -812,19 +929,24 @@ def main():
                   measure=False)
     shapes_nh["tp2d_sweep"] += [r for r in moist["tp2d_sweep"]
                                 if len(r["shape"]) == 5]
-    for name, per in NH_PER_STEP.items():
-        calls = cap192m.calls.get(name, {})
-        got = sum(c for shp, c in calls.items() if len(shp) != 5)
-        require(got == per, f"c192_nh moist: {name} called {got} times at "
-                            f"rank 4 in the captured big step, expected {per}")
-    got = sum(c for shp, c in cap192m.calls["tp2d_sweep"].items()
-              if len(shp) == 5)
-    require(got == sum(nsplt192),
-            f"c192_nh moist: rank-5 tp2d_sweep called {got} times, tracer_2d "
-            f"subcycled {nsplt192}")
+    captured_calls("c192_nh moist", cap192m, NH_PER_STEP, nsplt192)
     del cap192m, cap24m
+    shapes_hy = check_kernels(cap192h, HYDRO_KERNELS, 192, 1e-4,
+                              "c192_hydro f32", measure=True)
+    check_kernels(cap24h, HYDRO_KERNELS, 24, 1e-12, "C24L10 hydro f64",
+                  measure=False)
+    # fv_tp_2d_kernel, which no path calls, on the hydro step's d_sw pt
+    # transport operands
+    shapes_hy["fv_tp_2d"] = [check_call(
+        "c192_hydro f32", "fv_tp_2d", *fv_tp_2d_operands(cap192h), 0, 192,
+        1e-4, measure=True)]
+    check_call("C24L10 hydro f64", "fv_tp_2d", *fv_tp_2d_operands(cap24h), 0,
+               24, 1e-12, measure=False)
+    captured_calls("c192_hydro moist", cap192h, HYDRO_PER_STEP, nsplt192h)
+    del cap192h, cap24h
     recs_sw = {k: per_launch(v) for k, v in shapes_sw.items()}
     recs_nh = {k: per_launch(v) for k, v in shapes_nh.items()}
+    recs_hy = {k: per_launch(v) for k, v in shapes_hy.items()}
 
     # ---- 3. card with kernels vs CPU with plain versions --------------------
     cfg48 = SWConfig(npx=49, dt=1800.0, n_split=2)
@@ -843,9 +965,9 @@ def main():
     require(worst <= 1e-10, "SW step on the card disagrees with the CPU")
     del g48, gcpu
 
-    for case in (nh24, nh24m):
-        nh_card_vs_cpu(case)
-    del nh24, nh24m
+    for case in (nh24, nh24m, hy24):
+        card_vs_cpu(case)
+    del nh24, nh24m, hy24
 
     # ---- 4. full width sw_c768 ----------------------------------------------
     state = list(step(state))                            # warm-up
@@ -874,37 +996,47 @@ def main():
     del g, state, sw_step
 
     # ---- 5. full width c192_nh (dry) ----------------------------------------
-    nh_launches = nh_phase("5 c192_nh dry f32", nh, nh_state, nh_mass0, card,
-                           shapes_nh)
+    nh_launches = step_phase("5 c192_nh dry f32", nh, nh_state, nh_mass0,
+                             card, shapes_nh, NH_PER_STEP, NH_KERNELS)
     del nh, nh_state
 
     # ---- 6. full width c192_nh moist (the headline step) --------------------
-    m_launches = nh_phase("6 c192_nh moist f32", nhm, nhm_state, nhm_mass0,
-                          card, shapes_nh)
+    m_launches = step_phase("6 c192_nh moist f32", nhm, nhm_state, nhm_mass0,
+                            card, shapes_nh, NH_PER_STEP, NH_KERNELS)
+    del nhm, nhm_state
+
+    # ---- 7. full width c192_hydro moist --------------------------------------
+    h_launches = step_phase("7 c192_hydro moist f32", hy, hy_state, hy_mass0,
+                            card, shapes_hy, HYDRO_PER_STEP, HYDRO_KERNELS)
 
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "kernel_ms")
+    paths = (("c192_nh moist", NH_KERNELS, recs_nh, shapes_nh, m_launches),
+             ("c192_hydro moist", HYDRO_KERNELS + ("fv_tp_2d",), recs_hy,
+              shapes_hy, h_launches),
+             ("sw_c768", SW_KERNELS, recs_sw, shapes_sw, sw_launches))
     for name in REPLACES:
-        on_nh = name in NH_KERNELS
-        rec = recs_nh[name] if on_nh else recs_sw[name]
-        launches = m_launches[name] if on_nh else sw_launches[name]
+        path, _, recs, shapes, launches = next(
+            p for p in paths if name in p[1])
+        rec = recs[name]
         entry = {
             "name": name, "route": "cuda",
-            "source": f"gfdl_atmos_cubed_sphere_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches,
+            "source": "gfdl_atmos_cubed_sphere_tpu_torch/csrc/"
+                      f"{SOURCE.get(name, name)}.cu",
+            "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
-            "kernel_ms": rec["kernel_ms"],
-            "path": "c192_nh moist" if on_nh else "sw_c768",
-            "shapes": (shapes_nh if on_nh else shapes_sw)[name]}
-        if on_nh:
+            "kernel_ms": rec["kernel_ms"], "path": path,
+            "shapes": shapes[name]}
+        if path == "c192_nh moist":
             entry["c192_nh_dry"] = {"launches": nh_launches[name]}
-        if on_nh and name in recs_sw:
-            sw = recs_sw[name]
-            entry["sw_c768"] = {"launches": sw_launches[name],
-                                **{k: sw[k] for k in keys},
-                                "shapes": shapes_sw[name]}
+        for other, _, orecs, oshapes, olaunches in paths:
+            if other != path and name in orecs:
+                entry[other.split()[0]] = {
+                    "launches": olaunches[name],
+                    **{k: orecs[name][k] for k in keys},
+                    "shapes": oshapes[name]}
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

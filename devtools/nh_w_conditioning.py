@@ -1,18 +1,21 @@
-"""How far last-bit differences in exp/log move the nonhydrostatic fields.
+"""How far last-bit differences in exp/log move the big step's fields.
 
-    python devtools/nh_w_conditioning.py
+    python devtools/nh_w_conditioning.py [--moist] [--hydro]
 
-Runs the port's dry fv_dynamics_nh on the CPU in float64 at chip_smoke's
-phase 3 setting (C24L10, dt = 900 s, k_split = 1, n_split = 2, two big
-steps from the perturbed Jablonowski-Williamson state), once as it is and
-then with the results of torch.exp and torch.log (and their Tensor methods)
-moved by one unit in the last place, up or down at random, on a share of
-their elements. Prints each field's max |difference| over its own maximum.
+Runs the port's fv_dynamics_nh (or, with --hydro, fv_dynamics_hydro) on the
+CPU in float64 at chip_smoke's phase 3 setting (C24L10, dt = 900 s,
+k_split = 1, n_split = 2, two big steps from the perturbed
+Jablonowski-Williamson state; --moist: the moist state with the six GFDL-MP
+tracers and MPConfig()), once as it is and then with the results of
+torch.exp and torch.log (and their Tensor methods) moved by one unit in
+the last place, up or down at random, on a share of their elements.
+Prints each field's and tracer's max |difference| over its own maximum.
 The card's and the CPU's math libraries may round exp and log differently
 in the last bit, so this is the spread a sound card-vs-CPU comparison can
 show; chip_smoke.py's limits sit above it.
 """
 
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -46,29 +49,36 @@ class NudgeExpLog(TorchFunctionMode):
         return torch.where(hit, torch.nextafter(out, to), out)
 
 
-def run(nh, steps=2):
-    st = list(nh.state)
+def run(case, steps=2):
+    st = list(case.state)
     for _ in range(steps):
-        st = nh.step(st)
+        st = case.step(st)
     return st
 
 
 def main():
     import chip_smoke as cs
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--moist", action="store_true")
+    ap.add_argument("--hydro", action="store_true")
+    opt = ap.parse_args()
     torch.set_num_threads(4)
-    nh = cs.NHCase(25, 10, 900.0, 1, 2, torch.float64, "cpu")
+    case = cs.BigStep(25, 10, 900.0, 1, 2, torch.float64, "cpu",
+                      moist=opt.moist, hydro=opt.hydro)
     t0 = time.perf_counter()
-    base = run(nh)
-    print(f"C24L10 f64, 2 big steps on the CPU: {time.perf_counter() - t0:.1f}"
-          f" s; max|w| {float(base[4].abs().max()):.4e}")
+    base = run(case)
+    print(f"C24L10 f64 {case.label}, 2 big steps on the CPU: "
+          f"{time.perf_counter() - t0:.1f} s; max|.| "
+          + ", ".join(f"{nm} {float(b.abs().max()):.4e}"
+                      for nm, b in zip(case.names, base)))
     for share in (0.01, 1.0):
-        for seed in (1, 2):
+        for seed in (1, 2, 3, 4):
             with NudgeExpLog(share, seed):
-                got = run(nh)
+                got = run(case)
             print(f"exp/log 1 ulp on {share:g} of elements, seed {seed}: "
                   + ", ".join(
                       f"{nm} {float((a - b).abs().max() / b.abs().max()):.3e}"
-                      for nm, a, b in zip(cs.NHCase.NAMES, got, base)),
+                      for nm, a, b in zip(case.names, got, base)),
                   flush=True)
 
 

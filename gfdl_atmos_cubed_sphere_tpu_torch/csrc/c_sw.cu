@@ -1,9 +1,11 @@
 // C-grid half step c_sw (FV3 model/sw_core.F90 c_sw:79 with d2a2c_vect:3006
-// and divergence_corner:1740), nonhydrostatic form, for Hopper.
+// and divergence_corner:1740), nonhydrostatic and hydrostatic forms, for
+// Hopper.
 //
 // Replaces the TPU kernel c_sw_pallas
 // (gfdl_atmos_cubed_sphere_tpu/ops/pallas_csw.py:58). Outputs: delpc, ptc,
-// wc, uc, vc, ua, va, the dt2-scaled area fluxes ut, vt and divg_d.
+// wc, uc, vc, ua, va, the dt2-scaled area fluxes ut, vt and divg_d. The
+// hydrostatic form (null w) transports no w and writes no wc.
 //
 // Bound on an H100: bytes. Per (tile, level) plane it reads 5 fields and
 // 27 metric planes (metrics are shared by the levels, so they come from
@@ -338,7 +340,7 @@ template <typename T> __global__ void k_cells(CswArgs<T> a) {
   FV_POINT(P, P, a.K);
   FLD(delp, P, P);
   FLD(pt, P, P);
-  FLD(w, P, P);
+  const T* w_ = a.w ? fv::plane(a.w, t, k, a.K, P, P) : nullptr;
   MET(rarea, P, P);
   const long long pl = blockIdx.z;
   const T* UT = a.ut + pl * P * W;
@@ -359,7 +361,7 @@ template <typename T> __global__ void k_cells(CswArgs<T> a) {
     };
     f1 = us * up(delp_);
     fp = f1 * up(pt_);
-    fw = f1 * up(w_);
+    fw = w_ ? f1 * up(w_) : T(0);
   };
   auto yfl = [&](int jj, T& f1, T& fp, T& fw) {
     const T vs = VT[jj * P + i];
@@ -370,7 +372,7 @@ template <typename T> __global__ void k_cells(CswArgs<T> a) {
     };
     f1 = vs * up(delp_);
     fp = f1 * up(pt_);
-    fw = f1 * up(w_);
+    fw = w_ ? f1 * up(w_) : T(0);
   };
   T x0, xp0, xw0, x1, xp1, xw1, y0, yp0, yw0, y1, yp1, yw1;
   xfl(i, x0, xp0, xw0);
@@ -383,7 +385,8 @@ template <typename T> __global__ void k_cells(CswArgs<T> a) {
   const long long o = (pl * P + j) * P + i;
   a.delpc[o] = dpc;
   a.ptc[o] = (pt_[j * P + i] * dp + (xp0 - xp1 + yp0 - yp1) * ra) / dpc;
-  a.wc[o] = (w_[j * P + i] * dp + (xw0 - xw1 + yw0 - yw1) * ra) / dpc;
+  if (w_)
+    a.wc[o] = (w_[j * P + i] * dp + (xw0 - xw1 + yw0 - yw1) * ra) / dpc;
 
   // KE (sw_core.F90:297-372) from the d2a2c uc, vc (before the update)
   FLD(u, W, P);
@@ -541,9 +544,10 @@ int run(const void* const* in, const void* const* met, void* const* out,
 
 }  // namespace
 
-// Plain C entry point. in: delp, pt, w [6,K,P,P], u [6,K,W,P], v [6,K,P,W];
-// met: the 27 metric planes in the order of Metrics; out: delpc, ptc, wc,
-// uc, vc, ua, va, ut, vt, divg_d (divg_d may be null when nord == 0);
+// Plain C entry point. in: delp, pt, w [6,K,P,P], u [6,K,W,P], v [6,K,P,W]
+// (w null for the hydrostatic form); met: the 27 metric planes in the order
+// of Metrics; out: delpc, ptc, wc, uc, vc, ua, va, ut, vt, divg_d (wc null
+// when w is, divg_d null when nord == 0);
 // work: utmp, vtmp, ke [6,K,P,P] and vort [6,K,W,W]. dtype 0 = float32,
 // 1 = float64. Returns cudaGetLastError after the last launch.
 extern "C" int c_sw(const void* const* in, const void* const* met,

@@ -1,12 +1,13 @@
 // d_sw fluxes stage (FV3 model/sw_core.F90 d_sw:494, lines 695-1062),
-// nonhydrostatic form, for Hopper.
+// nonhydrostatic and hydrostatic forms, for Hopper.
 //
 // Replaces the first of the two pallas_calls of the TPU kernel d_sw_pallas
 // (gfdl_atmos_cubed_sphere_tpu/ops/pallas_dsw.py:155, via _run_stage :98):
 // the contravariant winds ut, vt with their cube-edge forms and the 2x2
 // corner solve, the Courant numbers and area fluxes, and the PPM transport
 // of delp, w and pt with the del-n damping of delp and pt (two per-level
-// combos), the w damping and its heat source.
+// combos), the w damping and its heat source. The hydrostatic form (null
+// w) skips the w transport and damping: no w_new, no heat.
 //
 // Bound on an H100: bytes. Per (tile, level) plane it reads 5 fields and
 // 18 metric planes and writes 15 planes. Design: a sequence of launches of
@@ -349,11 +350,13 @@ __global__ void k_final(FluxArgs<T> a, const T* fx, const T* fy,
            * ra;
   };
   const long long c = (pl * P + j + H) * P + i + H;
-  const T dp = a.delp[c], p = a.pt[c], ww = a.w[c];
+  const T dp = a.delp[c], p = a.pt[c];
   const T dpn = dp + divc(fx, fy);
   const long long o = (pl * n + j) * n + i;
   delp_new[o] = dpn;
   pt_new[o] = (p * dp + divc(gxp, gyp)) / dpn;
+  if (w_new == nullptr) return;                // hydrostatic
+  const T ww = a.w[c];
   T wn = (dp * ww + divc(gxw, gyw)) / dpn;
   if (dw != nullptr) {
     const T d = dw[o];
@@ -455,11 +458,12 @@ int run(const void* const* in, const void* const* met, void* const* out,
   }
 
   // w damping (nord_w, damp_w) + (0, damp_w2) and its heat source
-  const bool wd = on_w || on_w2;
+  const bool hydro = a.w == nullptr;
+  const bool wd = !hydro && (on_w || on_w2);
   int first = 1;
   const int wcombos[2][3] = {{nord_w, on_w, 0}, {0, on_w2, 1}};
   for (const auto& cb : wcombos) {
-    if (!cb[1]) continue;
+    if (!cb[1] || hydro) continue;
     const T* d4 = cb[2] ? damp4_w2 : damp4_w;
     fv::deln_fluxes<T>(a.w, d4, cb[0], a.m.del6_u, a.m.del6_v, a.m.rarea,
                        w.fx2, w.fy2, w.d2, n, K, s);
@@ -469,7 +473,9 @@ int run(const void* const* in, const void* const* met, void* const* out,
   }
 
   // w and pt transport with the delp mass fluxes; pt damping in mass form
-  if ((rc = sweep(a, w, a.w, hord_vt, o.fx, o.fy, w.gxw, w.gyw, s))) return rc;
+  if (!hydro &&
+      (rc = sweep(a, w, a.w, hord_vt, o.fx, o.fy, w.gxw, w.gyw, s)))
+    return rc;
   if ((rc = sweep(a, w, a.pt, hord_tm, o.fx, o.fy, w.gxp, w.gyp, s)))
     return rc;
   for (const auto& cb : combos) {
@@ -484,17 +490,18 @@ int run(const void* const* in, const void* const* met, void* const* out,
   }
   k_final<T><<<fv::grid_for(n, n, planes), blk, 0, s>>>(
       a, o.fx, o.fy, w.gxw, w.gyw, w.gxp, w.gyp, wd ? w.dw : (const T*)nullptr,
-      dv[1], o.delp_new, o.pt_new, o.w_new, o.heat);
+      dv[1], o.delp_new, o.pt_new, hydro ? (T*)nullptr : o.w_new, o.heat);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point. in: delp, pt, w [6,K,P,P], uc [6,K,P,W], vc
-// [6,K,W,P]; met: the 18 metric planes in FluxMetrics order; out (14):
-// delp_new, pt_new, w_new [6,K,n,n], fx [6,K,n,n+1], fy [6,K,n+1,n], crx,
-// cry, xfx, yfx, ra_x, ra_y, ut, vt (full frames), heat [6,K,n,n] (may be
-// null without w damping); work (16): see Work; prof: the per-level
+// [6,K,W,P] (w null for the hydrostatic form); met: the 18 metric planes in
+// FluxMetrics order; out (14): delp_new, pt_new, w_new [6,K,n,n], fx
+// [6,K,n,n+1], fy [6,K,n+1,n], crx, cry, xfx, yfx, ra_x, ra_y, ut, vt (full
+// frames), heat [6,K,n,n] (w_new null when w is; heat null without w
+// damping); work (16): see Work; prof: the per-level
 // damping coefficients damp4_v, damp4_v2, damp4_w, damp4_w2 [K] (null when
 // off); iv, dv: see run. dtype 0 = float32, 1 = float64.
 extern "C" int d_sw_fluxes(const void* const* in, const void* const* met,

@@ -1,17 +1,22 @@
-"""Nonhydrostatic acoustic-loop core, PyTorch port.
+"""The acoustic-loop cores, PyTorch port.
 
 Counterpart of gfdl_atmos_cubed_sphere_tpu/model/dyn_core.py (FV3
-model/dyn_core.F90 dyn_core:94, p_grad_c:1635, nh_p_grad:1697) for the
-nonhydrostatic path: per acoustic iteration
+model/dyn_core.F90 dyn_core:94, geopk:2202, p_grad_c:1635, nh_p_grad:1697,
+one_grad_p:1909). Per acoustic iteration, nonhydrostatic:
   c_sw -> update_dz_c -> Riem_Solver_C -> p_grad_c -> d_sw ->
-  update_dz_d -> Riem_Solver3 -> nh_p_grad.
-c_sw, d_sw and the SIM1 column solve run through their kernel wrappers
-(ops/csw.py, ops/dsw.py, ops/sim1.py): the hand-written CUDA kernels for
-CUDA tensors, the plain versions for CPU tensors.
+  update_dz_d -> Riem_Solver3 -> nh_p_grad;
+hydrostatic:
+  c_sw -> geopk(C) + p_grad_c (pgradc_fused) -> d_sw -> geopk(D) (pkgz)
+  -> one_grad_p.
+c_sw, d_sw, the SIM1 column solve and the hydrostatic column pressures run
+through their kernel wrappers (ops/csw.py, ops/dsw.py, ops/sim1.py,
+ops/pg_col.py): the hand-written CUDA kernels for CUDA tensors, the plain
+versions for CPU tensors.
 
-Not ported (NotImplementedError): the hydrostatic core, the off-centred
-split_p_grad (beta > 0), mix_dp (fill_dp), ray_fast (rf_fast), the inline
-fast_phys hook, and the non-SIM1 Riemann solvers (a_imp <= 0.999).
+Not ported (NotImplementedError): the off-centred pressure gradients
+split_p_grad / grad1_p_update (beta > 0), the external-mode damping
+external_mode_divg2 (d_ext > 0), mix_dp (fill_dp), ray_fast (rf_fast), the
+inline fast_phys hook, and the non-SIM1 Riemann solvers (a_imp <= 0.999).
 
 Fields are [6, npz, y, x]; level-interface fields [6, npz+1, y, x].
 """
@@ -23,9 +28,10 @@ import numpy as np
 import torch
 
 from .. import constants as con
-from ..ops.sw_core import _cl, _cr, _rl, _rr
+from ..ops import pg_col
 from ..ops.a2b_edge import a2b_ord4
 from ..ops.fill_corners import fi
+from ..ops.pg_col import p_grad_c
 
 H = 3
 
@@ -280,32 +286,6 @@ def _sponge_level_params(cfg):
         nord_w=nv_base, nord_w2=0)
 
 
-def p_grad_c(uc, vc, delpc_p, pkc, gz, g, dt2, npx, hydrostatic=True):
-    """C-grid pressure-gradient wind update (dyn_core.F90 p_grad_c:1635).
-    hydrostatic: wk = pk(k+1) - pk(k) with pkc = pe**kappa;
-    nonhydrostatic: wk = delpc with pkc = full pressure. Returns new
-    tensors (uc, vc)."""
-    f = fi
-    wall_c = slice(f(1), f(npx) + 1)
-    cell_c = slice(f(1), f(npx - 1) + 1)
-    wk = (pkc[:, 1:] - pkc[:, :-1]) if hydrostatic else delpc_p
-    gz1 = gz[:, :-1]
-    gz2 = gz[:, 1:]
-    pk1 = pkc[:, :-1]
-    pk2 = pkc[:, 1:]
-    termx = ((_cl(gz2) - _cr(gz1)) * (_cr(pk2) - _cl(pk1))
-             + (_cl(gz1) - _cr(gz2)) * (_cl(pk2) - _cr(pk1)))
-    uc = uc.clone()
-    uc[..., cell_c, wall_c] += (dt2 * g.rdxc * termx
-                                / (_cl(wk) + _cr(wk)))[..., cell_c, wall_c]
-    termy = ((_rl(gz2) - _rr(gz1)) * (_rr(pk2) - _rl(pk1))
-             + (_rl(gz1) - _rr(gz2)) * (_rl(pk2) - _rr(pk1)))
-    vc = vc.clone()
-    vc[..., wall_c, cell_c] += (dt2 * g.rdyc * termy
-                                / (_rl(wk) + _rr(wk)))[..., wall_c, cell_c]
-    return uc, vc
-
-
 def nh_p_grad(u_acc, v_acc, pp, pk3, gz, delp_p, g, dt, npx, ptk):
     """Nonhydrostatic dual pressure gradient (dyn_core.F90 nh_p_grad:1696).
 
@@ -348,6 +328,47 @@ def nh_p_grad(u_acc, v_acc, pp, pk3, gz, delp_p, g, dt, npx, ptk):
     dv2 = grad(va_, vb_, dpB, pp1, pp2)
     u_new = (u_acc + du1 + du2) * g.rdx[..., wsl, ctr]
     v_new = (v_acc + dv1 + dv2) * g.rdy[..., ctr, wsl]
+    return u_new, v_new
+
+
+def _pg_terms(pk, gz, g, npx, ptk):
+    """B-grid setup of the hydrostatic D-grid pressure gradient
+    (one_grad_p:1909): one batched a2b_ord4 of (pk, gz) [6, 2(K+1), P, P],
+    pk's top interface set to ptk, and the cross-difference increments
+    du [6, K, n+1, n], dv [6, K, n, n+1]."""
+    f = fi
+    wsl = slice(f(1), f(npx) + 1)
+    Kp1 = pk.shape[1]
+    bothB = a2b_ord4(torch.cat([pk, gz], dim=1), g)
+    pkB = bothB[:, :Kp1].clone()
+    gzB = bothB[:, Kp1:]
+    pkB[:, 0] = ptk
+    wk = pkB[:, 1:] - pkB[:, :-1]
+    cl_ = slice(f(1), f(npx - 1) + 1)
+    cr_ = slice(f(2), f(npx) + 1)
+    gz1, gz2 = gzB[:, :-1], gzB[:, 1:]
+    pk1, pk2 = pkB[:, :-1], pkB[:, 1:]
+
+    def grad(a, b):
+        # a, b: the two index windows (along x for u, along y for v)
+        return ((gz2[a] - gz1[b]) * (pk2[b] - pk1[a])
+                + (gz1[a] - gz2[b]) * (pk2[a] - pk1[b])) / (wk[a] + wk[b])
+
+    du = grad((Ellipsis, wsl, cl_), (Ellipsis, wsl, cr_))
+    dv = grad((Ellipsis, cl_, wsl), (Ellipsis, cr_, wsl))
+    return du, dv
+
+
+def one_grad_p(u_acc, v_acc, pk, gz, g, dt, npx, ptk):
+    """Hydrostatic D-grid pressure gradient (dyn_core.F90 one_grad_p:1909)
+    without the external-mode term. pk, gz [6, K+1, Y, X] padded cell
+    interfaces; u_acc, v_acc: the d_sw winds in circulation form. Returns
+    the final interior D winds."""
+    ctr = slice(H, H + g.n)
+    wsl = slice(fi(1), fi(npx) + 1)
+    du, dv = _pg_terms(pk, gz, g, npx, ptk)
+    u_new = g.rdx[..., wsl, ctr] * (u_acc + dt * du)
+    v_new = g.rdy[..., ctr, wsl] * (v_acc + dt * dv)
     return u_new, v_new
 
 
@@ -469,3 +490,83 @@ def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
                            w=w_p[..., ctr, ctr], delz=zh[:, 1:] - zh[:, :-1],
                            zh=zh, ws=ws, mfx=mfx, mfy=mfy, cx=cx, cy=cy,
                            pe=pe, peln=peln, pk=torch.exp(akap * peln))
+
+
+def _check_hydro_config(cfg):
+    unsupported = {
+        "beta > 0 (grad1_p_update)": cfg.beta > 0.0,
+        "d_ext > 0 (external_mode_divg2)": cfg.d_ext > 0.0 and cfg.nord > 0,
+        "fill_dp (mix_dp)": cfg.fill_dp,
+        "rf_fast (ray_fast)": cfg.rf_fast and cfg.tau > 0.0,
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError("dyn_core_hydro: not ported: "
+                                  + ", ".join(bad))
+
+
+def dyn_core_hydro(delp, pt, u, v, g, cfg: DynConfig, akap, ptop, n_split,
+                   dt_acoustic):
+    """Hydrostatic acoustic loop (dyn_core.F90, hydrostatic=.true.): per
+    iteration c_sw -> geopk(C) + p_grad_c (pgradc_fused) -> d_sw ->
+    geopk(D) (pkgz) -> one_grad_p, as a Python loop over n_split.
+
+    delp, pt (theta_v): [6, K, n, n] interior; u, v D winds. The loop
+    carries PADDED (delp, pt): the one grouped cell exchange after d_sw
+    serves that iteration's pkgz and the next iteration's c_sw (the JAX
+    package's carried-pad schedule). Returns the updated fields, the
+    accumulated mass fluxes and Courant numbers, and geopk's pe, peln, pk,
+    gz, pkz of the final state on the padded frame."""
+    from ..ops.csw import c_sw
+    from ..ops.dsw import d_sw
+    _check_hydro_config(cfg)
+    halo = g.halo
+    npx = g.npx
+    n = g.n
+    ctr = slice(H, H + n)
+    wsl = slice(fi(1), fi(npx) + 1)
+    dt = dt_acoustic
+    dt2 = 0.5 * dt
+    ptk = ptop ** akap
+    phis_p = g.phis_p
+    pl = _sponge_level_params(cfg)
+    dsw_kw = dict(
+        dt=dt, hord_mt=cfg.hord_mt, hord_vt=cfg.hord_vt,
+        hord_dp=cfg.hord_dp, hord_tm=cfg.hord_tm, dddmp=cfg.dddmp,
+        d4_bg=cfg.d4_bg, lim_fac=cfg.lim_fac,
+        **{k: pl[k] for k in ("nord", "nord_v", "d2_bg", "d_con",
+                              "nord_mask", "damp_v", "damp_v2", "nord_v2")})
+
+    T, K = delp.shape[:2]
+    NC, NW = n + 2 * H, n + 1 + 2 * H
+
+    def zeros(*s):
+        return delp.new_zeros((T, K) + s)
+
+    mfx, mfy = zeros(n, n + 1), zeros(n + 1, n)
+    cx, cy = zeros(NC, NW), zeros(NW, NC)
+    delp_p, pt_p = halo.pad_cells((delp, pt))
+    for _ in range(n_split):
+        u, v = halo.reconcile_dgrid(u, v)
+        u_p, v_p = halo.pad_dgrid(u, v)
+        cs = c_sw(delp_p, pt_p, None, u_p, v_p, g, dt2, nord=cfg.nord)
+        uc, vc = pg_col.pgradc_fused(cs.delpc, cs.ptc, phis_p, cs.uc, cs.vc,
+                                     g, dt2, akap, ptop, npx)
+        uc_p, vc_p = halo.pad_cgrid(uc[..., ctr, wsl], vc[..., wsl, ctr])
+        divg_p = None
+        if cfg.nord > 0:
+            divg_p = halo.pad_corner(cs.divg_d[..., wsl, wsl])
+
+        ds = d_sw(delp_p, pt_p, None, u_p, v_p, uc_p, vc_p, cs.ua, cs.va,
+                  divg_p, g, **dsw_kw)
+        mfx, mfy = mfx + ds.fx, mfy + ds.fy
+        cx, cy = cx + ds.crx, cy + ds.cry
+        delp_p, pt_p = halo.pad_cells((ds.delp, ds.pt))
+        pk, gz = pg_col.pkgz(delp_p, pt_p, phis_p, akap, ptop)
+        u, v = one_grad_p(ds.u, ds.v, pk, gz, g, dt, npx, ptk)
+
+    u, v = halo.reconcile_dgrid(u, v)
+    pe, peln, pk, gz, pkz = pg_col.geopk(delp_p, pt_p, phis_p, akap, ptop)
+    return SimpleNamespace(delp=delp_p[..., ctr, ctr], pt=pt_p[..., ctr, ctr],
+                           u=u, v=v, mfx=mfx, mfy=mfy, cx=cx, cy=cy, pe=pe,
+                           peln=peln, pk=pk, gz=gz, pkz=pkz)

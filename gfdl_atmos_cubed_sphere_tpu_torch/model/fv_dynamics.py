@@ -1,18 +1,19 @@
-"""Nonhydrostatic FV3 dynamics driver: the k_split remap loop over the
-acoustic core, PyTorch port.
+"""FV3 dynamics drivers: the k_split remap loop over the acoustic core,
+nonhydrostatic and hydrostatic, PyTorch port.
 
 Counterpart of gfdl_atmos_cubed_sphere_tpu/model/fv_dynamics.py
-(fv_dynamics_nh, remap_nh; FV3 model/fv_dynamics.F90 and the
-nonhydrostatic branch of model/fv_mapz.F90 Lagrangian_to_Eulerian:56):
+(fv_dynamics_nh, remap_nh, fv_dynamics_hydro, remap_hydro; FV3
+model/fv_dynamics.F90 and model/fv_mapz.F90 Lagrangian_to_Eulerian:56):
 the acoustic loop, the large-timestep tracer transport (tracer_2d), the
 vertical remap with the tracers (mapn_tracer), the negative-moisture
 adjustment (neg_adj3) and the GFDL microphysics (gfdl_mp_driver). The
 Rayleigh sponges, the energy and angular-momentum fixers and the inline
 fast physics are not ported and raise NotImplementedError.
 
-State carried between calls: u, v (D winds), delp, pt = TEMPERATURE, w
-(m/s), delz (m, negative), the tracer dict q. Inside the step pt becomes
-virtual potential temperature and is converted back on the last remap.
+State carried between calls: u, v (D winds), delp, pt = TEMPERATURE, the
+tracer dict q, and on the nonhydrostatic path w (m/s) and delz (m,
+negative). Inside the step pt becomes virtual potential temperature and is
+converted back on the last remap.
 """
 
 from types import SimpleNamespace
@@ -52,6 +53,34 @@ def _omega(conv, dt):
     return torch.cumsum(conv, dim=1) / dt
 
 
+def _remap_tracers_winds(q, u, v, pe_pad, pe1, pe2, akl, bkl, g, cfg):
+    """The remap both paths share: the tracers on pe in one mapn_tracer
+    call, the winds on the pe of their walls (iv = -1). pe_pad: the padded
+    interface pressures before; pe1, pe2 [6, n, n, K+1] the cell
+    interfaces before and after; akl, bkl the hybrid coefficients. Returns
+    (q or None, u, v) in the level layout."""
+    n = g.n
+    ctr = slice(H, H + n)
+    wsl = slice(fi(1), fi(g.npx) + 1)
+    q_new = None
+    if q:
+        names = list(q.keys())
+        qk = fv_mapz.mapn_tracer(
+            torch.stack([_k_last(q[k]) for k in names], 0), pe1, pe2,
+            kord=cfg.kord_tr, fill=cfg.fill)
+        q_new = {k: _k_lev(qk[i]) for i, k in enumerate(names)}
+
+    pe_u0 = _k_last(0.5 * (pe_pad[..., wsl, ctr] + _rl(pe_pad)[..., wsl, ctr]))
+    pe_u1 = akl + bkl * pe_u0[..., -1:]
+    u_new = fv_mapz.map1_ppm(_k_last(u), pe_u0, pe_u1, iv=-1,
+                             kord=abs(cfg.kord_mt))
+    pe_v0 = _k_last(0.5 * (pe_pad[..., ctr, wsl] + _cl(pe_pad)[..., ctr, wsl]))
+    pe_v1 = akl + bkl * pe_v0[..., -1:]
+    v_new = fv_mapz.map1_ppm(_k_last(v), pe_v0, pe_v1, iv=-1,
+                             kord=abs(cfg.kord_mt))
+    return q_new, _k_lev(u_new), _k_lev(v_new)
+
+
 def remap_nh(delp, ptv, u, v, w, delz, ws, q, pe_pad, peln_pad, ak, bk, g,
              cfg, akap, kord_wz=9):
     """Nonhydrostatic vertical remap (fv_mapz.F90 Lagrangian_to_Eulerian,
@@ -59,11 +88,7 @@ def remap_nh(delp, ptv, u, v, w, delz, ws, q, pe_pad, peln_pad, ak, bk, g,
     T_v remapped on log-p, w with the ws bottom value (iv=-2), delz as
     specific volume, the tracers on pe in one mapn_tracer call, the winds
     on pe. ak, bk: [K+1] tensors; q: the tracer dict (may be empty)."""
-    f = fi
-    npx = g.npx
-    n = g.n
-    ctr = slice(H, H + n)
-    wsl = slice(f(1), f(npx) + 1)
+    ctr = slice(H, H + g.n)
     K = delp.shape[1]
     rrg = -con.RDGAS / con.GRAV
     k1k = akap / (1.0 - akap)
@@ -87,43 +112,77 @@ def remap_nh(delp, ptv, u, v, w, delz, ws, q, pe_pad, peln_pad, ak, bk, g,
     sv_new = fv_mapz.map1_ppm(sv, pe1, pe2, iv=1, kord=abs(cfg.kord_tm))
     delz_new = _k_lev(-sv_new * dp2)
 
-    q_new = {}
-    if q:
-        names = list(q.keys())
-        qk = fv_mapz.mapn_tracer(
-            torch.stack([_k_last(q[k]) for k in names], 0), pe1, pe2,
-            kord=cfg.kord_tr, fill=cfg.fill)
-        q_new = {k: _k_lev(qk[i]) for i, k in enumerate(names)}
-
-    pe_u0 = _k_last(0.5 * (pe_pad[..., wsl, ctr] + _rl(pe_pad)[..., wsl, ctr]))
-    pe_u1 = akl + bkl * pe_u0[..., -1:]
-    u_new = fv_mapz.map1_ppm(_k_last(u), pe_u0, pe_u1, iv=-1,
-                             kord=abs(cfg.kord_mt))
-    pe_v0 = _k_last(0.5 * (pe_pad[..., ctr, wsl] + _cl(pe_pad)[..., ctr, wsl]))
-    pe_v1 = akl + bkl * pe_v0[..., -1:]
-    v_new = fv_mapz.map1_ppm(_k_last(v), pe_v0, pe_v1, iv=-1,
-                             kord=abs(cfg.kord_mt))
+    q_new, u_new, v_new = _remap_tracers_winds(q, u, v, pe_pad, pe1, pe2,
+                                               akl, bkl, g, cfg)
 
     delp_k = _k_lev(dp2)
     tvk = _k_lev(tv_new)
     pkz_new = torch.exp(akap * torch.log(rrg * delp_k / delz_new * tvk))
-    return SimpleNamespace(delp=delp_k, tv=tvk, u=_k_lev(u_new),
-                           v=_k_lev(v_new), w=_k_lev(w_new), delz=delz_new,
-                           q=q_new or None, pkz=pkz_new, pk2=_k_lev(pk2),
+    return SimpleNamespace(delp=delp_k, tv=tvk, u=u_new, v=v_new,
+                           w=_k_lev(w_new), delz=delz_new, q=q_new,
+                           pkz=pkz_new, pk2=_k_lev(pk2), ps=ps[..., 0])
+
+
+def remap_hydro(delp, ptv, u, v, q, pe_pad, peln_pad, pkz, ak, bk, g, cfg,
+                akap):
+    """Hydrostatic vertical remap (fv_mapz.F90 Lagrangian_to_Eulerian,
+    hydrostatic, kord_tm<0): theta_v -> T_v with geopk's pkz, T_v remapped
+    on log-p, the tracers on pe in one mapn_tracer call, the winds on pe.
+    pe_pad, peln_pad [6, K+1, P, P] and pkz [6, K, P, P] from the acoustic
+    loop's geopk; ak, bk: [K+1] tensors; q: the tracer dict (may be
+    empty)."""
+    ctr = slice(H, H + g.n)
+    K = delp.shape[1]
+    pe1 = _k_last(pe_pad[..., ctr, ctr])
+    peln1 = _k_last(peln_pad[..., ctr, ctr])
+    tv = _k_last(ptv) * _k_last(pkz[..., ctr, ctr])
+    ps = pe1[..., -1:]
+    akl = ak.reshape((1,) * 3 + (K + 1,))
+    bkl = bk.reshape((1,) * 3 + (K + 1,))
+    pe2 = akl + bkl * ps
+    pn2 = torch.log(pe2)
+    pk2 = torch.exp(akap * pn2)
+
+    tv_new = fv_mapz.map1_ppm(tv, peln1, pn2, iv=1, kord=abs(cfg.kord_tm),
+                              qmin=fv_mapz.T_MIN)
+    q_new, u_new, v_new = _remap_tracers_winds(q, u, v, pe_pad, pe1, pe2,
+                                               akl, bkl, g, cfg)
+    pkz_new = (pk2[..., 1:] - pk2[..., :-1]) / (
+        akap * (pn2[..., 1:] - pn2[..., :-1]))
+    return SimpleNamespace(delp=_k_lev(pe2[..., 1:] - pe2[..., :-1]),
+                           tv=_k_lev(tv_new), u=u_new, v=v_new, q=q_new,
+                           pkz=_k_lev(pkz_new), pk2=_k_lev(pk2),
                            ps=ps[..., 0])
 
 
-def _check_config(cfg):
+def _check_config(cfg, entry, also=None):
+    """Raise NotImplementedError naming entry if cfg asks for an option
+    neither big step ports, or one of the caller's own refusals in also
+    ({description: whether cfg asks for it})."""
     unsupported = {
         "consv_te > 0 (energy fixer)": cfg.consv_te > 0.0,
         "consv_am (angular-momentum fixer)": cfg.consv_am,
         "tau > 0 (Rayleigh sponges)": cfg.tau > 0.0,
-        "do_fast_phys (inline fast physics)": cfg.do_fast_phys,
+        **(also or {}),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
-        raise NotImplementedError("fv_dynamics_nh: not ported: "
-                                  + ", ".join(bad))
+        raise NotImplementedError(f"{entry}: not ported: " + ", ".join(bad))
+
+
+def _moist_physics(pt, delp, delz, q, w, cfg, ptop, mp_cfg, hydrostatic):
+    """neg_adj3 with the six GFDL-MP categories, then gfdl_mp_driver when
+    mp_cfg is given (fv_dynamics.F90:724, the intermediate_phys hook).
+    Returns (pt, q, w, mp_diag)."""
+    if not (q and not cfg.adiabatic and "liq_wat" in q):
+        return pt, q, w, None
+    pt, q = fv_sg.neg_adj3(pt, delp, q, hydrostatic=hydrostatic)
+    if mp_cfg is None:
+        return pt, q, w, None
+    pt, q, mp_diag = gfdl_mp.gfdl_mp_driver(
+        pt, delp, delz, q, cfg.dt, ptop, cfg=mp_cfg, hydrostatic=hydrostatic,
+        w=w)
+    return pt, q, mp_diag.pop("w", w), mp_diag
 
 
 def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
@@ -138,7 +197,8 @@ def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
     Returns SimpleNamespace(delp, pt, u, v, w, delz, q, ps, mp_diag,
     omga)."""
     from .dyn_core import dyn_core_nh
-    _check_config(cfg)
+    _check_config(cfg, "fv_dynamics_nh", {
+        "do_fast_phys (inline fast physics)": cfg.do_fast_phys})
     akap = con.KAPPA
     rrg = -con.RDGAS / con.GRAV
     mdt = cfg.dt / cfg.k_split
@@ -176,15 +236,64 @@ def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
         else:
             ptv = rm.tv / rm.pkz
 
-    mp_diag = None
-    if q and not cfg.adiabatic and "liq_wat" in q:
-        pt, q = fv_sg.neg_adj3(pt, delp, q, hydrostatic=False)
-        if mp_cfg is not None:
-            pt, q, mp_diag = gfdl_mp.gfdl_mp_driver(
-                pt, delp, delz, q, cfg.dt, ptop, cfg=mp_cfg,
-                hydrostatic=False, w=w)
-            w = mp_diag.pop("w", w)
+    pt, q, w, mp_diag = _moist_physics(pt, delp, delz, q, w, cfg, ptop,
+                                       mp_cfg, hydrostatic=False)
 
     return SimpleNamespace(delp=delp, pt=pt, u=u, v=v, w=w, delz=delz,
                            q=q, ps=rm.ps, mp_diag=mp_diag,
                            omga=_omega(conv, cfg.dt))
+
+
+def fv_dynamics_hydro(delp, pt, u, v, q, g, cfg: DynConfig, ak, bk, ptop,
+                      mp_cfg=None):
+    """One big timestep of hydrostatic dynamics (fv_dynamics.F90,
+    hydrostatic=.true.). pt in/out is TEMPERATURE; q: the tracer dict (may
+    be empty); with "sphum" in q and cfg.adiabatic False the virtual-
+    temperature (zvir) path is on, and with the six GFDL-MP categories
+    neg_adj3 runs, then gfdl_mp_driver when mp_cfg is given. ak, bk: [K+1]
+    (numpy or tensors). Returns SimpleNamespace(delp, pt, u, v, q, ps,
+    mp_diag, omga)."""
+    from .dyn_core import dyn_core_hydro
+    _check_config(cfg, "fv_dynamics_hydro")
+    akap = con.KAPPA
+    mdt = cfg.dt / cfg.k_split
+    zvir = con.ZVIR if q and "sphum" in q and not cfg.adiabatic else 0.0
+    ak = torch.as_tensor(ak, dtype=delp.dtype, device=delp.device)
+    bk = torch.as_tensor(bk, dtype=delp.dtype, device=delp.device)
+    u, v = g.halo.reconcile_dgrid(u, v)
+
+    # entry pressures and pt -> theta_v (fv_dynamics.F90:275-399)
+    pe = ptop + torch.cumsum(delp, dim=1)
+    pe = torch.cat([torch.full_like(pe[:, :1], ptop), pe], dim=1)
+    peln = torch.log(pe)
+    pk = torch.exp(akap * peln)
+    pkz = (pk[:, 1:] - pk[:, :-1]) / (akap * (peln[:, 1:] - peln[:, :-1]))
+    tv = pt * (1.0 + zvir * q["sphum"]) if zvir else pt
+    ptv = tv / pkz
+
+    conv = torch.zeros_like(delp)
+    for n_map in range(cfg.k_split):
+        last = n_map == cfg.k_split - 1
+        dp1 = delp
+        res = dyn_core_hydro(delp, ptv, u, v, g, cfg, akap, ptop,
+                             cfg.n_split, mdt / cfg.n_split)
+        conv = conv + _mass_convergence(res.mfx, res.mfy, g)
+        if q:
+            q, _ = tracer.tracer_2d(q, dp1, res.mfx, res.mfy, res.cx,
+                                    res.cy, g, hord_tr=cfg.hord_tr,
+                                    q_split=cfg.q_split if cfg.use_scan
+                                    else max(1, cfg.q_split))
+        rm = remap_hydro(res.delp, res.pt, res.u, res.v, q, res.pe,
+                         res.peln, res.pkz, ak, bk, g, cfg, akap)
+        delp, u, v, q = rm.delp, rm.u, rm.v, rm.q
+        if last:
+            pt = rm.tv         # no energy fixer
+            if zvir:
+                pt = pt / (1.0 + zvir * q["sphum"])
+        else:
+            ptv = rm.tv / rm.pkz
+
+    pt, q, _, mp_diag = _moist_physics(pt, delp, None, q, None, cfg, ptop,
+                                       mp_cfg, hydrostatic=True)
+    return SimpleNamespace(delp=delp, pt=pt, u=u, v=v, q=q, ps=rm.ps,
+                           mp_diag=mp_diag, omga=_omega(conv, cfg.dt))

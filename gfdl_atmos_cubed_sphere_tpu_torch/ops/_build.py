@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 SOURCES = ("tp2d_sweep", "a2b_ord4", "ke_section", "sim1", "c_sw",
-           "d_sw_fluxes", "d_sw_winds")
+           "d_sw_fluxes", "d_sw_winds", "col_pressure")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -8,10 +8,12 @@ divergence, the scaled area fluxes, the cell transports with KE and the
 corner vorticity, the wind update), its intermediates in a workspace this
 wrapper allocates. Bound by device-memory bytes: 5 fields and 27 metric
 planes in, 10 planes out, ~1.1 GB of f32 at C192L79 (~0.34 ms at
-3.35 TB/s).
+3.35 TB/s). The hydrostatic form (w = None) transports no w and writes no
+wc.
 
 `c_sw` launches the kernel for a CUDA tensor and takes the plain version,
-sw_core.c_sw (nonhydrostatic, sw_mode=False), only for a CPU tensor.
+sw_core.c_sw (sw_mode=False; hydrostatic when w is None), only for a CPU
+tensor.
 """
 
 import ctypes
@@ -41,14 +43,16 @@ def reset_launches():
 
 
 def c_sw_ref(delp, pt, w, u, v, g, dt2, nord):
-    """The plain version: sw_core.c_sw's nonhydrostatic form."""
-    return sw_core.c_sw(delp, pt, w, u, v, g, dt2, hydrostatic=False,
+    """The plain version: sw_core.c_sw, nonhydrostatic, or hydrostatic
+    when w is None."""
+    return sw_core.c_sw(delp, pt, w, u, v, g, dt2, hydrostatic=w is None,
                         nord=nord, sw_mode=False)
 
 
 def c_sw(delp, pt, w, u, v, g, dt2, nord=0):
-    """All inputs padded [6, K, ...]. Returns the SimpleNamespace of
-    sw_core.c_sw (delpc, ptc, wc, uc, vc, ua, va, divg_d, ut, vt)."""
+    """All inputs padded [6, K, ...]; w None for the hydrostatic form.
+    Returns the SimpleNamespace of sw_core.c_sw (delpc, ptc, wc, uc, vc, ua,
+    va, divg_d, ut, vt; wc None when w is)."""
     if not delp.is_cuda:
         return c_sw_ref(delp, pt, w, u, v, g, dt2, nord)
     return _launch(delp, pt, w, u, v, g, dt2, nord)
@@ -67,11 +71,13 @@ def _launch(delp, pt, w, u, v, g, dt2, nord):
     fields = [delp, pt, w, u, v]
     shapes = [(P, P), (P, P), (P, P), (W, P), (P, W)]
     for b, (a, shp) in enumerate(zip(fields, shapes)):
+        if a is None and b == 2:             # the hydrostatic form
+            continue
         if (not a.is_cuda or a.device != delp.device or a.dtype != delp.dtype
                 or tuple(a.shape) != (6, K) + shp):
             raise ValueError(f"c_sw operand {b}: device, dtype or shape "
                              f"{tuple(a.shape)} differ from {(6, K) + shp}")
-    fields = [a.contiguous() for a in fields]
+    fields = [None if a is None else a.contiguous() for a in fields]
     mets = []
     for nm in METRICS:
         m = getattr(g, nm)
@@ -84,7 +90,8 @@ def _launch(delp, pt, w, u, v, g, dt2, nord):
     def new(*s):
         return torch.empty((6, K) + s, dtype=delp.dtype, device=delp.device)
 
-    out = SimpleNamespace(delpc=new(P, P), ptc=new(P, P), wc=new(P, P),
+    out = SimpleNamespace(delpc=new(P, P), ptc=new(P, P),
+                          wc=None if w is None else new(P, P),
                           uc=new(P, W), vc=new(W, P), ua=new(P, P),
                           va=new(P, P), ut=new(P, W), vt=new(W, P),
                           divg_d=new(W, W) if nord > 0 else None)

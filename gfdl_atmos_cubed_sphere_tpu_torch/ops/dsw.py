@@ -11,7 +11,9 @@ run the tp2d sweep kernel's device code (three in the fluxes stage: delp, w,
 pt; one in the winds stage: the absolute vorticity) and the KE stage the
 ke_section kernel's. The Smagorinsky operand a2b_ord4(vorticity) is
 computed between the stages through the a2b kernel wrapper, as on the TPU.
-Per-level damping profiles go to the kernels as device [K] arrays.
+Per-level damping profiles go to the kernels as device [K] arrays. The
+hydrostatic form (w = None) runs the fluxes stage without the w transport,
+damping and heat; the winds stage does not read w.
 Bound by device-memory bytes: ~1.4 GB (fluxes) and ~1.5 GB (winds) of f32
 at C192L79, ~0.42 and ~0.45 ms at 3.35 TB/s.
 
@@ -72,10 +74,11 @@ PLAIN_INNER = SimpleNamespace(sweep=tp2d_sweep_ref, ke=sw_core.ke_section,
 
 
 def d_sw_fluxes_ref(delp, pt, w, uc, vc, g, **kw):
-    """Plain version of the fluxes kernel: sw_core.d_sw(stage="fluxes")."""
+    """Plain version of the fluxes kernel: sw_core.d_sw(stage="fluxes"),
+    hydrostatic when w is None."""
     return sw_core.d_sw(delp, pt, w, None, None, uc, vc, None, None, None,
                         g, hord_mt=None, nord=None, dddmp=0.0, d2_bg=0.0,
-                        d4_bg=0.0, hydrostatic=False, sw_mode=False,
+                        d4_bg=0.0, hydrostatic=w is None, sw_mode=False,
                         stage="fluxes", inner=PLAIN_INNER, **kw)
 
 
@@ -94,7 +97,8 @@ def d_sw_winds_ref(delp, u, v, uc, vc, ua, va, divg_d, vortS, heat_w,
 
 def d_sw_fluxes(delp, pt, w, uc, vc, g, **kw):
     """The fluxes stage: contravariant winds, the edge/corner solve, the
-    Courant/area fluxes and the delp/pt/w transport with their damping."""
+    Courant/area fluxes and the delp/pt/w transport with their damping
+    (w None: the hydrostatic form, no w transport or damping)."""
     if not delp.is_cuda:
         return d_sw_fluxes_ref(delp, pt, w, uc, vc, g, **kw)
     return _launch_fluxes(delp, pt, w, uc, vc, g, **kw)
@@ -123,8 +127,9 @@ def smagorinsky_operand(u, v, g):
 
 
 def d_sw(delp, pt, w, u, v, uc, vc, ua, va, divg_d, g, **kw):
-    """Nonhydrostatic d_sw as the two stages. All field inputs [6, K, ., .]
-    padded; keyword arguments as sw_core.d_sw takes them. Returns the
+    """d_sw as the two stages, nonhydrostatic, or hydrostatic when w is
+    None. All field inputs [6, K, ., .] padded; keyword arguments as
+    sw_core.d_sw takes them. Returns the
     interior u, v, delp, pt, w, the fluxes fx, fy and the full-frame crx,
     cry, xfx, yfx, ra_x, ra_y, and the heat source."""
     fl = d_sw_fluxes(delp, pt, w, uc, vc, g,
@@ -223,12 +228,13 @@ def _launch_fluxes(delp, pt, w, uc, vc, g, *, dt, hord_dp, hord_tm, hord_vt,
     _check_fields("d_sw fluxes", [
         (delp, (6, K, P, P)), (pt, (6, K, P, P)), (w, (6, K, P, P)),
         (uc, (6, K, P, W)), (vc, (6, K, W, P))], delp.dtype, delp.device)
-    fields = [a.contiguous() for a in (delp, pt, w, uc, vc)]
+    fields = [None if a is None else a.contiguous()
+              for a in (delp, pt, w, uc, vc)]
     mets = _metric_list(g, FLUX_METRICS, delp)
     on_v = damp_v is not None and _max(damp_v) > 1.0e-4
     on_v2 = damp_v2 is not None and _max(damp_v2) > 1.0e-4
-    on_w = sw_core._on(damp_w)
-    on_w2 = sw_core._on(damp_w2)
+    on_w = w is not None and sw_core._on(damp_w)
+    on_w2 = w is not None and sw_core._on(damp_w2)
     prof = [_damp4(damp_v, g.da_min, nord_v, delp, K) if on_v else None,
             _damp4(damp_v2, g.da_min, 0, delp, K) if on_v2 else None,
             _damp4(damp_w, g.da_min_c, nord_w, delp, K) if on_w else None,
@@ -238,7 +244,8 @@ def _launch_fluxes(delp, pt, w, uc, vc, g, *, dt, hord_dp, hord_tm, hord_vt,
         return torch.empty((6, K) + s, dtype=delp.dtype, device=delp.device)
 
     out = SimpleNamespace(
-        delp=new(n, n), pt=new(n, n), w=new(n, n), fx=new(n, m),
+        delp=new(n, n), pt=new(n, n), w=None if w is None else new(n, n),
+        fx=new(n, m),
         fy=new(m, n), crx=new(P, W), cry=new(W, P), xfx=new(P, W),
         yfx=new(W, P), ra_x=new(P, P), ra_y=new(P, P), ut=new(P, W),
         vt=new(W, P), heat_source=new(n, n) if (on_w or on_w2) else None)

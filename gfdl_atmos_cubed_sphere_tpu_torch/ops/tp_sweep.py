@@ -15,13 +15,19 @@ call moves ~2.8 GB (~0.8 ms).
 
 `tp2d_sweep` launches the kernel for a CUDA tensor and takes the plain
 version, `tp2d_sweep_ref`, only for a CPU tensor.
+
+`fv_tp_2d_kernel` is the counterpart of the older single-call TPU kernel
+fv_tp_2d_pallas (pallas_tp.py:80): tp_core.fv_tp_2d on a rank-4 q with the
+sweep on this kernel and the del-n damping fluxes (deln_flux_add) outside
+it, as on the TPU (pallas_tp.py:168-170). Nothing on a main path calls it;
+`fv_tp_2d_ref` is its plain version.
 """
 
 import ctypes
 
 import torch
 
-from . import _build
+from . import _build, tp_core
 from .tp_core import xppm, yppm
 from ..parallel.halo import copy_corners
 
@@ -29,15 +35,18 @@ H = 3
 KERNEL_HORDS = (5, 6, 8, 10)
 
 #: kernel launches since the last reset (plain-version calls do not count),
-#: and of those the launches on a rank-5 (batched-tracer) q
+#: of those the launches on a rank-5 (batched-tracer) q and those made for
+#: fv_tp_2d_kernel
 launches = 0
 launches_rank5 = 0
+launches_fv_tp_2d = 0
 
 
 def reset_launches():
-    global launches, launches_rank5
+    global launches, launches_rank5, launches_fv_tp_2d
     launches = 0
     launches_rank5 = 0
+    launches_fv_tp_2d = 0
 
 
 def tp2d_sweep_ref(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
@@ -89,8 +98,8 @@ def tp2d_sweep(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
 
 
 def _launch(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
-            mfx, mfy):
-    global launches, launches_rank5
+            mfx, mfy, for_fv_tp_2d=False):
+    global launches, launches_rank5, launches_fv_tp_2d
     if hord not in KERNEL_HORDS:
         raise ValueError(f"tp2d_sweep kernel supports hord {KERNEL_HORDS}, "
                          f"not {hord}")
@@ -156,4 +165,44 @@ def _launch(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
     _build.check(rc, "tp2d_sweep")
     launches += 1
     launches_rank5 += int(rank5)
+    launches_fv_tp_2d += int(for_fv_tp_2d)
     return fx, fy
+
+
+def fv_tp_2d_ref(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
+                 lim_fac=1.0, mfx=None, mfy=None, nord=None, damp_c=None,
+                 g=None, mass=None):
+    """Plain version of fv_tp_2d_kernel: tp_core.fv_tp_2d with the plain
+    sweep."""
+    return tp_core.fv_tp_2d(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y,
+                            dxa, dya, lim_fac=lim_fac, mfx=mfx, mfy=mfy,
+                            nord=nord, damp_c=damp_c, g=g, mass=mass,
+                            sweep=tp2d_sweep_ref)
+
+
+def fv_tp_2d_kernel(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
+                    lim_fac=1.0, mfx=None, mfy=None, nord=None, damp_c=None,
+                    g=None, mass=None):
+    """fv_tp_2d on q [6, K, P, P] (tp_core.fv_tp_2d's operands and
+    damping arguments; damp_c a scalar or a [K] profile): the sweep kernel
+    plus deln_flux_add for a CUDA tensor, fv_tp_2d_ref for a CPU tensor."""
+    if not q.is_cuda:
+        return fv_tp_2d_ref(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y,
+                            dxa, dya, lim_fac=lim_fac, mfx=mfx, mfy=mfy,
+                            nord=nord, damp_c=damp_c, g=g, mass=mass)
+    if q.ndim != 4:
+        raise ValueError(f"fv_tp_2d kernel takes q [6, K, P, P], got "
+                         f"{tuple(q.shape)}")
+    if lim_fac != 1.0:
+        raise ValueError("fv_tp_2d kernel takes lim_fac = 1")
+    return tp_core.fv_tp_2d(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y,
+                            dxa, dya, mfx=mfx, mfy=mfy, nord=nord,
+                            damp_c=damp_c, g=g, mass=mass,
+                            sweep=_fv_tp_2d_sweep)
+
+
+def _fv_tp_2d_sweep(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
+                    lim_fac=1.0, mfx=None, mfy=None):
+    """fv_tp_2d_kernel's sweep: the kernel launch, counted as its own."""
+    return _launch(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
+                   mfx, mfy, for_fv_tp_2d=True)
