@@ -37,7 +37,9 @@ pkgz and geopk, one_grad_p's batched a2b, the same tracers and physics).
    branch may flip under float32 rounding) and <= 1e-12 in float64; the
    non-finite points (NaN in the cube-corner halo) must coincide. Each
    with its time (CUDA events, median of 20 after warm-up; the kernel
-   alone from the profiler), the plain version's time and its bound. The
+   alone from the profiler, with the device kernels per call and the
+   ratio to the bound; for the two d_sw stages each kernel's launches and
+   ms per call), the plain version's time and its bound. The
    tp sweep and ke_section kernels are also checked at every other hord
    they take (tp_sweep.KERNEL_HORDS, ke.KERNEL_HORDS) on the SW inputs;
 3. the SW step (case 2, C48, float64, n_split=2, 4 steps) and the NH big
@@ -75,10 +77,10 @@ pkgz and geopk, one_grad_p's batched a2b, the same tracers and physics).
    scalar readback barrier, 1 step under the profiler (s/step,
    pts*lev/s, device busy share, device ms by kernel). It asserts finite
    fields, a relative change of sum(delp * area) (float64) <= 1e-5, and
-   launch counts per big step of c_sw 12, d_sw fluxes 12, d_sw winds 12,
-   sim1 24, tp2d_sweep 12 (update_dz_d; the d_sw stages run 3 + 1 more
-   sweeps inside their own entry points) and a2b_ord4 24 (nh_p_grad and
-   the Smagorinsky operand);
+   launch counts per big step of c_sw 12, d_sw fluxes 12, d_sw winds 12
+   (one tile-fused kernel each, their PPM sweeps inside), sim1 24,
+   tp2d_sweep 12 (update_dz_d) and a2b_ord4 24 (nh_p_grad and the
+   Smagorinsky operand);
 6. the moist c192_nh headline step at full width (as phase 5 with
    adiabatic = False, the moist baroclinic wave, sphum from it and the
    five condensates at 1e-6, MPConfig()): 1 warm-up step, 5 timed steps
@@ -365,12 +367,33 @@ def layer_ms(nh, state):
     return acc
 
 
+def is_own_kernel(key):
+    """A device kernel of the port's own (not PyTorch's at::, not a copy or
+    a fill)."""
+    return "at::" not in key and "Memcpy" not in key and "Memset" not in key
+
+
 def own_kernels_ms(by):
     """Device ms of the port's own kernels in a profile of one wrapper call:
     every kernel but PyTorch's (at::) and the copies and fills."""
-    hits = [v for k, v in by.items()
-            if "at::" not in k and "Memcpy" not in k and "Memset" not in k]
+    hits = [v for k, v in by.items() if is_own_kernel(k)]
     return sum(hits) if hits else None
+
+
+def own_kernel_launches(fn, reps=5):
+    """The port's own device kernels of one call of fn(), from
+    torch.profiler: {kernel name: (device ms per call, launches per
+    call)}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / reps / 1e3, e.count / reps)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and is_own_kernel(e.key)}
 
 
 def flatten_outputs(out):
@@ -502,13 +525,19 @@ def check_call(label, name, args, kw, calls, n, tol, measure, sw=False):
         bound, by = kernel_bound_ms(name, args, kw, got,
                                     points_of(name, args, n),
                                     str(got[0].dtype).split(".")[-1])
-        kms = own_kernels_ms(device_ms_by_kernel(
-            lambda: wrapper(*args, **kw))[0])
+        own = own_kernel_launches(lambda: wrapper(*args, **kw))
+        kms = sum(v[0] for v in own.values()) if own else None
+        nk = sum(v[1] for v in own.values())
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                   kernel_ms=kms)
+                   kernel_ms=kms, kernels_per_call=nk)
+        ratio = f"{kms / bound:.2f}x its bound" if kms else "not measured"
         log(f"    {name} {shp}: wrapper {ms:.4f} ms (kernel alone {kms} "
-            f"ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
-            f"{calls} calls per step")
+            f"ms, {ratio}, {nk:g} device kernels per call), plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); {calls} calls "
+            f"per step")
+        if name in ("d_sw_fluxes", "d_sw_winds"):
+            for k, (v, c) in sorted(own.items(), key=lambda kv: -kv[1][0]):
+                log(f"      {v:.4f} ms, {c:g} launches per call: {k[:110]}")
     return rec
 
 

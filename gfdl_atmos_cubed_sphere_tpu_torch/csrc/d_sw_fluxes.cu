@@ -1,5 +1,5 @@
 // d_sw fluxes stage (FV3 model/sw_core.F90 d_sw:494, lines 695-1062),
-// nonhydrostatic and hydrostatic forms, for Hopper.
+// nonhydrostatic and hydrostatic forms, for Hopper: one tile-fused launch.
 //
 // Replaces the first of the two pallas_calls of the TPU kernel d_sw_pallas
 // (gfdl_atmos_cubed_sphere_tpu/ops/pallas_dsw.py:155, via _run_stage :98):
@@ -9,506 +9,653 @@
 // combos), the w damping and its heat source. The hydrostatic form (null
 // w) skips the w transport and damping: no w_new, no heat.
 //
-// Bound on an H100: bytes. Per (tile, level) plane it reads 5 fields and
-// 18 metric planes and writes 15 planes. Design: a sequence of launches of
-// one thread per output point, each reading the previous stage's planes
-// from a workspace the wrapper allocates; the PPM double sweeps run the tp2d
-// sweep kernel's device code (tp2d_sweep.cu, included here) and the del-n
-// fluxes and copy_corners the shared stages of fv_deln.cuh. Per-level
-// damping coefficients come in as device [K] arrays. Every branch is a
+// Bound on an H100: bytes. It must read 5 fields and 18 metric planes and
+// write 14 planes: ~1.4 GB of f32 at C192L79, 0.42 ms at 3.35 TB/s (0.36
+// ms hydrostatic).
+//
+// Design. One block of NT threads owns a TY x TX box of compute cells of
+// one tile (32 x 16 in f32, 16 x 12 in f64; fv_tile.cuh has the plan and
+// the window) and a run of KL levels. It keeps the box's window (box +
+// 3-cell halo, + 1 for wall arrays) of the 18 metric planes in dynamic
+// shared memory for the whole run, and holds two sets of the window of the
+// 5 fields: the level it computes, and the next one's, which it loads a
+// plane at a time between this level's stages (cp.async element copies,
+// which interleave with the stages' shared-memory work; fv_tile.cuh says
+// why not TMA). A box of levels rather than one level: the metric window
+// is loaded once per 16 levels, not per level. Every stage then runs in
+// shared memory, in the plain version's order, on these extents (local
+// window indices; the box's cells are [3, 3 + ty) x [3, 3 + tx)):
+//   vt, then ut with its edge rows      whole window (y-walls, x-walls)
+//   the 2x2 corner systems             one thread of the block whose box
+//                                      holds the cube corner
+//   crx, xfx / cry, yfx / ra_x, ra_y   whole window
+//   delp: copy_corners, double sweep   fv_tile.cuh tile_sweep extents
+//   delp damping (nord_v 0/1, combo 2) d2 on the box + 1 ring, the fluxes
+//                                      on the box's walls
+//   w: sweep on delp's mass fluxes, w damping (dw, heat), w_new
+//   pt: sweep on the mass fluxes, damping in mass form, delp_new, pt_new
+// Reads of window points no output needs are clamped into the window (a
+// border point of a whole-window stage may use them); every point an
+// output depends on has its stencil inside the window. The seam outputs
+// (ut, vt, crx, cry, xfx, yfx, ra_x, ra_y) are written over the frame, each
+// point by exactly one block; fx, fy, delp, pt, w and heat on the compute
+// domain. Nothing but the 14 outputs goes to device memory: the old chain
+// of some 45 launches wrote and re-read 16 workspace planes, the
+// corner-filled copies and the del-n scratch. The PPM and limiter code is
+// fv_ppm.cuh's (each cell's edge values once per line); every branch is a
 // select, so NaN held in the cube-corner halo of a metric stays where the
 // plain version (ops/sw_core.py d_sw, stage="fluxes") puts it. Built with
-// --fmad=false.
+// --fmad=false: bit-exact with the plain version.
 
-#include "fv_deln.cuh"
-
-namespace tpk {
-#include "tp2d_sweep.cu"
-}
+#include "fv_tile.cuh"
 
 namespace {
 
 using fv::fi;
-using fv::H;
+using fv::Tile;
 
-template <typename T> struct FluxMetrics {
-  const T *cosa_u, *cosa_v, *rsin_u, *rsin_v, *sin_sg1, *sin_sg2, *sin_sg3,
-      *sin_sg4, *dx, *dy, *rdxa, *rdya, *dxa, *dya, *area, *rarea, *del6_u,
-      *del6_v;
+constexpr int NT = 512;
+
+// window planes in shared memory, in this order (inputs in the wrapper's
+// order, then the seam, the sweep scratch and the box fluxes)
+enum Plane {
+  DELP, PT, WW, UC, VC,
+  COSA_U, COSA_V, RSIN_U, RSIN_V, SIN1, SIN2, SIN3, SIN4, DX, DY, RDXA,
+  RDYA, DXA, DYA, AREA, RAREA, DEL6U, DEL6V,
+  UT, VT, CRX, CRY, XFX, YFX, RAX, RAY,
+  QX, QY, BLY, BRY, BLX, BRX, FY2, QI, FX2, QJ,
+  FX, FY, GX, GY, DW, D2,
+  N_PLANES
 };
+constexpr int N_FLAGS = 2;    // byte planes: the sweep's smoothness flags
+constexpr int N_IN = 23;
+constexpr int NF = COSA_U;    // field planes (double-buffered)
+constexpr int KL = 16;        // levels per block
+// frame kind of each input plane
+__device__ const int kInKind[N_IN] = {
+    fv::CELL, fv::CELL, fv::CELL, fv::XWALL, fv::YWALL,
+    fv::XWALL, fv::YWALL, fv::XWALL, fv::YWALL,
+    fv::CELL, fv::CELL, fv::CELL, fv::CELL,
+    fv::YWALL, fv::XWALL, fv::CELL, fv::CELL, fv::CELL, fv::CELL,
+    fv::CELL, fv::CELL, fv::YWALL, fv::XWALL};
 
 template <typename T> struct FluxArgs {
-  const T *delp, *pt, *w, *uc, *vc;
-  FluxMetrics<T> m;
-  int n, K;
-  double dt;
+  const T* in[N_IN];    // delp, pt, w, uc, vc, then the 18 metric planes
+  // delp_new, pt_new, w_new, fx, fy, crx, cry, xfx, yfx, ra_x, ra_y, ut,
+  // vt, heat
+  T* out[14];
+  const T* prof[4];     // damp4_v, damp4_v2, damp4_w, damp4_w2 [K]
+  int n, K, ntx, nty, hord_dp, hord_vt, hord_tm, nord_v, nord_w;
+  int on_v, on_v2, on_w, on_w2;
+  double dt, dd8;
 };
 
-#define MET(ptr, R, C) const T* ptr##_ = fv::plane(a.m.ptr, t, 0, 1, R, C)
-
-// ---- 1. contravariant winds (sw_core.F90:695-760) ----------------------
-// ut on x-walls [P, W] before the edge rows and corner solve
-template <typename T>
-__device__ T ut_base(const FluxArgs<T>& a, int t, int k, int j, int i) {
-  const int n = a.n, P = n + 6, W = n + 7, npx = n + 1;
-  const T* uc = fv::plane(a.uc, t, k, a.K, P, W);
-  const T* vc = fv::plane(a.vc, t, k, a.K, W, P);
-  MET(cosa_u, P, W);
-  MET(rsin_u, P, W);
-  MET(sin_sg1, P, P);
-  MET(sin_sg3, P, P);
-  if (i == fi(1) || i == fi(npx)) {
-    const T cw = uc[j * W + i];
-    return cw * T(a.dt) > T(0) ? cw / sin_sg3_[j * P + i - 1]
-                               : cw / sin_sg1_[j * P + i];
-  }
-  // vsum = cl(vc)[j] + cr(vc)[j] + cl(vc)[j+1] + cr(vc)[j+1]
-  auto cl = [&](int r) { return i > 0 ? vc[r * P + i - 1] : T(0); };
-  auto cr = [&](int r) { return i < P ? vc[r * P + i] : T(0); };
-  const T vsum = cl(j) + cr(j) + cl(j + 1) + cr(j + 1);
-  return (uc[j * W + i] - T(0.25) * cosa_u_[j * W + i] * vsum)
-         * rsin_u_[j * W + i];
-}
-
-// vt on y-walls [W, P] with the edge columns and edge rows
-template <typename T>
-__device__ T vt_full(const FluxArgs<T>& a, int t, int k, int j, int i) {
-  const int n = a.n, P = n + 6, W = n + 7, npx = n + 1;
-  const T* uc = fv::plane(a.uc, t, k, a.K, P, W);
-  const T* vc = fv::plane(a.vc, t, k, a.K, W, P);
-  MET(cosa_v, W, P);
-  MET(rsin_v, W, P);
-  MET(sin_sg2, P, P);
-  MET(sin_sg4, P, P);
-  if (j == fi(1) || j == fi(npx)) {
-    const T rw = vc[j * P + i];
-    return rw * T(a.dt) > T(0) ? rw / sin_sg4_[(j - 1) * P + i]
-                               : rw / sin_sg2_[j * P + i];
-  }
-  const bool jmid = j >= fi(3) && j <= fi(npx - 2);
-  const bool ecol = i == fi(0) || i == fi(1) || i == fi(npx - 1) ||
-                    i == fi(npx);
-  if (jmid && ecol) {
-    // vc - 0.25 cosa_v (ut[j-1, i] + ut[j-1, i+1] + ut[j, i] + ut[j, i+1])
-    const T s = ut_base(a, t, k, j - 1, i) + ut_base(a, t, k, j - 1, i + 1)
-                + ut_base(a, t, k, j, i) + ut_base(a, t, k, j, i + 1);
-    return vc[j * P + i] - T(0.25) * cosa_v_[j * P + i] * s;
-  }
-  auto rl = [&](int c) { return j > 0 ? uc[(j - 1) * W + c] : T(0); };
-  auto rr = [&](int c) { return j < P ? uc[j * W + c] : T(0); };
-  const T usum = rl(i) + rl(i + 1) + rr(i) + rr(i + 1);
-  return (vc[j * P + i] - T(0.25) * cosa_v_[j * P + i] * usum)
-         * rsin_v_[j * P + i];
-}
-
-template <typename T> __global__ void k_ut(FluxArgs<T> a, T* ut) {
-  const int n = a.n, P = n + 6, W = n + 7, npx = n + 1;
-  FV_POINT(P, W, a.K);
-  T val;
-  const bool erow = j == fi(0) || j == fi(1) || j == fi(npx - 1) ||
-                    j == fi(npx);
-  if (erow && i >= fi(3) && i <= fi(npx - 2)) {
-    const T* uc = fv::plane(a.uc, t, k, a.K, P, W);
-    MET(cosa_u, P, W);
-    const T s = vt_full(a, t, k, j, i - 1) + vt_full(a, t, k, j, i)
-                + vt_full(a, t, k, j + 1, i - 1) + vt_full(a, t, k, j + 1, i);
-    val = uc[j * W + i] - T(0.25) * cosa_u_[j * W + i] * s;
-  } else {
-    val = ut_base(a, t, k, j, i);
-  }
-  ut[((long long)blockIdx.z * P + j) * W + i] = val;
-}
-
-template <typename T> __global__ void k_vt(FluxArgs<T> a, T* vt) {
-  const int n = a.n, P = n + 6, W = n + 7;
-  FV_POINT(W, P, a.K);
-  vt[((long long)blockIdx.z * W + j) * P + i] = vt_full(a, t, k, j, i);
-}
-
-// ---- 2. the 2x2 corner systems (sw_core.F90:763-860), one thread a plane
-template <typename T>
-__global__ void k_corner(FluxArgs<T> a, T* ut, T* vt, int planes) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= planes) return;
-  const int t = p / a.K, k = p % a.K;
-  const int n = a.n, P = n + 6, W = n + 7, npx = n + 1, npy = npx;
-  T* U_ = ut + (long long)p * P * W;
-  T* V_ = vt + (long long)p * W * P;
-  const T* uc = fv::plane(a.uc, t, k, a.K, P, W);
-  const T* vc = fv::plane(a.vc, t, k, a.K, W, P);
-  MET(cosa_u, P, W);
-  MET(cosa_v, W, P);
-  // Fortran (i, j) accessors as in the plain version
-  auto U = [&](int I, int J) -> T& { return U_[fi(J) * W + fi(I)]; };
-  auto V = [&](int I, int J) -> T& { return V_[fi(J) * P + fi(I)]; };
-  auto UC = [&](int I, int J) { return uc[fi(J) * W + fi(I)]; };
-  auto VC = [&](int I, int J) { return vc[fi(J) * P + fi(I)]; };
-  auto CU = [&](int I, int J) { return cosa_u_[fi(J) * W + fi(I)]; };
-  auto CV = [&](int I, int J) { return cosa_v_[fi(J) * P + fi(I)]; };
-  const T q = T(0.25), e = T(0.0625);
-  T damp;
-  // SW corner
-  damp = T(1) / (T(1) - e * CU(2, 0) * CV(1, 0));
-  U(2, 0) = (UC(2, 0) - q * CU(2, 0) * (V(1, 1) + V(2, 1) + V(2, 0) + VC(1, 0)
-             - q * CV(1, 0) * (U(1, 0) + U(1, -1) + U(2, -1)))) * damp;
-  damp = T(1) / (T(1) - e * CU(0, 1) * CV(0, 2));
-  V(0, 2) = (VC(0, 2) - q * CV(0, 2) * (U(1, 1) + U(1, 2) + U(0, 2) + UC(0, 1)
-             - q * CU(0, 1) * (V(0, 1) + V(-1, 1) + V(-1, 2)))) * damp;
-  damp = T(1) / (T(1) - e * CU(2, 1) * CV(1, 2));
-  U(2, 1) = (UC(2, 1) - q * CU(2, 1) * (V(1, 1) + V(2, 1) + V(2, 2) + VC(1, 2)
-             - q * CV(1, 2) * (U(1, 1) + U(1, 2) + U(2, 2)))) * damp;
-  V(1, 2) = (VC(1, 2) - q * CV(1, 2) * (U(1, 1) + U(1, 2) + U(2, 2) + UC(2, 1)
-             - q * CU(2, 1) * (V(1, 1) + V(2, 1) + V(2, 2)))) * damp;
-  // SE corner
-  damp = T(1) / (T(1) - e * CU(npx - 1, 0) * CV(npx - 1, 0));
-  U(npx - 1, 0) = (UC(npx - 1, 0) - q * CU(npx - 1, 0) * (
-      V(npx - 1, 1) + V(npx - 2, 1) + V(npx - 2, 0) + VC(npx - 1, 0)
-      - q * CV(npx - 1, 0) * (U(npx, 0) + U(npx, -1) + U(npx - 1, -1))))
-      * damp;
-  damp = T(1) / (T(1) - e * CU(npx + 1, 1) * CV(npx, 2));
-  V(npx, 2) = (VC(npx, 2) - q * CV(npx, 2) * (
-      U(npx, 1) + U(npx, 2) + U(npx + 1, 2) + UC(npx + 1, 1)
-      - q * CU(npx + 1, 1) * (V(npx, 1) + V(npx + 1, 1) + V(npx + 1, 2))))
-      * damp;
-  damp = T(1) / (T(1) - e * CU(npx - 1, 1) * CV(npx - 1, 2));
-  U(npx - 1, 1) = (UC(npx - 1, 1) - q * CU(npx - 1, 1) * (
-      V(npx - 1, 1) + V(npx - 2, 1) + V(npx - 2, 2) + VC(npx - 1, 2)
-      - q * CV(npx - 1, 2) * (U(npx, 1) + U(npx, 2) + U(npx - 1, 2))))
-      * damp;
-  V(npx - 1, 2) = (VC(npx - 1, 2) - q * CV(npx - 1, 2) * (
-      U(npx, 1) + U(npx, 2) + U(npx - 1, 2) + UC(npx - 1, 1)
-      - q * CU(npx - 1, 1) * (V(npx - 1, 1) + V(npx - 2, 1) + V(npx - 2, 2))))
-      * damp;
-  // NE corner
-  damp = T(1) / (T(1) - e * CU(npx - 1, npy) * CV(npx - 1, npy + 1));
-  U(npx - 1, npy) = (UC(npx - 1, npy) - q * CU(npx - 1, npy) * (
-      V(npx - 1, npy) + V(npx - 2, npy) + V(npx - 2, npy + 1)
-      + VC(npx - 1, npy + 1)
-      - q * CV(npx - 1, npy + 1) * (
-          U(npx, npy) + U(npx, npy + 1) + U(npx - 1, npy + 1)))) * damp;
-  damp = T(1) / (T(1) - e * CU(npx + 1, npy - 1) * CV(npx, npy - 1));
-  V(npx, npy - 1) = (VC(npx, npy - 1) - q * CV(npx, npy - 1) * (
-      U(npx, npy - 1) + U(npx, npy - 2) + U(npx + 1, npy - 2)
-      + UC(npx + 1, npy - 1)
-      - q * CU(npx + 1, npy - 1) * (
-          V(npx, npy) + V(npx + 1, npy) + V(npx + 1, npy - 1)))) * damp;
-  damp = T(1) / (T(1) - e * CU(npx - 1, npy - 1) * CV(npx - 1, npy - 1));
-  U(npx - 1, npy - 1) = (UC(npx - 1, npy - 1) - q * CU(npx - 1, npy - 1) * (
-      V(npx - 1, npy) + V(npx - 2, npy) + V(npx - 2, npy - 1)
-      + VC(npx - 1, npy - 1)
-      - q * CV(npx - 1, npy - 1) * (
-          U(npx, npy - 1) + U(npx, npy - 2) + U(npx - 1, npy - 2)))) * damp;
-  V(npx - 1, npy - 1) = (VC(npx - 1, npy - 1) - q * CV(npx - 1, npy - 1) * (
-      U(npx, npy - 1) + U(npx, npy - 2) + U(npx - 1, npy - 2)
-      + UC(npx - 1, npy - 1)
-      - q * CU(npx - 1, npy - 1) * (
-          V(npx - 1, npy) + V(npx - 2, npy) + V(npx - 2, npy - 1)))) * damp;
-  // NW corner
-  damp = T(1) / (T(1) - e * CU(2, npy) * CV(1, npy + 1));
-  U(2, npy) = (UC(2, npy) - q * CU(2, npy) * (
-      V(1, npy) + V(2, npy) + V(2, npy + 1) + VC(1, npy + 1)
-      - q * CV(1, npy + 1) * (U(1, npy) + U(1, npy + 1) + U(2, npy + 1))))
-      * damp;
-  damp = T(1) / (T(1) - e * CU(0, npy - 1) * CV(0, npy - 1));
-  V(0, npy - 1) = (VC(0, npy - 1) - q * CV(0, npy - 1) * (
-      U(1, npy - 1) + U(1, npy - 2) + U(0, npy - 2) + UC(0, npy - 1)
-      - q * CU(0, npy - 1) * (V(0, npy) + V(-1, npy) + V(-1, npy - 1))))
-      * damp;
-  damp = T(1) / (T(1) - e * CU(2, npy - 1) * CV(1, npy - 1));
-  U(2, npy - 1) = (UC(2, npy - 1) - q * CU(2, npy - 1) * (
-      V(1, npy) + V(2, npy) + V(2, npy - 1) + VC(1, npy - 1)
-      - q * CV(1, npy - 1) * (U(1, npy - 1) + U(1, npy - 2) + U(2, npy - 2))))
-      * damp;
-  V(1, npy - 1) = (VC(1, npy - 1) - q * CV(1, npy - 1) * (
-      U(1, npy - 1) + U(1, npy - 2) + U(2, npy - 2) + UC(2, npy - 1)
-      - q * CU(2, npy - 1) * (V(1, npy) + V(2, npy) + V(2, npy - 1))))
-      * damp;
-}
-
-// ---- 3. Courant numbers and area fluxes ---------------------------------
-template <typename T>
-__global__ void k_cx(FluxArgs<T> a, const T* ut, T* crx, T* xfx) {
-  const int n = a.n, P = n + 6, W = n + 7;
-  FV_POINT(P, W, a.K);
-  MET(rdxa, P, P);
-  MET(dy, P, W);
-  MET(sin_sg1, P, P);
-  MET(sin_sg3, P, P);
-  const long long o = ((long long)blockIdx.z * P + j) * W + i;
-  const T x = T(a.dt) * ut[o];
-  const bool pos = x > T(0);
-  const T rl = i > 0 ? rdxa_[j * P + i - 1] : T(0);
-  const T rr = i < P ? rdxa_[j * P + i] : T(0);
-  crx[o] = x * (pos ? rl : rr);
-  const T sl = i > 0 ? sin_sg3_[j * P + i - 1] : T(0);
-  const T sr = i < P ? sin_sg1_[j * P + i] : T(0);
-  xfx[o] = dy_[j * W + i] * x * (pos ? sl : sr);
-}
-
-template <typename T>
-__global__ void k_cy(FluxArgs<T> a, const T* vt, T* cry, T* yfx) {
-  const int n = a.n, P = n + 6, W = n + 7;
-  FV_POINT(W, P, a.K);
-  MET(rdya, P, P);
-  MET(dx, W, P);
-  MET(sin_sg2, P, P);
-  MET(sin_sg4, P, P);
-  const long long o = ((long long)blockIdx.z * W + j) * P + i;
-  const T y = T(a.dt) * vt[o];
-  const bool pos = y > T(0);
-  const T rl = j > 0 ? rdya_[(j - 1) * P + i] : T(0);
-  const T rr = j < P ? rdya_[j * P + i] : T(0);
-  cry[o] = y * (pos ? rl : rr);
-  const T sl = j > 0 ? sin_sg4_[(j - 1) * P + i] : T(0);
-  const T sr = j < P ? sin_sg2_[j * P + i] : T(0);
-  yfx[o] = dx_[j * P + i] * y * (pos ? sl : sr);
-}
-
-template <typename T>
-__global__ void k_ra(FluxArgs<T> a, const T* xfx, const T* yfx, T* ra_x,
-                     T* ra_y) {
-  const int n = a.n, P = n + 6, W = n + 7;
-  FV_POINT(P, P, a.K);
-  MET(area, P, P);
-  const long long pl = blockIdx.z;
-  const T ar = area_[j * P + i];
-  const T* X = xfx + pl * P * W;
-  const T* Y = yfx + pl * W * P;
-  ra_x[(pl * P + j) * P + i] = ar + X[j * W + i] - X[j * W + i + 1];
-  ra_y[(pl * P + j) * P + i] = ar + Y[j * P + i] - Y[(j + 1) * P + i];
-}
-
-// ---- damping flux adds on the compute walls -----------------------------
-// fx [n, n+1] += fx2[ctr, wsl] (mass == null) or
-//   += 0.5 * damp4[k] * (mass[j, i-1] + mass[j, i]) * fx2c (mass flux form)
-template <typename T>
-__global__ void k_add_fx(T* fx, const T* fx2, const T* mass, const T* damp4,
-                         int n, int K) {
-  const int P = n + 6, W = n + 7, m = n + 1;
-  FV_POINT(n, m, K);
-  (void)t;
-  const long long pl = blockIdx.z;
-  const T f2 = fx2[(pl * P + j + H) * W + i + H];
-  const long long o = (pl * n + j) * m + i;
-  if (mass == nullptr) {
-    fx[o] = fx[o] + f2;
-  } else {
-    const T* ms = mass + pl * P * P + (j + H) * P;
-    fx[o] = fx[o] + T(0.5) * damp4[k] * (ms[i + H - 1] + ms[i + H]) * f2;
-  }
-}
-
-template <typename T>
-__global__ void k_add_fy(T* fy, const T* fy2, const T* mass, const T* damp4,
-                         int n, int K) {
-  const int P = n + 6, m = n + 1;
-  FV_POINT(m, n, K);
-  (void)t;
-  const long long pl = blockIdx.z;
-  const T f2 = fy2[(pl * (n + 7) + j + H) * P + i + H];
-  const long long o = (pl * m + j) * n + i;
-  if (mass == nullptr) {
-    fy[o] = fy[o] + f2;
-  } else {
-    const T* ms = mass + pl * P * P + i + H;
-    fy[o] = fy[o] + T(0.5) * damp4[k] * (ms[(j + H - 1) * P] + ms[(j + H) * P])
-                    * f2;
-  }
-}
-
-// dw += (fx2w[ctr, wsl] div + fy2w[wsl, ctr] div) * rarea[ctr, ctr]
-template <typename T>
-__global__ void k_add_dw(T* dw, const T* fx2, const T* fy2, const T* rarea,
-                         int first, int n, int K) {
-  const int P = n + 6, W = n + 7;
-  FV_POINT(n, n, K);
-  (void)k;
-  const long long pl = blockIdx.z;
-  const T* X = fx2 + pl * P * W + (j + H) * W + H;
-  const T* Y = fy2 + pl * W * P + H;
-  const T d = (X[i] - X[i + 1] + Y[(j + H) * P + i] - Y[(j + H + 1) * P + i])
-              * rarea[((long long)t * P + j + H) * P + i + H];
-  const long long o = (pl * n + j) * n + i;
-  dw[o] = (first ? T(0) : dw[o]) + d;
-}
-
-// ---- final cell updates (compute domain [n, n]) -------------------------
-template <typename T>
-__global__ void k_final(FluxArgs<T> a, const T* fx, const T* fy,
-                        const T* gxw, const T* gyw, const T* gxp,
-                        const T* gyp, const T* dw, double dd8, T* delp_new,
-                        T* pt_new, T* w_new, T* heat) {
-  const int n = a.n, P = n + 6, m = n + 1;
-  FV_POINT(n, n, a.K);
-  MET(rarea, P, P);
-  const long long pl = blockIdx.z;
-  const T ra = rarea_[(j + H) * P + i + H];
-  auto divc = [&](const T* X, const T* Y) {
-    X += pl * n * m;
-    Y += pl * m * n;
-    return (X[j * m + i] - X[j * m + i + 1] + Y[j * n + i] - Y[(j + 1) * n + i])
-           * ra;
+template <typename T, int TY, int TX>
+__global__ void __launch_bounds__(NT, 1) fluxes_kernel(FluxArgs<T> a) {
+  constexpr int S = fv::win_stride<TX>();
+  constexpr size_t WIN = fv::win_elems<TY, TX>();
+  // shared memory: the window planes (the field planes twice: the level
+  // being computed, buffer b, and the next one's, loading) and the
+  // smoothness flags
+  T* sm = reinterpret_cast<T*>(fv_smem);
+  unsigned char* flags =
+      reinterpret_cast<unsigned char*>(sm + (size_t)(N_PLANES + NF) * WIN);
+  int b = 0;
+  // the slot of plane p: the fields in buffer b, the rest after both
+  auto PL = [&](int p) -> T* {
+    return sm + (size_t)(p < NF ? p + b * NF : p + NF) * WIN;
   };
-  const long long c = (pl * P + j + H) * P + i + H;
-  const T dp = a.delp[c], p = a.pt[c];
-  const T dpn = dp + divc(fx, fy);
-  const long long o = (pl * n + j) * n + i;
-  delp_new[o] = dpn;
-  pt_new[o] = (p * dp + divc(gxp, gyp)) / dpn;
-  if (w_new == nullptr) return;                // hydrostatic
-  const T ww = a.w[c];
-  T wn = (dp * ww + divc(gxw, gyw)) / dpn;
-  if (dw != nullptr) {
-    const T d = dw[o];
-    wn = wn + d;
-    heat[o] = T(dd8) - d * (ww + T(0.5) * d);
+  Tile tl;
+  tl.decode(a.n, a.K, a.ntx, a.nty, KL);
+  const int n = tl.n, P = tl.P, W = tl.W, npx = tl.npx, K = a.K;
+  const int oy = tl.j0, ox = tl.i0, ty = tl.ty, tx = tl.tx;
+  const int id = threadIdx.x, nt = blockDim.x;
+  const bool hydro = a.in[WW] == nullptr;
+  const T dt = T(a.dt);
+
+  // ---- the window: the metric planes once, the fields level by level
+  // (the next level's while this one computes), by element copies
+  auto load = [&](int p0, int p1, int buf, int kk) {
+    for (int p = p0; p < p1; ++p) {
+      const T* src = a.in[p];
+      if (src == nullptr) continue;
+      const bool field = p < NF;
+      fv::load_window<T, TX>(sm + (size_t)(field ? p + buf * NF : p + NF) * WIN,
+                             src, kInKind[p], tl, field ? K : 1,
+                             field ? kk : 0);
+    }
+    fv::copy_commit();
+  };
+  load(0, N_IN, 0, tl.k0);
+
+  for (int kk = 0; kk < tl.kl; ++kk) {
+    const int k = tl.k0 + kk;
+    tl.k = k;
+    b = kk & 1;
+    fv::copy_wait<0>();
+    __syncthreads();
+    // the next level's fields, a plane at a time spread over this level's
+    // stages so that their copies interleave with its shared-memory work
+    const bool more = kk + 1 < tl.kl;
+    auto prefetch = [&](int p) {
+      if (more) load(p, p + 1, b ^ 1, k + 1);
+    };
+    prefetch(0);
+
+    // a plane at padded (r, c), clamped into the window
+    auto L = [&](int p, int r, int c) -> T {
+      return PL(p)[fv::wix<TY, TX>(r - oy, c - ox)];
+    };
+
+    // ---- 1. contravariant winds (sw_core.F90:695-760) ----------------------
+    // ut on x-walls before the edge rows and the corner solve
+    auto ut_base = [&](int j, int i) -> T {
+      if (i == fi(1) || i == fi(npx)) {
+        const T cw = L(UC, j, i);
+        return cw * dt > T(0) ? cw / L(SIN3, j, i - 1) : cw / L(SIN1, j, i);
+      }
+      auto cl = [&](int r) { return i > 0 ? L(VC, r, i - 1) : T(0); };
+      auto cr = [&](int r) { return i < P ? L(VC, r, i) : T(0); };
+      const T vsum = cl(j) + cr(j) + cl(j + 1) + cr(j + 1);
+      return (L(UC, j, i) - T(0.25) * L(COSA_U, j, i) * vsum) * L(RSIN_U, j, i);
+    };
+    // vt on y-walls with the edge columns and edge rows
+    auto vt_full = [&](int j, int i) -> T {
+      if (j == fi(1) || j == fi(npx)) {
+        const T rw = L(VC, j, i);
+        return rw * dt > T(0) ? rw / L(SIN4, j - 1, i) : rw / L(SIN2, j, i);
+      }
+      const bool jmid = j >= fi(3) && j <= fi(npx - 2);
+      const bool ecol = i == fi(0) || i == fi(1) || i == fi(npx - 1) ||
+                        i == fi(npx);
+      if (jmid && ecol) {
+        const T s = ut_base(j - 1, i) + ut_base(j - 1, i + 1) + ut_base(j, i)
+                    + ut_base(j, i + 1);
+        return L(VC, j, i) - T(0.25) * L(COSA_V, j, i) * s;
+      }
+      auto rl = [&](int c) { return j > 0 ? L(UC, j - 1, c) : T(0); };
+      auto rr = [&](int c) { return j < P ? L(UC, j, c) : T(0); };
+      const T usum = rl(i) + rl(i + 1) + rr(i) + rr(i + 1);
+      return (L(VC, j, i) - T(0.25) * L(COSA_V, j, i) * usum) * L(RSIN_V, j, i);
+    };
+    {
+      const int rows = ty + 7, cols = tx + 6;
+      const fv::Div dv1(cols);
+      for (int e = id; e < rows * cols; e += nt) {
+        int lr, lc;
+        dv1.split(e, lr, lc);
+        PL(VT)[lr * S + lc] = vt_full(oy + lr, ox + lc);
+      }
+    }
+    __syncthreads();
+    {
+      const int rows = ty + 6, cols = tx + 7;
+      const fv::Div dv2(cols);
+      for (int e = id; e < rows * cols; e += nt) {
+        int lr, lc;
+        dv2.split(e, lr, lc);
+        const int j = oy + lr, i = ox + lc;
+        const bool erow = j == fi(0) || j == fi(1) || j == fi(npx - 1) ||
+                          j == fi(npx);
+        T val;
+        if (erow && i >= fi(3) && i <= fi(npx - 2)) {
+          const T s = L(VT, j, i - 1) + L(VT, j, i) + L(VT, j + 1, i - 1)
+                      + L(VT, j + 1, i);
+          val = L(UC, j, i) - T(0.25) * L(COSA_U, j, i) * s;
+        } else {
+          val = ut_base(j, i);
+        }
+        PL(UT)[lr * S + lc] = val;
+      }
+    }
+    __syncthreads();
+
+    prefetch(1);
+
+    // ---- 2. the 2x2 corner systems (sw_core.F90:763-860) -------------------
+    if (id == 0 && tl.at_corner()) {
+      const int npy = npx;
+      T* UTp = PL(UT);
+      T* VTp = PL(VT);
+      auto U = [&](int I, int J) -> T& {
+        return UTp[fv::wix<TY, TX>(fi(J) - oy, fi(I) - ox)];
+      };
+      auto V = [&](int I, int J) -> T& {
+        return VTp[fv::wix<TY, TX>(fi(J) - oy, fi(I) - ox)];
+      };
+      auto UC_ = [&](int I, int J) { return L(UC, fi(J), fi(I)); };
+      auto VC_ = [&](int I, int J) { return L(VC, fi(J), fi(I)); };
+      auto CU = [&](int I, int J) { return L(COSA_U, fi(J), fi(I)); };
+      auto CV = [&](int I, int J) { return L(COSA_V, fi(J), fi(I)); };
+      const T q = T(0.25), e = T(0.0625);
+      T damp;
+      if (tl.fy && tl.fx) {  // SW corner
+        damp = T(1) / (T(1) - e * CU(2, 0) * CV(1, 0));
+        U(2, 0) = (UC_(2, 0) - q * CU(2, 0) * (V(1, 1) + V(2, 1) + V(2, 0)
+                   + VC_(1, 0) - q * CV(1, 0) * (U(1, 0) + U(1, -1)
+                   + U(2, -1)))) * damp;
+        damp = T(1) / (T(1) - e * CU(0, 1) * CV(0, 2));
+        V(0, 2) = (VC_(0, 2) - q * CV(0, 2) * (U(1, 1) + U(1, 2) + U(0, 2)
+                   + UC_(0, 1) - q * CU(0, 1) * (V(0, 1) + V(-1, 1)
+                   + V(-1, 2)))) * damp;
+        damp = T(1) / (T(1) - e * CU(2, 1) * CV(1, 2));
+        U(2, 1) = (UC_(2, 1) - q * CU(2, 1) * (V(1, 1) + V(2, 1) + V(2, 2)
+                   + VC_(1, 2) - q * CV(1, 2) * (U(1, 1) + U(1, 2)
+                   + U(2, 2)))) * damp;
+        V(1, 2) = (VC_(1, 2) - q * CV(1, 2) * (U(1, 1) + U(1, 2) + U(2, 2)
+                   + UC_(2, 1) - q * CU(2, 1) * (V(1, 1) + V(2, 1)
+                   + V(2, 2)))) * damp;
+      }
+      if (tl.fy && tl.lx) {  // SE corner
+        damp = T(1) / (T(1) - e * CU(npx - 1, 0) * CV(npx - 1, 0));
+        U(npx - 1, 0) = (UC_(npx - 1, 0) - q * CU(npx - 1, 0) * (
+            V(npx - 1, 1) + V(npx - 2, 1) + V(npx - 2, 0) + VC_(npx - 1, 0)
+            - q * CV(npx - 1, 0) * (U(npx, 0) + U(npx, -1)
+                                    + U(npx - 1, -1)))) * damp;
+        damp = T(1) / (T(1) - e * CU(npx + 1, 1) * CV(npx, 2));
+        V(npx, 2) = (VC_(npx, 2) - q * CV(npx, 2) * (
+            U(npx, 1) + U(npx, 2) + U(npx + 1, 2) + UC_(npx + 1, 1)
+            - q * CU(npx + 1, 1) * (V(npx, 1) + V(npx + 1, 1)
+                                    + V(npx + 1, 2)))) * damp;
+        damp = T(1) / (T(1) - e * CU(npx - 1, 1) * CV(npx - 1, 2));
+        U(npx - 1, 1) = (UC_(npx - 1, 1) - q * CU(npx - 1, 1) * (
+            V(npx - 1, 1) + V(npx - 2, 1) + V(npx - 2, 2) + VC_(npx - 1, 2)
+            - q * CV(npx - 1, 2) * (U(npx, 1) + U(npx, 2)
+                                    + U(npx - 1, 2)))) * damp;
+        V(npx - 1, 2) = (VC_(npx - 1, 2) - q * CV(npx - 1, 2) * (
+            U(npx, 1) + U(npx, 2) + U(npx - 1, 2) + UC_(npx - 1, 1)
+            - q * CU(npx - 1, 1) * (V(npx - 1, 1) + V(npx - 2, 1)
+                                    + V(npx - 2, 2)))) * damp;
+      }
+      if (tl.ly && tl.lx) {  // NE corner
+        damp = T(1) / (T(1) - e * CU(npx - 1, npy) * CV(npx - 1, npy + 1));
+        U(npx - 1, npy) = (UC_(npx - 1, npy) - q * CU(npx - 1, npy) * (
+            V(npx - 1, npy) + V(npx - 2, npy) + V(npx - 2, npy + 1)
+            + VC_(npx - 1, npy + 1)
+            - q * CV(npx - 1, npy + 1) * (
+                U(npx, npy) + U(npx, npy + 1) + U(npx - 1, npy + 1))))
+            * damp;
+        damp = T(1) / (T(1) - e * CU(npx + 1, npy - 1) * CV(npx, npy - 1));
+        V(npx, npy - 1) = (VC_(npx, npy - 1) - q * CV(npx, npy - 1) * (
+            U(npx, npy - 1) + U(npx, npy - 2) + U(npx + 1, npy - 2)
+            + UC_(npx + 1, npy - 1)
+            - q * CU(npx + 1, npy - 1) * (
+                V(npx, npy) + V(npx + 1, npy) + V(npx + 1, npy - 1))))
+            * damp;
+        damp = T(1) / (T(1) - e * CU(npx - 1, npy - 1)
+                       * CV(npx - 1, npy - 1));
+        U(npx - 1, npy - 1) = (UC_(npx - 1, npy - 1)
+            - q * CU(npx - 1, npy - 1) * (
+                V(npx - 1, npy) + V(npx - 2, npy) + V(npx - 2, npy - 1)
+                + VC_(npx - 1, npy - 1)
+                - q * CV(npx - 1, npy - 1) * (
+                    U(npx, npy - 1) + U(npx, npy - 2)
+                    + U(npx - 1, npy - 2)))) * damp;
+        V(npx - 1, npy - 1) = (VC_(npx - 1, npy - 1)
+            - q * CV(npx - 1, npy - 1) * (
+                U(npx, npy - 1) + U(npx, npy - 2) + U(npx - 1, npy - 2)
+                + UC_(npx - 1, npy - 1)
+                - q * CU(npx - 1, npy - 1) * (
+                    V(npx - 1, npy) + V(npx - 2, npy)
+                    + V(npx - 2, npy - 1)))) * damp;
+      }
+      if (tl.ly && tl.fx) {  // NW corner
+        damp = T(1) / (T(1) - e * CU(2, npy) * CV(1, npy + 1));
+        U(2, npy) = (UC_(2, npy) - q * CU(2, npy) * (
+            V(1, npy) + V(2, npy) + V(2, npy + 1) + VC_(1, npy + 1)
+            - q * CV(1, npy + 1) * (U(1, npy) + U(1, npy + 1)
+                                    + U(2, npy + 1)))) * damp;
+        damp = T(1) / (T(1) - e * CU(0, npy - 1) * CV(0, npy - 1));
+        V(0, npy - 1) = (VC_(0, npy - 1) - q * CV(0, npy - 1) * (
+            U(1, npy - 1) + U(1, npy - 2) + U(0, npy - 2) + UC_(0, npy - 1)
+            - q * CU(0, npy - 1) * (V(0, npy) + V(-1, npy)
+                                    + V(-1, npy - 1)))) * damp;
+        damp = T(1) / (T(1) - e * CU(2, npy - 1) * CV(1, npy - 1));
+        U(2, npy - 1) = (UC_(2, npy - 1) - q * CU(2, npy - 1) * (
+            V(1, npy) + V(2, npy) + V(2, npy - 1) + VC_(1, npy - 1)
+            - q * CV(1, npy - 1) * (U(1, npy - 1) + U(1, npy - 2)
+                                    + U(2, npy - 2)))) * damp;
+        V(1, npy - 1) = (VC_(1, npy - 1) - q * CV(1, npy - 1) * (
+            U(1, npy - 1) + U(1, npy - 2) + U(2, npy - 2) + UC_(2, npy - 1)
+            - q * CU(2, npy - 1) * (V(1, npy) + V(2, npy)
+                                    + V(2, npy - 1)))) * damp;
+      }
+    }
+    __syncthreads();
+
+    prefetch(2);
+
+    // ---- 3. Courant numbers and area fluxes --------------------------------
+    {
+      const int rx = ty + 6, cxw = tx + 7, nx = rx * cxw;
+      const int ry = ty + 7, cyw = tx + 6, ny = ry * cyw;
+      const fv::Div dv3(cxw);
+      const fv::Div dv4(cyw);
+      for (int e = id; e < nx + ny; e += nt) {
+        if (e < nx) {
+          int lr, lc;
+          dv3.split(e, lr, lc);
+          const int j = oy + lr, i = ox + lc;
+          const T x = dt * PL(UT)[lr * S + lc];
+          const bool pos = x > T(0);
+          const T rl = i > 0 ? L(RDXA, j, i - 1) : T(0);
+          const T rr = i < P ? L(RDXA, j, i) : T(0);
+          PL(CRX)[lr * S + lc] = x * (pos ? rl : rr);
+          const T sl = i > 0 ? L(SIN3, j, i - 1) : T(0);
+          const T sr = i < P ? L(SIN1, j, i) : T(0);
+          PL(XFX)[lr * S + lc] = PL(DY)[lr * S + lc] * x * (pos ? sl : sr);
+        } else {
+          int lr, lc;
+          dv4.split(e - nx, lr, lc);
+          const int j = oy + lr;
+          const int i = ox + lc;
+          const T y = dt * PL(VT)[lr * S + lc];
+          const bool pos = y > T(0);
+          const T rl = j > 0 ? L(RDYA, j - 1, i) : T(0);
+          const T rr = j < P ? L(RDYA, j, i) : T(0);
+          PL(CRY)[lr * S + lc] = y * (pos ? rl : rr);
+          const T sl = j > 0 ? L(SIN4, j - 1, i) : T(0);
+          const T sr = j < P ? L(SIN2, j, i) : T(0);
+          PL(YFX)[lr * S + lc] = PL(DX)[lr * S + lc] * y * (pos ? sl : sr);
+        }
+      }
+    }
+    __syncthreads();
+    {
+      const int rows = ty + 6, cols = tx + 6;
+      const fv::Div dv5(cols);
+      for (int e = id; e < rows * cols; e += nt) {
+        int lr, lc;
+        dv5.split(e, lr, lc);
+        const int o = lr * S + lc;
+        const T ar = PL(AREA)[o];
+        PL(RAX)[o] = ar + PL(XFX)[o] - PL(XFX)[o + 1];
+        PL(RAY)[o] = ar + PL(YFX)[o] - PL(YFX)[o + S];
+      }
+    }
+    __syncthreads();
+
+    // the seam outputs, each point by one block
+    {
+      const long long pl = (long long)tl.t * K + k;
+      const int r0 = tl.own_lo(tl.fy), c0 = tl.own_lo(tl.fx);
+      const int rc = tl.own_cells_hi(tl.ly, ty);
+      const int rw = tl.own_walls_hi(tl.ly, ty);
+      const int cc = tl.own_cells_hi(tl.lx, tx);
+      const int cw = tl.own_walls_hi(tl.lx, tx);
+      // x-wall planes [P, W]: ut, crx, xfx; y-wall [W, P]: vt, cry, yfx;
+      // cells [P, P]: ra_x, ra_y
+      const int nxw = (rc - r0) * (cw - c0), nyw = (rw - r0) * (cc - c0);
+      const int nce = (rc - r0) * (cc - c0);
+      const fv::Div dv6(cw - c0);
+      const fv::Div dv7(cc - c0);
+      const fv::Div dv8(cc - c0);
+      for (int e = id; e < nxw + nyw + nce; e += nt) {
+        if (e < nxw) {
+          int lr, lc;
+          dv6.split(e, lr, lc);
+          lr += r0;
+          lc += c0;
+          const long long g = (pl * P + oy + lr) * W + ox + lc;
+          const int o = lr * S + lc;
+          a.out[11][g] = PL(UT)[o];
+          a.out[5][g] = PL(CRX)[o];
+          a.out[7][g] = PL(XFX)[o];
+        } else if (e < nxw + nyw) {
+          const int f = e - nxw;
+          int lr, lc;
+          dv7.split(f, lr, lc);
+          lr += r0;
+          lc += c0;
+          const long long g = (pl * W + oy + lr) * P + ox + lc;
+          const int o = lr * S + lc;
+          a.out[12][g] = PL(VT)[o];
+          a.out[6][g] = PL(CRY)[o];
+          a.out[8][g] = PL(YFX)[o];
+        } else {
+          const int f = e - nxw - nyw;
+          int lr, lc;
+          dv8.split(f, lr, lc);
+          lr += r0;
+          lc += c0;
+          const long long g = (pl * P + oy + lr) * P + ox + lc;
+          const int o = lr * S + lc;
+          a.out[9][g] = PL(RAX)[o];
+          a.out[10][g] = PL(RAY)[o];
+        }
+      }
+    }
+
+    const fv::SweepWork<T> sw{PL(QX),  PL(QY),  PL(BLY), PL(BRY),
+                              PL(BLX), PL(BRX), PL(FY2), PL(QI),
+                              PL(FX2), PL(QJ),  flags,   flags + WIN};
+    auto sweep = [&](int q, int hord, bool mass, T* gx, T* gy) {
+      fv::tile_sweep<T, TY, TX>(
+          tl, PL(q), PL(AREA), PL(DXA), PL(DYA), PL(RAX), PL(RAY), PL(CRX),
+          PL(XFX), PL(CRY), PL(YFX), mass ? PL(FX) : nullptr,
+          mass ? PL(FY) : nullptr, hord == 10 ? 8 : hord, hord, sw, gx, gy);
+    };
+    auto deln = [&](int q, const T* pre) {
+      return fv::Deln<T, TY, TX>{&tl, PL(q), PL(DEL6U), PL(DEL6V), PL(RAREA),
+                                 pre != nullptr ? pre[k] : T(1),
+                                 pre != nullptr, tl.at_corner()};
+    };
+    const T* d4v = a.prof[0];
+    const T* d4v2 = a.prof[1];
+    const T* d4w = a.prof[2];
+    const T* d4w2 = a.prof[3];
+    T* D2p = PL(D2);
+
+    prefetch(3);
+
+    // ---- 4. the transport of delp, w (nonhydrostatic) and pt -------------
+    // delp: the sweep and the damping (nord_v, damp_v) + (0, damp_v2) give
+    // the mass fluxes fx, fy; w and pt: the sweep on the mass fluxes, the w
+    // damping (nord_w, damp_w) + (0, damp_w2) with its heat, the pt damping
+    // (nord_v, damp_v) + (0, damp_v2) in mass form; then the cell updates
+    const T* rarea = PL(RAREA);
+    auto divc = [&](const T* X, const T* Y, int lq, int lc) {
+      return (X[lq * S + lc] - X[lq * S + lc + 1] + Y[lq * S + lc]
+              - Y[(lq + 1) * S + lc]) * rarea[(lq + 3) * S + lc + 3];
+    };
+    const long long pl = (long long)tl.t * K + k;
+    auto cell_out = [&](int lq, int lc) {
+      return (pl * n + tl.j0 + lq) * n + tl.i0 + lc;
+    };
+    const bool wd = !hydro && (a.on_w || a.on_w2);
+    const fv::Div dbox(tx), dwx(tx + 1);
+    for (int f = 0; f < 3; ++f) {
+      if (f == 1 && hydro) continue;
+      const int q = f == 0 ? DELP : (f == 1 ? WW : PT);
+      T* gx = PL(f == 0 ? FX : GX);
+      T* gy = PL(f == 0 ? FY : GY);
+      sweep(q, f == 0 ? a.hord_dp : (f == 1 ? a.hord_vt : a.hord_tm), f > 0,
+            gx, gy);
+      if (f == 0) prefetch(4);
+      const bool on1 = f == 1 ? a.on_w : a.on_v;
+      const bool on2 = f == 1 ? a.on_w2 : a.on_v2;
+      const int nord1 = f == 1 ? a.nord_w : a.nord_v;
+      // delp and w: the per-level coefficient scales the operand; pt: the
+      // mass form scales the flux
+      const T* pre1 = f == 0 ? d4v : (f == 1 ? d4w : nullptr);
+      const T* pre2 = f == 0 ? d4v2 : (f == 1 ? d4w2 : nullptr);
+      const fv::Deln<T, TY, TX> d1 = deln(q, on1 ? pre1 : nullptr);
+      const fv::Deln<T, TY, TX> d2 = deln(q, on2 ? pre2 : nullptr);
+      if (on1 && nord1 > 0) {
+        d1.d2(D2p);
+        __syncthreads();
+      }
+      if (f != 1) {  // the damping fluxes on the box's walls
+        const T* dp = PL(DELP);
+        const T c1 = f == 2 && on1 ? d4v[k] : T(0);
+        const T c2 = f == 2 && on2 ? d4v2[k] : T(0);
+        const int nx = ty * (tx + 1), ny = (ty + 1) * tx;
+        for (int e = id; e < nx + ny; e += nt) {
+          const bool xw = e < nx;
+          int a0, a1;
+          if (xw) dwx.split(e, a0, a1);        // box row, wall
+          else dbox.split(e - nx, a0, a1);     // wall, box column
+          const int o = a0 * S + a1, m = (a0 + 3) * S + a1 + 3;
+          const T ms = dp[m - (xw ? 1 : S)] + dp[m];
+          T* g = xw ? gx : gy;
+          T v = g[o];
+          if (on1) {
+            const T d = xw ? d1.fx(nord1, D2p, a0, a1)
+                           : d1.fy(nord1, D2p, a0, a1);
+            v = f == 0 ? v + d : v + T(0.5) * c1 * ms * d;
+          }
+          if (on2) {
+            const T d = xw ? d2.fx(0, D2p, a0, a1) : d2.fy(0, D2p, a0, a1);
+            v = f == 0 ? v + d : v + T(0.5) * c2 * ms * d;
+          }
+          g[o] = v;
+        }
+        __syncthreads();
+      } else if (wd) {  // dw, the w damping's divergence, per box cell
+        for (int e = id; e < ty * tx; e += nt) {
+          int lq, lc;
+          dbox.split(e, lq, lc);
+          const T ra = rarea[(lq + 3) * S + lc + 3];
+          T dw = T(0);
+          bool first = true;
+          const fv::Deln<T, TY, TX>* ds[2] = {&d1, &d2};
+          const bool on[2] = {on1, on2};
+          const int nd[2] = {nord1, 0};
+          for (int c = 0; c < 2; ++c) {
+            if (!on[c]) continue;
+            const fv::Deln<T, TY, TX>& d = *ds[c];
+            const T v = (d.fx(nd[c], D2p, lq, lc)
+                         - d.fx(nd[c], D2p, lq, lc + 1)
+                         + d.fy(nd[c], D2p, lq, lc)
+                         - d.fy(nd[c], D2p, lq + 1, lc)) * ra;
+            dw = (first ? T(0) : dw) + v;
+            first = false;
+          }
+          PL(DW)[lq * S + lc] = dw;
+        }
+        __syncthreads();
+      }
+      if (f == 0) {  // fx [n, n+1], fy [n+1, n]: the box's own walls
+        const int wx = tl.lx ? tx + 1 : tx, wy = tl.ly ? ty + 1 : ty;
+        const int nx = ty * wx, ny = wy * tx;
+        const fv::Div dw_(wx);
+        for (int e = id; e < nx + ny; e += nt) {
+          if (e < nx) {
+            int lq, lw;
+            dw_.split(e, lq, lw);
+            a.out[3][(pl * n + tl.j0 + lq) * (n + 1) + tl.i0 + lw] =
+                gx[lq * S + lw];
+          } else {
+            int lw, lq;
+            dbox.split(e - nx, lw, lq);
+            a.out[4][(pl * (n + 1) + tl.j0 + lw) * n + tl.i0 + lq] =
+                gy[lw * S + lq];
+          }
+        }
+        continue;
+      }
+      for (int e = id; e < ty * tx; e += nt) {  // the cell updates
+        int lq, lc;
+        dbox.split(e, lq, lc);
+        const int c = (lq + 3) * S + lc + 3;
+        const T dp = PL(DELP)[c], qc = PL(q)[c];
+        const T dpn = dp + divc(PL(FX), PL(FY), lq, lc);
+        const long long o = cell_out(lq, lc);
+        if (f == 2) {  // pt (its product with delp in the plain order)
+          a.out[0][o] = dpn;
+          a.out[1][o] = (qc * dp + divc(gx, gy, lq, lc)) / dpn;
+          continue;
+        }
+        T wn = (dp * qc + divc(gx, gy, lq, lc)) / dpn;
+        if (wd) {
+          const T d = PL(DW)[lq * S + lc];
+          wn = wn + d;
+          a.out[13][o] = T(a.dd8) - d * (qc + T(0.5) * d);
+        }
+        a.out[2][o] = wn;
+      }
+      __syncthreads();
+    }
   }
-  w_new[o] = wn;
 }
 
-template <typename T> struct Outs {
-  T *delp_new, *pt_new, *w_new, *fx, *fy, *crx, *cry, *xfx, *yfx, *ra_x,
-      *ra_y, *ut, *vt, *heat;
-};
-
-template <typename T> struct Work {
-  // compact seam for the sweeps, copy_corners planes, del-n scratch,
-  // the w and pt fluxes and dw
-  T *crx_c, *xfx_c, *cry_c, *yfx_c, *rax_c, *ray_c, *qx, *qy, *d2, *fx2,
-      *fy2, *gxw, *gyw, *gxp, *gyp, *dw;
-};
+// the box (TX, TY) of each element size, as ops/dsw.py's TILE
+template <typename T> struct Box;
+template <> struct Box<float> { static constexpr int TX = 32, TY = 16; };
+template <> struct Box<double> { static constexpr int TX = 16, TY = 12; };
 
 template <typename T>
-int sweep(const FluxArgs<T>& a, const Work<T>& w, const T* q, int hord,
-          const T* mfx, const T* mfy, T* fx, T* fy, cudaStream_t s) {
-  const int P = a.n + 6;
-  fv::k_copy_corners<T><<<fv::grid_for(P, P, 6 * a.K), dim3(fv::BX, fv::BY),
-                          0, s>>>(q, w.qx, w.qy, a.n, a.K);
-  const void* in[14] = {q, w.qx, w.qy, w.crx_c, w.cry_c, w.xfx_c, w.yfx_c,
-                        a.m.area, w.rax_c, w.ray_c, a.m.dxa, a.m.dya, mfx,
-                        mfy};
-  // every operand but area, dxa, dya carries K levels
-  const int kvar = a.K > 1 ? (0x3FFF & ~((1 << 7) | (1 << 10) | (1 << 11)))
-                           : 0;
-  return tpk::tp2d_sweep(in, fx, fy, a.n, 1, a.K, 0, kvar,
-                         hord == 10 ? 8 : hord, hord, mfx != nullptr,
-                         sizeof(T) == 8 ? 1 : 0, s);
+size_t smem_bytes() {
+  constexpr int TY = Box<T>::TY, TX = Box<T>::TX;
+  const size_t win = fv::win_elems<TY, TX>();
+  return (size_t)(N_PLANES + NF) * win * sizeof(T) + (size_t)N_FLAGS * win;
+}
+
+template <typename T>
+FluxArgs<T> make_args(const void* const* in, const void* const* met,
+                      void* const* out, const void* const* prof,
+                      const int* iv, const double* dv) {
+  FluxArgs<T> a;
+  for (int b = 0; b < 5; ++b) a.in[b] = static_cast<const T*>(in[b]);
+  for (int b = 0; b < 18; ++b) a.in[5 + b] = static_cast<const T*>(met[b]);
+  for (int b = 0; b < 14; ++b) a.out[b] = static_cast<T*>(out[b]);
+  for (int b = 0; b < 4; ++b) a.prof[b] = static_cast<const T*>(prof[b]);
+  // iv: n, K, hord_dp, hord_vt, hord_tm, nord_v, nord_w, on_v, on_v2,
+  //     on_w, on_w2, ntx, nty; dv: dt, dd8
+  a.n = iv[0];
+  a.K = iv[1];
+  a.hord_dp = iv[2];
+  a.hord_vt = iv[3];
+  a.hord_tm = iv[4];
+  a.nord_v = iv[5];
+  a.nord_w = iv[6];
+  a.on_v = iv[7];
+  a.on_v2 = iv[8];
+  a.on_w = iv[9];
+  a.on_w2 = iv[10];
+  a.ntx = iv[11];
+  a.nty = iv[12];
+  a.dt = dv[0];
+  a.dd8 = dv[1];
+  return a;
 }
 
 template <typename T>
 int run(const void* const* in, const void* const* met, void* const* out,
-        void* const* work, const void* const* prof, const int* iv,
-        const double* dv, cudaStream_t s) {
-  FluxArgs<T> a;
-  a.delp = static_cast<const T*>(in[0]);
-  a.pt = static_cast<const T*>(in[1]);
-  a.w = static_cast<const T*>(in[2]);
-  a.uc = static_cast<const T*>(in[3]);
-  a.vc = static_cast<const T*>(in[4]);
-  const T** mp = reinterpret_cast<const T**>(&a.m);
-  for (int b = 0; b < 18; ++b) mp[b] = static_cast<const T*>(met[b]);
-  Outs<T> o;
-  T** op = reinterpret_cast<T**>(&o);
-  for (int b = 0; b < 14; ++b) op[b] = static_cast<T*>(out[b]);
-  Work<T> w;
-  T** wp = reinterpret_cast<T**>(&w);
-  for (int b = 0; b < 16; ++b) wp[b] = static_cast<T*>(work[b]);
-  // iv: n, K, hord_dp, hord_vt, hord_tm, nord_v, nord_w, on_v, on_v2,
-  //     on_w, on_w2; dv: dt, dd8
-  const int n = iv[0], K = iv[1];
-  const int hord_dp = iv[2], hord_vt = iv[3], hord_tm = iv[4];
-  const int nord_v = iv[5], nord_w = iv[6];
-  const int on_v = iv[7], on_v2 = iv[8], on_w = iv[9], on_w2 = iv[10];
-  a.n = n;
-  a.K = K;
-  a.dt = dv[0];
-  const T* damp4_v = static_cast<const T*>(prof[0]);
-  const T* damp4_v2 = static_cast<const T*>(prof[1]);
-  const T* damp4_w = static_cast<const T*>(prof[2]);
-  const T* damp4_w2 = static_cast<const T*>(prof[3]);
-  const int P = n + 6, W = n + 7, m = n + 1, planes = 6 * K;
-  const dim3 blk(fv::BX, fv::BY);
-  int rc;
-
-  k_ut<T><<<fv::grid_for(P, W, planes), blk, 0, s>>>(a, o.ut);
-  k_vt<T><<<fv::grid_for(W, P, planes), blk, 0, s>>>(a, o.vt);
-  k_corner<T><<<(planes + 63) / 64, 64, 0, s>>>(a, o.ut, o.vt, planes);
-  k_cx<T><<<fv::grid_for(P, W, planes), blk, 0, s>>>(a, o.ut, o.crx, o.xfx);
-  k_cy<T><<<fv::grid_for(W, P, planes), blk, 0, s>>>(a, o.vt, o.cry, o.yfx);
-  k_ra<T><<<fv::grid_for(P, P, planes), blk, 0, s>>>(a, o.xfx, o.yfx, o.ra_x,
-                                                     o.ra_y);
-  fv::k_compact<T><<<fv::grid_for(P, P, planes), blk, 0, s>>>(
-      o.crx, o.xfx, o.cry, o.yfx, o.ra_x, o.ra_y, w.crx_c, w.xfx_c, w.cry_c,
-      w.yfx_c, w.rax_c, w.ray_c, n, K);
-
-  // delp transport with its damping (nord_v, damp_v) + (0, damp_v2)
-  if ((rc = sweep(a, w, a.delp, hord_dp, (const T*)nullptr,
-                  (const T*)nullptr, o.fx, o.fy, s)))
-    return rc;
-  const int combos[2][3] = {{nord_v, on_v, 0}, {0, on_v2, 1}};
-  for (const auto& cb : combos) {
-    if (!cb[1]) continue;
-    const T* d4 = cb[2] ? damp4_v2 : damp4_v;
-    fv::deln_fluxes<T>(a.delp, d4, cb[0], a.m.del6_u, a.m.del6_v, a.m.rarea,
-                       w.fx2, w.fy2, w.d2, n, K, s);
-    k_add_fx<T><<<fv::grid_for(n, m, planes), blk, 0, s>>>(
-        o.fx, w.fx2, (const T*)nullptr, d4, n, K);
-    k_add_fy<T><<<fv::grid_for(m, n, planes), blk, 0, s>>>(
-        o.fy, w.fy2, (const T*)nullptr, d4, n, K);
-  }
-
-  // w damping (nord_w, damp_w) + (0, damp_w2) and its heat source
-  const bool hydro = a.w == nullptr;
-  const bool wd = !hydro && (on_w || on_w2);
-  int first = 1;
-  const int wcombos[2][3] = {{nord_w, on_w, 0}, {0, on_w2, 1}};
-  for (const auto& cb : wcombos) {
-    if (!cb[1] || hydro) continue;
-    const T* d4 = cb[2] ? damp4_w2 : damp4_w;
-    fv::deln_fluxes<T>(a.w, d4, cb[0], a.m.del6_u, a.m.del6_v, a.m.rarea,
-                       w.fx2, w.fy2, w.d2, n, K, s);
-    k_add_dw<T><<<fv::grid_for(n, n, planes), blk, 0, s>>>(
-        w.dw, w.fx2, w.fy2, a.m.rarea, first, n, K);
-    first = 0;
-  }
-
-  // w and pt transport with the delp mass fluxes; pt damping in mass form
-  if (!hydro &&
-      (rc = sweep(a, w, a.w, hord_vt, o.fx, o.fy, w.gxw, w.gyw, s)))
-    return rc;
-  if ((rc = sweep(a, w, a.pt, hord_tm, o.fx, o.fy, w.gxp, w.gyp, s)))
-    return rc;
-  for (const auto& cb : combos) {
-    if (!cb[1]) continue;
-    const T* d4 = cb[2] ? damp4_v2 : damp4_v;
-    fv::deln_fluxes<T>(a.pt, (const T*)nullptr, cb[0], a.m.del6_u,
-                       a.m.del6_v, a.m.rarea, w.fx2, w.fy2, w.d2, n, K, s);
-    k_add_fx<T><<<fv::grid_for(n, m, planes), blk, 0, s>>>(
-        w.gxp, w.fx2, a.delp, d4, n, K);
-    k_add_fy<T><<<fv::grid_for(m, n, planes), blk, 0, s>>>(
-        w.gyp, w.fy2, a.delp, d4, n, K);
-  }
-  k_final<T><<<fv::grid_for(n, n, planes), blk, 0, s>>>(
-      a, o.fx, o.fy, w.gxw, w.gyw, w.gxp, w.gyp, wd ? w.dw : (const T*)nullptr,
-      dv[1], o.delp_new, o.pt_new, hydro ? (T*)nullptr : o.w_new, o.heat);
+        const void* const* prof, const int* iv, const double* dv,
+        cudaStream_t s) {
+  // iv[13..15]: the wrapper's box and shared-memory bytes, which must be
+  // this instantiation's
+  const size_t bytes = smem_bytes<T>();
+  if (iv[13] != Box<T>::TX || iv[14] != Box<T>::TY || (size_t)iv[15] != bytes)
+    return (int)cudaErrorInvalidValue;
+  const FluxArgs<T> a = make_args<T>(in, met, out, prof, iv, dv);
+  auto kern = fluxes_kernel<T, Box<T>::TY, Box<T>::TX>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  const long long blocks = 6LL * ((a.K + KL - 1) / KL) * a.ntx * a.nty;
+  kern<<<(unsigned)blocks, NT, bytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point. in: delp, pt, w [6,K,P,P], uc [6,K,P,W], vc
-// [6,K,W,P] (w null for the hydrostatic form); met: the 18 metric planes in
-// FluxMetrics order; out (14): delp_new, pt_new, w_new [6,K,n,n], fx
-// [6,K,n,n+1], fy [6,K,n+1,n], crx, cry, xfx, yfx, ra_x, ra_y, ut, vt (full
-// frames), heat [6,K,n,n] (w_new null when w is; heat null without w
-// damping); work (16): see Work; prof: the per-level
-// damping coefficients damp4_v, damp4_v2, damp4_w, damp4_w2 [K] (null when
-// off); iv, dv: see run. dtype 0 = float32, 1 = float64.
+// [6,K,W,P] (w null for the hydrostatic form); met: the 18 metric planes
+// in ops/dsw.py FLUX_METRICS order; out (14): delp_new, pt_new, w_new
+// [6,K,n,n], fx [6,K,n,n+1], fy [6,K,n+1,n], crx, cry, xfx, yfx, ra_x,
+// ra_y, ut, vt (full frames), heat [6,K,n,n] (w_new null when w is; heat
+// null without w damping); prof: the per-level damping coefficients
+// damp4_v, damp4_v2, damp4_w, damp4_w2 [K] (null when off); iv: n, K,
+// hord_dp, hord_vt, hord_tm, nord_v, nord_w, on_v, on_v2, on_w, on_w2,
+// boxes along x and y, box TX, TY, shared-memory bytes; dv: dt, dd8.
+// dtype 0 = float32, 1 = float64. Returns a cudaError_t code.
 extern "C" int d_sw_fluxes(const void* const* in, const void* const* met,
-                           void* const* out, void* const* work,
-                           const void* const* prof, const int* iv,
-                           const double* dv, int dtype, void* stream) {
+                           void* const* out, const void* const* prof,
+                           const int* iv, const double* dv, int dtype,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(in, met, out, work, prof, iv, dv, s);
-  return run<double>(in, met, out, work, prof, iv, dv, s);
+  if (dtype == 0) return run<float>(in, met, out, prof, iv, dv, s);
+  return run<double>(in, met, out, prof, iv, dv, s);
 }

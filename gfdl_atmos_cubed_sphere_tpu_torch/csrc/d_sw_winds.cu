@@ -1,5 +1,5 @@
-// d_sw winds stage (FV3 model/sw_core.F90 d_sw:494, lines 1063-1529),
-// nonhydrostatic form, for Hopper.
+// d_sw winds stage (FV3 model/sw_core.F90 d_sw:494, lines 1063-1529) for
+// Hopper: one tile-fused launch.
 //
 // Replaces the second of the two pallas_calls of the TPU kernel d_sw_pallas
 // (gfdl_atmos_cubed_sphere_tpu/ops/pallas_dsw.py:155, via _run_stage :98):
@@ -10,382 +10,600 @@
 // heating. The Smagorinsky operand a2b_ord4(vorticity) comes in from the
 // a2b kernel, computed outside as on the TPU (pallas_dsw.py:286-298).
 //
-// Bound on an H100: bytes. Per (tile, level) plane it reads 16 field planes
-// (the fluxes stage's seam among them) and 28 metric planes and writes 3.
-// Design: a sequence of launches of one thread per output point over a
-// workspace the wrapper allocates: the KE stage runs the ke_section
-// kernel's device code and the vorticity transport the tp2d sweep's (both
-// included here), the del-n fluxes the shared stages of fv_deln.cuh.
-// Per-level coefficients come in as device [K] arrays. Every branch is a
-// select. Built with --fmad=false; the arithmetic follows the plain version
-// (ops/sw_core.py d_sw, stage="winds") operation by operation.
+// Bound on an H100: bytes. It must read 18 field planes (the fluxes
+// stage's seam among them) and 28 metric planes and write 3: ~1.5 GB of
+// f32 at C192L79, 0.47 ms at 3.35 TB/s.
+//
+// Design (fv_tile.cuh has the box, the window and the plan). One block of
+// NT threads owns a TY x TX box of one tile (32 x 12 in f32, 16 x 8 in
+// f64) and a run of KL levels. It keeps the box's window (box + 3-cell
+// halo, + 1 for wall and corner arrays) of 23 metric planes in dynamic
+// shared memory for the run and two sets of the window of the 15 field
+// planes u, v, uc, vc, ua, va, divg_d and the seam (crx, cry, xfx, yfx,
+// ra_x, ra_y, ut, vt): the level it computes and the next one's, loaded in
+// five parts between this level's stages (cp.async element copies). delp,
+// vortS, heat_w and the 5 metric planes read at one point (rarea_c, cosa,
+// rsina, rsin2, cosa_s) come straight from device memory where they are
+// used. The stages, in the plain version's order, with their extents
+// (local window indices, the box's cells [3, 3 + ty) x [3, 3 + tx), its
+// corners and walls [3, 3 + ty] x [3, 3 + tx]):
+//   wk, vabs = wk + f0                  the cell window
+//   vorticity double sweep of vabs      fv_tile.cuh tile_sweep extents
+//   KE: xtp_u cells of u on the box's corner rows, one cell beyond each
+//       side; ytp_v cells of v likewise on its corner columns; then ke per
+//       corner (the ke_section kernel's arithmetic, fv_ppm.cuh)
+//   vortB (del-2 / del-4 / blend, Smagorinsky) per box corner; ke += vortB
+//   wk damping d2 (nord_v 1) on the box + 1 ring; fluxes on the box walls
+//   u, v on the box walls; the heat per box cell
+// Every stage's reads stay inside the window. Nothing but u, v and heat
+// goes to device memory: the old chain of some 16 launches wrote and
+// re-read 21 workspace planes. Every branch is a select, so NaN held in
+// the cube-corner halo of a metric stays where the plain version
+// (ops/sw_core.py d_sw, stage="winds") puts it. Built with --fmad=false:
+// bit-exact with the plain version.
 
-#include "fv_deln.cuh"
-
-namespace tpk {
-#include "tp2d_sweep.cu"
-}
-namespace kek {
-#include "ke_section.cu"
-}
+#include "fv_tile.cuh"
 
 namespace {
 
 using fv::fi;
-using fv::H;
+using fv::Tile;
 
-template <typename T> struct WindMetrics {
-  const T *cosa_u, *cosa_v, *sina_u, *sina_v, *sin_sg1, *sin_sg2, *sin_sg3,
-      *sin_sg4, *dx, *dy, *rdx, *rdy, *dxa, *dya, *dxc, *dyc, *area, *rarea,
-      *rarea_c, *cosa, *rsina, *del6_u, *del6_v, *divg_u, *divg_v, *f0,
-      *rsin2, *cosa_s;
+constexpr int NT = 512;
+
+enum Plane {
+  // fields and the seam
+  U, V, UC, VC, UA, VA, DIVG, CRX, CRY, XFX, YFX, RAX, RAY, UTI, VTI,
+  // window metric planes, in WIND_METRICS order less the point reads
+  COSA_U, COSA_V, SINA_U, SINA_V, SIN1, SIN2, SIN3, SIN4, DX, DY, RDX, RDY,
+  DXA, DYA, DXC, DYC, AREA, RAREA, DEL6U, DEL6V, DIVG_U, DIVG_V, F0,
+  // work planes
+  WK, VABS, QX, QY, BLY, BRY, BLX, BRX, FY2, QI, FX2, QJ, FXV, FYV,
+  N_PLANES
 };
+constexpr int N_FLAGS = 2;
+constexpr int N_STAGED = F0 + 1;
+constexpr int NF = COSA_U;    // field planes (double-buffered)
+constexpr int KL = 16;        // levels per block
+// the window planes' frame kinds
+__device__ const int kKind[N_STAGED] = {
+    fv::YWALL, fv::XWALL, fv::XWALL, fv::YWALL, fv::CELL, fv::CELL,
+    fv::CORNER, fv::XWALL, fv::YWALL, fv::XWALL, fv::YWALL, fv::CELL,
+    fv::CELL, fv::XWALL, fv::YWALL,
+    fv::XWALL, fv::YWALL, fv::XWALL, fv::YWALL,
+    fv::CELL, fv::CELL, fv::CELL, fv::CELL,
+    fv::YWALL, fv::XWALL, fv::YWALL, fv::XWALL, fv::CELL, fv::CELL,
+    fv::XWALL, fv::YWALL, fv::CELL, fv::CELL, fv::YWALL, fv::XWALL,
+    fv::YWALL, fv::XWALL, fv::CELL};
+// the wrapper's metric index of each window metric plane
+__device__ const int kMet[N_STAGED - COSA_U] = {
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 21, 22,
+    23, 24, 25};
+// the wrapper's metric index of the planes read at a point
+constexpr int M_RAREA_C = 18, M_COSA = 19, M_RSINA = 20, M_RSIN2 = 26,
+              M_COSA_S = 27;
 
 template <typename T> struct WindArgs {
-  // delp, u, v, uc, vc, ua, va, divg_d, vortS, heat_w, then the seam
-  const T *delp, *u, *v, *uc, *vc, *ua, *va, *divg, *vortS, *heat_w, *crx,
-      *cry, *xfx, *yfx, *ra_x, *ra_y, *ut, *vt;
-  WindMetrics<T> m;
+  // delp, u, v, uc, vc, ua, va, divg_d, vortS, heat_w, then the seam crx,
+  // cry, xfx, yfx, ra_x, ra_y, ut, vt
+  const T* in[18];
+  const T* met[28];
+  T* out[3];            // u, v, heat
   // per-level d2_bg, d_con, nord_mask, damp4_v, damp4_v2
-  const T *d2_bg, *d_con, *mask, *damp4_v, *damp4_v2;
-  int n, K, need0, needN, smag, do_heat;
+  const T* prof[5];
+  int n, K, ntx, nty, hord_mt, hord_vt, nord_v, need0, needN, smag;
+  int do_heat, on_v, on_v2;
   double dt, dddmp, da_min_c, dd8;
 };
 
-#define MET(ptr, R, C) const T* ptr##_ = fv::plane(a.m.ptr, t, 0, 1, R, C)
-#define FLD(ptr, R, C) const T* ptr##_ = fv::plane(a.ptr, t, k, a.K, R, C)
+// the wrapper's input index of each window field plane
+__device__ const int kIn[VTI + 1] = {1, 2, 3, 4, 5, 6, 7, 10, 11, 12,
+                                            13, 14, 15, 16, 17};
 
-// ---- cell-mean relative vorticity and the absolute vorticity [P, P] -----
-template <typename T>
-__global__ void k_wk(WindArgs<T> a, T* wk, T* vabs) {
-  const int n = a.n, P = n + 6, W = n + 7;
-  FV_POINT(P, P, a.K);
-  FLD(u, W, P);
-  FLD(v, P, W);
-  MET(dx, W, P);
-  MET(dy, P, W);
-  MET(rarea, P, P);
-  MET(f0, P, P);
-  const T vt0 = u_[j * P + i] * dx_[j * P + i];
-  const T vt1 = u_[(j + 1) * P + i] * dx_[(j + 1) * P + i];
-  const T ut0 = v_[j * W + i] * dy_[j * W + i];
-  const T ut1 = v_[j * W + i + 1] * dy_[j * W + i + 1];
-  const T w = rarea_[j * P + i] * (vt0 - vt1 - ut0 + ut1);
-  const long long o = ((long long)blockIdx.z * P + j) * P + i;
-  wk[o] = w;
-  vabs[o] = w + f0_[j * P + i];
-}
+template <typename T, int TY, int TX>
+__global__ void __launch_bounds__(NT, 1) winds_kernel(WindArgs<T> a) {
+  constexpr int S = fv::win_stride<TX>();
+  constexpr size_t WIN = fv::win_elems<TY, TX>();
+  // shared memory: the window planes (the field planes twice: the level
+  // being computed, buffer b, and the next one's, loading) and the
+  // smoothness flags
+  T* sm = reinterpret_cast<T*>(fv_smem);
+  unsigned char* flags =
+      reinterpret_cast<unsigned char*>(sm + (size_t)(N_PLANES + NF) * WIN);
+  int b = 0;
+  // the slot of plane p: the fields in buffer b, the rest after both
+  auto PL = [&](int p) -> T* {
+    return sm + (size_t)(p < NF ? p + b * NF : p + NF) * WIN;
+  };
+  Tile tl;
+  tl.decode(a.n, a.K, a.ntx, a.nty, KL);
+  const int n = tl.n, P = tl.P, W = tl.W, npx = tl.npx, K = a.K;
+  const int oy = tl.j0, ox = tl.i0, ty = tl.ty, tx = tl.tx;
+  const int id = threadIdx.x, nt = blockDim.x;
 
-// ptc_d on y-walls [W, P] and vort_d on x-walls [P, W] (the del-2 branch)
-template <typename T>
-__device__ T ptc_d(const WindArgs<T>& a, int t, int k, int j, int i) {
-  const int n = a.n, P = n + 6, W = n + 7, npx = n + 1;
-  FLD(u, W, P);
-  FLD(vc, W, P);
-  FLD(va, P, P);
-  MET(cosa_v, W, P);
-  MET(dyc, W, P);
-  MET(sina_v, W, P);
-  MET(sin_sg2, P, P);
-  MET(sin_sg4, P, P);
-  const T uu = u_[j * P + i], dyc = dyc_[j * P + i];
-  if (j == fi(1) || j == fi(npx))
-    return vc_[j * P + i] > T(0) ? uu * dyc * sin_sg4_[(j - 1) * P + i]
-                                 : uu * dyc * sin_sg2_[j * P + i];
-  const T vl = j > 0 ? va_[(j - 1) * P + i] : T(0);
-  const T vr = j < P ? va_[j * P + i] : T(0);
-  return (uu - T(0.5) * (vl + vr) * cosa_v_[j * P + i]) * dyc
-         * sina_v_[j * P + i];
-}
+  // ---- the window: the metric planes once, the fields level by level
+  // (the next level's while this one computes), by element copies
+  auto load = [&](int p0, int p1, int buf, int kk) {
+    for (int p = p0; p < p1; ++p) {
+      const T* src = p < NF ? a.in[kIn[p]] : a.met[kMet[p - NF]];
+      if (src == nullptr) continue;
+      const bool field = p < NF;
+      fv::load_window<T, TX>(sm + (size_t)(field ? p + buf * NF : p + NF) * WIN,
+                             src, kKind[p], tl, field ? K : 1, field ? kk : 0);
+    }
+    fv::copy_commit();
+  };
+  load(0, N_STAGED, 0, tl.k0);
 
-template <typename T>
-__device__ T vort_d(const WindArgs<T>& a, int t, int k, int j, int i) {
-  const int n = a.n, P = n + 6, W = n + 7, npx = n + 1;
-  FLD(v, P, W);
-  FLD(uc, P, W);
-  FLD(ua, P, P);
-  MET(cosa_u, P, W);
-  MET(dxc, P, W);
-  MET(sina_u, P, W);
-  MET(sin_sg1, P, P);
-  MET(sin_sg3, P, P);
-  const T vv = v_[j * W + i], dxc = dxc_[j * W + i];
-  if (i == fi(1) || i == fi(npx))
-    return uc_[j * W + i] > T(0) ? vv * dxc * sin_sg3_[j * P + i - 1]
-                                 : vv * dxc * sin_sg1_[j * P + i];
-  const T ul = i > 0 ? ua_[j * P + i - 1] : T(0);
-  const T ur = i < P ? ua_[j * P + i] : T(0);
-  return (vv - T(0.5) * (ul + ur) * cosa_u_[j * W + i]) * dxc
-         * sina_u_[j * W + i];
-}
-
-// ---- vortB on corners [W, W]; ke += vortB ---------------------------------
-template <typename T>
-__global__ void k_vortB(WindArgs<T> a, T* ke, T* vortB) {
-  const int n = a.n, P = n + 6, W = n + 7, npx = n + 1;
-  FV_POINT(W, W, a.K);
-  MET(rarea_c, W, W);
-  const T rac = rarea_c_[j * W + i];
-  const T dmc = T(a.da_min_c);
-  const T d2bg = a.d2_bg[k];
-  T vB0 = T(0), vBN = T(0);
-  if (a.need0) {
-    const T rl = j > 0 ? vort_d(a, t, k, j - 1, i) : T(0);
-    const T rr = j < P ? vort_d(a, t, k, j, i) : T(0);
-    const T cl = i > 0 ? ptc_d(a, t, k, j, i - 1) : T(0);
-    const T cr = i < P ? ptc_d(a, t, k, j, i) : T(0);
-    T d = rl - rr + cl - cr;
-    if (j == fi(1) && i == fi(1)) d = d - vort_d(a, t, k, fi(0), fi(1));
-    else if (j == fi(1) && i == fi(npx)) d = d - vort_d(a, t, k, fi(0), fi(npx));
-    else if (j == fi(npx) && i == fi(1)) d = d + vort_d(a, t, k, fi(npx), fi(1));
-    else if (j == fi(npx) && i == fi(npx))
-      d = d + vort_d(a, t, k, fi(npx), fi(npx));
-    d = d * rac;
-    const T damp = dmc * fv::tmax(d2bg, fv::tmin(T(a.dddmp) * fabs(d * T(a.dt)),
-                                                 T(0.20)));
-    vB0 = damp * d;
-  }
-  if (a.needN) {
-    // one del-2 pass of divg_d (nord = 1): uc_g [P, W], vc_g [W, P]
-    FLD(divg, W, W);
-    MET(divg_u, W, P);
-    MET(divg_v, P, W);
-    auto vcg = [&](int jj, int ii) {   // (dd[:, 1:] - dd[:, :-1]) * divg_u
-      return (divg_[jj * W + ii + 1] - divg_[jj * W + ii]) * divg_u_[jj * P + ii];
+  for (int kk = 0; kk < tl.kl; ++kk) {
+    const int k = tl.k0 + kk;
+    tl.k = k;
+    const long long pl = (long long)tl.t * K + k;
+    b = kk & 1;
+    fv::copy_wait<0>();
+    __syncthreads();
+    // the next level's fields, in five parts spread over this level's
+    // stages so that their copies interleave with its shared-memory work
+    const bool more = kk + 1 < tl.kl;
+    auto prefetch = [&](int part) {
+      if (more) load(part * NF / 5, (part + 1) * NF / 5, b ^ 1, k + 1);
     };
-    auto ucg = [&](int jj, int ii) {   // (dd[1:] - dd[:-1]) * divg_v
-      return (divg_[(jj + 1) * W + ii] - divg_[jj * W + ii]) * divg_v_[jj * W + ii];
+    prefetch(0);
+
+    auto L = [&](int p, int r, int c) -> T {
+      return PL(p)[fv::wix<TY, TX>(r - oy, c - ox)];
     };
-    const T rl = j > 0 ? ucg(j - 1, i) : T(0);
-    const T rr = j < P ? ucg(j, i) : T(0);
-    const T cl = i > 0 ? vcg(j, i - 1) : T(0);
-    const T cr = i < P ? vcg(j, i) : T(0);
-    T dd = rl - rr + cl - cr;
-    if (j == fi(1) && i == fi(1)) dd = dd - ucg(fi(0), fi(1));
-    else if (j == fi(1) && i == fi(npx)) dd = dd - ucg(fi(0), fi(npx));
-    else if (j == fi(npx) && i == fi(1)) dd = dd + ucg(fi(npx), fi(1));
-    else if (j == fi(npx) && i == fi(npx)) dd = dd + ucg(fi(npx), fi(npx));
-    dd = dd * rac;
-    const T dg = divg_[j * W + i];
-    T vs = T(0);
-    if (a.smag) {
-      const T vp = fv::plane(a.vortS, t, k, a.K, W, W)[j * W + i];
-      vs = T(fabs(a.dt)) * sqrt(dg * dg + vp * vp);
+    // the same without the clamp, for stencils inside the window
+    auto D = [&](int p, int r, int c) -> T {
+      return PL(p)[(r - oy) * S + (c - ox)];
+    };
+
+    // ---- 1. cell-mean relative vorticity and the absolute vorticity --------
+    {
+      const int rows = ty + 6, cols = tx + 6;
+      const fv::Div dv1(cols);
+      for (int e = id; e < rows * cols; e += nt) {
+        int lr, lc;
+        dv1.split(e, lr, lc);
+        const int o = lr * S + lc;
+        const T vt0 = PL(U)[o] * PL(DX)[o];
+        const T vt1 = PL(U)[o + S] * PL(DX)[o + S];
+        const T ut0 = PL(V)[o] * PL(DY)[o];
+        const T ut1 = PL(V)[o + 1] * PL(DY)[o + 1];
+        const T w = PL(RAREA)[o] * (vt0 - vt1 - ut0 + ut1);
+        PL(WK)[o] = w;
+        PL(VABS)[o] = w + PL(F0)[o];
+      }
     }
-    const T damp2 = dmc * fv::tmax(d2bg, fv::tmin(T(a.dddmp) * vs, T(0.20)));
-    vBN = damp2 * dg + T(a.dd8) * dd;
-  }
-  T vB;
-  if (a.need0 && a.needN) {
-    const T m0 = a.mask[k];
-    vB = m0 * vB0 + (T(1) - m0) * vBN;
-  } else {
-    vB = a.needN ? vBN : vB0;
-  }
-  const long long o = ((long long)blockIdx.z * W + j) * W + i;
-  vortB[o] = vB;
-  ke[o] = ke[o] + vB;
-}
+    __syncthreads();
 
-// ---- wind update (compute walls) and the dissipative heating ------------
-// u_pre = vt_w + (ke[j, i] - ke[j, i+1]) + fyv on [n+1, n];
-// u = u_pre + fy2d (the vorticity damping fluxes) when damping is on
-template <typename T>
-__global__ void k_u(WindArgs<T> a, const T* ke, const T* fyv,
-                    const T* fy2a, const T* fy2b, T* u_pre, T* u_new) {
-  const int n = a.n, P = n + 6, W = n + 7, m = n + 1;
-  FV_POINT(m, n, a.K);
-  FLD(u, W, P);
-  MET(dx, W, P);
-  const long long pl = blockIdx.z;
-  const int J = j + H, I = i + H;
-  const T* KE = ke + pl * W * W;
-  const T full = u_[J * P + I] * dx_[J * P + I] + (KE[J * W + I] - KE[J * W + I + 1]);
-  const long long o = (pl * m + j) * n + i;
-  const T up = full + fyv[o];
-  u_pre[o] = up;
-  T un = up;
-  if (fy2a != nullptr) {
-    const long long c = (pl * W + J) * P + I;
-    const T f2 = fy2b != nullptr ? fy2a[c] + fy2b[c] : fy2a[c];
-    un = up + f2;
-  }
-  u_new[o] = un;
-}
+    prefetch(1);
 
-template <typename T>
-__global__ void k_v(WindArgs<T> a, const T* ke, const T* fxv,
-                    const T* fx2a, const T* fx2b, T* v_pre, T* v_new) {
-  const int n = a.n, P = n + 6, W = n + 7, m = n + 1;
-  FV_POINT(n, m, a.K);
-  FLD(v, P, W);
-  MET(dy, P, W);
-  const long long pl = blockIdx.z;
-  const int J = j + H, I = i + H;
-  const T* KE = ke + pl * W * W;
-  const T full = v_[J * W + I] * dy_[J * W + I] + (KE[J * W + I] - KE[(J + 1) * W + I]);
-  const long long o = (pl * n + j) * m + i;
-  const T vp = full - fxv[o];
-  v_pre[o] = vp;
-  T vn = vp;
-  if (fx2a != nullptr) {
-    const long long c = (pl * P + J) * W + I;
-    const T f2 = fx2b != nullptr ? fx2a[c] + fx2b[c] : fx2a[c];
-    vn = vp - f2;
-  }
-  v_new[o] = vn;
-}
+    // ---- 2. vorticity transport: the double sweep of vabs on the seam ------
+    const fv::SweepWork<T> sw{PL(QX),  PL(QY),  PL(BLY), PL(BRY),
+                              PL(BLX), PL(BRX), PL(FY2), PL(QI),
+                              PL(FX2), PL(QJ),  flags,   flags + WIN};
+    fv::tile_sweep<T, TY, TX>(tl, PL(VABS), PL(AREA), PL(DXA), PL(DYA),
+                              PL(RAX), PL(RAY), PL(CRX), PL(XFX), PL(CRY),
+                              PL(YFX), nullptr, nullptr,
+                              a.hord_vt == 10 ? 8 : a.hord_vt, a.hord_vt, sw,
+                              PL(FXV), PL(FYV));
 
-template <typename T>
-__global__ void k_heat(WindArgs<T> a, const T* vortB, const T* u_pre,
-                       const T* v_pre, const T* fx2a, const T* fx2b,
-                       const T* fy2a, const T* fy2b, T* heat) {
-  const int n = a.n, P = n + 6, W = n + 7, m = n + 1;
-  FV_POINT(n, n, a.K);
-  MET(rdx, W, P);
-  MET(rdy, P, W);
-  MET(rsin2, P, P);
-  MET(cosa_s, P, P);
-  const long long pl = blockIdx.z;
-  const T* VB = vortB + pl * W * W;
-  // ub2, fy_d on y-wall (jw, i); vb2, fx_d on x-wall (j, iw); compute
-  // indices, padded J = jw + H, I = i + H
-  auto ub2 = [&](int jw) {
-    const int J = jw + H, I = i + H;
-    T h = VB[J * W + I] - VB[J * W + I + 1];
-    if (fy2a != nullptr) {
-      const long long c = (pl * W + J) * P + I;
-      h = h + (fy2b != nullptr ? fy2a[c] + fy2b[c] : fy2a[c]);
-    } else {
-      h = h + T(0);
+    prefetch(2);
+
+    // ---- 3. kinetic energy (the ke_section kernel's arithmetic) ------------
+    // xtp_u cells of u rows J (y-walls) and ytp_v cells of v columns I
+    // (x-walls) for the box's corners J, I in [3, 3 + ty], [3, 3 + tx]
+    T* KE = PL(QX);
+    T* VB = PL(QY);
+    {
+      const int cu = tx + 2, nu = (ty + 1) * cu, nv = (ty + 2) * (tx + 1);
+      const fv::Div dv2(cu);
+      const fv::Div dv3(tx + 1);
+      for (int e = id; e < nu + nv; e += nt) {
+        if (e < nu) {
+          int lr, lc;
+          dv2.split(e, lr, lc);
+          lr += 3;
+          lc += 2;
+          const int J = oy + lr;
+          const fv::Line<T> lu{PL(U) + lr * S, PL(DX) + lr * S,
+                               PL(RDX) + lr * S, 1, P, ox};
+          const bool zrow = J == fi(1) || J == fi(npx);
+          fv::put_cell(PL(BLY), PL(BRY), flags, lr * S + lc,
+                       fv::xtp_cell(lu, ox + lc, npx, a.hord_mt, zrow));
+        } else {
+          int lr, lc;
+          dv3.split(e - nu, lr, lc);
+          lr += 2;
+          lc += 3;
+          const int I = ox + lc;
+          const fv::Line<T> lv{PL(V) + lc, PL(DY) + lc, PL(RDY) + lc, S, P,
+                               oy};
+          const bool zcol = I == fi(1) || I == fi(npx);
+          fv::put_cell(PL(BLX), PL(BRX), flags + WIN, lr * S + lc,
+                       fv::xtp_cell(lv, oy + lr, npx, a.hord_mt, zcol));
+        }
+      }
     }
-    return h * rdx_[J * P + I];
-  };
-  auto vb2 = [&](int iw) {
-    const int J = j + H, I = iw + H;
-    T h = VB[J * W + I] - VB[(J + 1) * W + I];
-    if (fx2a != nullptr) {
-      const long long c = (pl * P + J) * W + I;
-      h = h - (fx2b != nullptr ? fx2a[c] + fx2b[c] : fx2a[c]);
-    } else {
-      h = h - T(0);
+    __syncthreads();
+    {
+      const int NW = W, NC = P;
+      const T dtT = T(a.dt);
+      const T dt5 = T(0.5) * dtT, dt4 = T(0.25) * dtT;
+      const T dt6 = T(a.dt / 6.0);
+      const T* cosa = a.met[M_COSA] + (long long)tl.t * W * W;
+      const T* rsina = a.met[M_RSINA] + (long long)tl.t * W * W;
+      // y-wall [NW, NC] and x-wall [NC, NW] reads with the zero padding of
+      // sw_core._cl/_cr/_rl/_rr
+      auto YW = [&](int p, int j, int i) -> T {
+        return (j >= 0 && j < NW && i >= 0 && i < NC) ? D(p, j, i) : T(0);
+      };
+      auto XW = [&](int p, int j, int i) -> T {
+        return (j >= 0 && j < NC && i >= 0 && i < NW) ? D(p, j, i) : T(0);
+      };
+      auto f = [](int i) { return fi(i); };
+      const int cc = tx + 1;
+      const fv::Div dv4(cc);
+      for (int e = id; e < (ty + 1) * cc; e += nt) {
+        int lr, lc;
+        dv4.split(e, lr, lc);
+        lr += 3;
+        lc += 3;
+        const int J = oy + lr, I = ox + lc;
+        const T cs = cosa[(long long)J * NW + I];
+        const T rs = rsina[(long long)J * NW + I];
+        const bool midJ = J >= f(2) && J <= f(npx - 1);
+        const bool midI = I >= f(2) && I <= f(npx - 1);
+        T vb;
+        if (J == f(1) || J == f(npx)) {
+          vb = dt5 * (YW(VTI, J, I - 1) + YW(VTI, J, I));
+        } else if (I == f(1) && midJ) {
+          vb = dt4 * (-YW(VTI, J, f(-1)) + T(3) * (YW(VTI, J, f(0))
+                      + YW(VTI, J, f(1))) - YW(VTI, J, f(2)));
+        } else if (I == f(npx) && midJ) {
+          vb = dt4 * (-YW(VTI, J, f(npx - 2))
+                      + T(3) * (YW(VTI, J, f(npx - 1)) + YW(VTI, J, f(npx)))
+                      - YW(VTI, J, f(npx + 1)));
+        } else {
+          vb = dt5 * (YW(VC, J, I - 1) + YW(VC, J, I)
+                      - (XW(UC, J - 1, I) + XW(UC, J, I)) * cs) * rs;
+        }
+        T ub;
+        if (I == f(1) || I == f(npx)) {
+          ub = dt5 * (XW(UTI, J - 1, I) + XW(UTI, J, I));
+        } else if (J == f(1) && midI) {
+          ub = dt4 * (-XW(UTI, f(-1), I) + T(3) * (XW(UTI, f(0), I)
+                      + XW(UTI, f(1), I)) - XW(UTI, f(2), I));
+        } else if (J == f(npx) && midI) {
+          ub = dt4 * (-XW(UTI, f(npx - 2), I)
+                      + T(3) * (XW(UTI, f(npx - 1), I) + XW(UTI, f(npx), I))
+                      - XW(UTI, f(npx + 1), I));
+        } else {
+          ub = dt5 * (XW(UC, J - 1, I) + XW(UC, J, I)
+                      - (YW(VC, J, I - 1) + YW(VC, J, I)) * cs) * rs;
+        }
+        const fv::Line<T> lv{PL(V) + lc, PL(DY) + lc, PL(RDY) + lc, S, P, oy};
+        const fv::Line<T> lu{PL(U) + lr * S, PL(DX) + lr * S, PL(RDX) + lr * S,
+                             1, P, ox};
+        const fv::PpmCell<T> z{T(0), T(0), false};
+        const fv::PpmCell<T> vL = J >= 1 ? fv::cell_at(PL(BLX), PL(BRX),
+                                                       flags + WIN,
+                                                       (lr - 1) * S + lc)
+                                         : z;
+        const fv::PpmCell<T> vR = J < NC ? fv::cell_at(PL(BLX), PL(BRX),
+                                                       flags + WIN,
+                                                       lr * S + lc)
+                                         : z;
+        const fv::PpmCell<T> uL = I >= 1 ? fv::cell_at(PL(BLY), PL(BRY), flags,
+                                                       lr * S + lc - 1)
+                                         : z;
+        const fv::PpmCell<T> uR = I < NC ? fv::cell_at(PL(BLY), PL(BRY), flags,
+                                                       lr * S + lc)
+                                         : z;
+        T kev = vb * fv::xtp_combine(lv, J, vb, vL, vR, a.hord_mt);
+        T ke = T(0.5) * (kev + ub * fv::xtp_combine(lu, I, ub, uL, uR,
+                                                    a.hord_mt));
+        // corner KE fixes (sw_core.F90:1203-1228); p(a, j, i) = a[f(j), f(i)]
+        if ((J == f(1) || J == f(npx)) && (I == f(1) || I == f(npx))) {
+          auto pu = [&](int j, int i) { return YW(U, f(j), f(i)); };
+          auto pv = [&](int j, int i) { return XW(V, f(j), f(i)); };
+          auto put = [&](int j, int i) { return XW(UTI, f(j), f(i)); };
+          auto pvt = [&](int j, int i) { return YW(VTI, f(j), f(i)); };
+          const int m = npx;
+          if (J == f(1) && I == f(1))
+            ke = dt6 * ((put(1, 1) + put(0, 1)) * pu(1, 1)
+                        + (pvt(1, 1) + pvt(1, 0)) * pv(1, 1)
+                        + (put(1, 1) + pvt(1, 1)) * pu(1, 0));
+          else if (J == f(1))
+            ke = dt6 * ((put(1, m) + put(0, m)) * pu(1, m - 1)
+                        + (pvt(1, m) + pvt(1, m - 1)) * pv(1, m)
+                        + (put(1, m) - pvt(1, m - 1)) * pu(1, m));
+          else if (I == f(npx))
+            ke = dt6 * ((put(m, m) + put(m - 1, m)) * pu(m, m - 1)
+                        + (pvt(m, m) + pvt(m, m - 1)) * pv(m - 1, m)
+                        + (put(m - 1, m) + pvt(m, m - 1)) * pu(m, m));
+          else
+            ke = dt6 * ((put(m, 1) + put(m - 1, 1)) * pu(m, 1)
+                        + (pvt(m, 1) + pvt(m, 0)) * pv(m - 1, 1)
+                        + (put(m - 1, 1) - pvt(m, 1)) * pu(m, 0));
+        }
+        KE[lr * S + lc] = ke;
+      }
     }
-    return h * rdy_[J * W + I];
-  };
-  auto fyd = [&](int jw) {
-    return u_pre[(pl * m + jw) * n + i] * rdx_[(jw + H) * P + i + H];
-  };
-  auto fxd = [&](int iw) {
-    return v_pre[(pl * n + j) * m + iw] * rdy_[(j + H) * W + iw + H];
-  };
-  const T ub0 = ub2(j), ub1 = ub2(j + 1), vb0 = vb2(i), vb1 = vb2(i + 1);
-  const T fy0 = fyd(j), fy1 = fyd(j + 1), fx0 = fxd(i), fx1 = fxd(i + 1);
-  const T gy0 = fy0 * ub0, gy1 = fy1 * ub1, gx0 = fx0 * vb0, gx1 = fx1 * vb1;
-  const T u2 = fy0 + fy1, du2 = ub0 + ub1, v2 = fx0 + fx1, dv2 = vb0 + vb1;
-  const T rs2 = rsin2_[(j + H) * P + i + H], cs = cosa_s_[(j + H) * P + i + H];
-  const T tmp = rs2 * ((ub0 * ub0 + ub1 * ub1 + vb0 * vb0 + vb1 * vb1)
-                       + T(2) * (gy0 + gy1 + gx0 + gx1)
-                       - cs * (u2 * dv2 + v2 * du2 + du2 * dv2));
-  const long long o = (pl * n + j) * n + i;
-  const T hs0 = a.heat_w != nullptr ? a.heat_w[o] : T(0);
-  const T dp = fv::plane(a.delp, t, k, a.K, P, P)[(j + H) * P + i + H];
-  heat[o] = dp * (hs0 - T(0.25) * a.d_con[k] * tmp);
+    __syncthreads();
+
+    prefetch(3);
+
+    // ---- 4. vortB on the box's corners; ke += vortB -------------------------
+    {
+      const T* rarea_c = a.met[M_RAREA_C] + (long long)tl.t * W * W;
+      const T* vortS = a.in[8];
+      const T dmc = T(a.da_min_c);
+      const T d2bg = a.prof[0][k];
+      const T dtT = T(a.dt);
+      // ptc_d on y-walls and vort_d on x-walls (the del-2 branch)
+      auto ptc_d = [&](int j, int i) -> T {
+        const T uu = D(U, j, i), dyc = D(DYC, j, i);
+        if (j == fi(1) || j == fi(npx))
+          return D(VC, j, i) > T(0) ? uu * dyc * D(SIN4, j - 1, i)
+                                    : uu * dyc * D(SIN2, j, i);
+        const T vl = j > 0 ? D(VA, j - 1, i) : T(0);
+        const T vr = j < P ? D(VA, j, i) : T(0);
+        return (uu - T(0.5) * (vl + vr) * D(COSA_V, j, i)) * dyc
+               * D(SINA_V, j, i);
+      };
+      auto vort_d = [&](int j, int i) -> T {
+        const T vv = D(V, j, i), dxc = D(DXC, j, i);
+        if (i == fi(1) || i == fi(npx))
+          return D(UC, j, i) > T(0) ? vv * dxc * D(SIN3, j, i - 1)
+                                    : vv * dxc * D(SIN1, j, i);
+        const T ul = i > 0 ? D(UA, j, i - 1) : T(0);
+        const T ur = i < P ? D(UA, j, i) : T(0);
+        return (vv - T(0.5) * (ul + ur) * D(COSA_U, j, i)) * dxc
+               * D(SINA_U, j, i);
+      };
+      auto vcg = [&](int jj, int ii) {   // (dd[:, 1:] - dd[:, :-1]) * divg_u
+        return (D(DIVG, jj, ii + 1) - D(DIVG, jj, ii)) * D(DIVG_U, jj, ii);
+      };
+      auto ucg = [&](int jj, int ii) {   // (dd[1:] - dd[:-1]) * divg_v
+        return (D(DIVG, jj + 1, ii) - D(DIVG, jj, ii)) * D(DIVG_V, jj, ii);
+      };
+      const int cc = tx + 1;
+      const fv::Div dv5(cc);
+      for (int e = id; e < (ty + 1) * cc; e += nt) {
+        int lr, lc;
+        dv5.split(e, lr, lc);
+        lr += 3;
+        lc += 3;
+        const int j = oy + lr, i = ox + lc;
+        const T rac = rarea_c[(long long)j * W + i];
+        T vB0 = T(0), vBN = T(0);
+        if (a.need0) {
+          const T rl = j > 0 ? vort_d(j - 1, i) : T(0);
+          const T rr = j < P ? vort_d(j, i) : T(0);
+          const T cl = i > 0 ? ptc_d(j, i - 1) : T(0);
+          const T cr = i < P ? ptc_d(j, i) : T(0);
+          T d = rl - rr + cl - cr;
+          if (j == fi(1) && i == fi(1)) d = d - vort_d(fi(0), fi(1));
+          else if (j == fi(1) && i == fi(npx)) d = d - vort_d(fi(0), fi(npx));
+          else if (j == fi(npx) && i == fi(1)) d = d + vort_d(fi(npx), fi(1));
+          else if (j == fi(npx) && i == fi(npx))
+            d = d + vort_d(fi(npx), fi(npx));
+          d = d * rac;
+          const T damp = dmc * fv::tmax(d2bg, fv::tmin(T(a.dddmp)
+                                                       * fabs(d * dtT),
+                                                       T(0.20)));
+          vB0 = damp * d;
+        }
+        if (a.needN) {
+          // one del-2 pass of divg_d (nord = 1)
+          const T rl = j > 0 ? ucg(j - 1, i) : T(0);
+          const T rr = j < P ? ucg(j, i) : T(0);
+          const T cl = i > 0 ? vcg(j, i - 1) : T(0);
+          const T cr = i < P ? vcg(j, i) : T(0);
+          T dd = rl - rr + cl - cr;
+          if (j == fi(1) && i == fi(1)) dd = dd - ucg(fi(0), fi(1));
+          else if (j == fi(1) && i == fi(npx)) dd = dd - ucg(fi(0), fi(npx));
+          else if (j == fi(npx) && i == fi(1)) dd = dd + ucg(fi(npx), fi(1));
+          else if (j == fi(npx) && i == fi(npx))
+            dd = dd + ucg(fi(npx), fi(npx));
+          dd = dd * rac;
+          const T dg = D(DIVG, j, i);
+          T vs = T(0);
+          if (a.smag) {
+            const T vp = vortS[(pl * W + j) * W + i];
+            vs = T(fabs(a.dt)) * sqrt(dg * dg + vp * vp);
+          }
+          const T damp2 = dmc * fv::tmax(d2bg, fv::tmin(T(a.dddmp) * vs,
+                                                        T(0.20)));
+          vBN = damp2 * dg + T(a.dd8) * dd;
+        }
+        T vB;
+        if (a.need0 && a.needN) {
+          const T m0 = a.prof[2][k];
+          vB = m0 * vB0 + (T(1) - m0) * vBN;
+        } else {
+          vB = a.needN ? vBN : vB0;
+        }
+        VB[lr * S + lc] = vB;
+        KE[lr * S + lc] = KE[lr * S + lc] + vB;
+      }
+    }
+
+    prefetch(4);
+
+    // ---- 5. vorticity damping of wk: (nord_v, damp_v) and (0, damp_v2) -----
+    T* D2p = PL(FY2);
+    const fv::Deln<T, TY, TX> da{&tl, PL(WK), PL(DEL6U), PL(DEL6V), PL(RAREA),
+                                 a.on_v ? a.prof[3][k] : T(1), true,
+                                 tl.at_corner()};
+    const fv::Deln<T, TY, TX> db{&tl, PL(WK), PL(DEL6U), PL(DEL6V), PL(RAREA),
+                                 a.on_v2 ? a.prof[4][k] : T(1), true,
+                                 tl.at_corner()};
+    if (a.on_v && a.nord_v > 0) da.d2(D2p);
+    __syncthreads();
+    const bool damp = a.on_v || a.on_v2;
+    // the summed damping fluxes on the box's x-wall (row lq, wall lw) and
+    // y-wall (wall lw, column lq)
+    auto f2x = [&](int lq, int lw) -> T {
+      if (a.on_v && a.on_v2)
+        return da.fx(a.nord_v, D2p, lq, lw) + db.fx(0, D2p, lq, lw);
+      return a.on_v ? da.fx(a.nord_v, D2p, lq, lw) : db.fx(0, D2p, lq, lw);
+    };
+    auto f2y = [&](int lw, int lq) -> T {
+      if (a.on_v && a.on_v2)
+        return da.fy(a.nord_v, D2p, lw, lq) + db.fy(0, D2p, lw, lq);
+      return a.on_v ? da.fy(a.nord_v, D2p, lw, lq) : db.fy(0, D2p, lw, lq);
+    };
+
+    // ---- 6. the wind update on the box's walls ------------------------------
+    // u_pre = vt_w + (ke[j, i] - ke[j, i+1]) + fyv on y-wall lw, column lq;
+    // v_pre = ut_w + (ke[j, i] - ke[j+1, i]) - fxv on row lq, x-wall lw
+    auto u_pre = [&](int lw, int lq) {
+      const int o = (lw + 3) * S + lq + 3;
+      const T full = PL(U)[o] * PL(DX)[o] + (KE[o] - KE[o + 1]);
+      return full + PL(FYV)[lw * S + lq];
+    };
+    auto v_pre = [&](int lq, int lw) {
+      const int o = (lq + 3) * S + lw + 3;
+      const T full = PL(V)[o] * PL(DY)[o] + (KE[o] - KE[o + S]);
+      return full - PL(FXV)[lq * S + lw];
+    };
+    {
+      const int wy = tl.ly ? ty + 1 : ty, wx = tl.lx ? tx + 1 : tx;
+      const int nu = wy * tx, nv = ty * wx;
+      const fv::Div dv6(tx);
+      const fv::Div dv7(wx);
+      for (int e = id; e < nu + nv; e += nt) {
+        if (e < nu) {
+          int lw, lq;
+          dv6.split(e, lw, lq);
+          const T up = u_pre(lw, lq);
+          a.out[0][(pl * (n + 1) + tl.j0 + lw) * n + tl.i0 + lq] =
+              damp ? up + f2y(lw, lq) : up;
+        } else {
+          int lq, lw;
+          dv7.split(e - nu, lq, lw);
+          const T vp = v_pre(lq, lw);
+          a.out[1][(pl * n + tl.j0 + lq) * (n + 1) + tl.i0 + lw] =
+              damp ? vp - f2x(lq, lw) : vp;
+        }
+      }
+    }
+
+    // ---- 7. the dissipative heating ----------------------------------------
+    if (a.do_heat) {
+      const T* rsin2 = a.met[M_RSIN2] + (long long)tl.t * P * P;
+      const T* cosa_s = a.met[M_COSA_S] + (long long)tl.t * P * P;
+      const T* heat_w = a.in[9];
+      const T* delp = a.in[0] + pl * P * P;
+      const T dcon = a.prof[1][k];
+      const fv::Div dv8(tx);
+      for (int e = id; e < ty * tx; e += nt) {
+        int lq, lc;
+        dv8.split(e, lq, lc);
+        // ub2, fy_d on y-wall (jw, lc); vb2, fx_d on x-wall (lq, iw)
+        auto ub2 = [&](int jw) {
+          const int o = (jw + 3) * S + lc + 3;
+          T h = VB[o] - VB[o + 1];
+          h = damp ? h + f2y(jw, lc) : h + T(0);
+          return h * PL(RDX)[o];
+        };
+        auto vb2 = [&](int iw) {
+          const int o = (lq + 3) * S + iw + 3;
+          T h = VB[o] - VB[o + S];
+          h = damp ? h - f2x(lq, iw) : h - T(0);
+          return h * PL(RDY)[(lq + 3) * S + iw + 3];
+        };
+        auto fyd = [&](int jw) {
+          return u_pre(jw, lc) * PL(RDX)[(jw + 3) * S + lc + 3];
+        };
+        auto fxd = [&](int iw) {
+          return v_pre(lq, iw) * PL(RDY)[(lq + 3) * S + iw + 3];
+        };
+        const T ub0 = ub2(lq), ub1 = ub2(lq + 1), vb0 = vb2(lc),
+                vb1 = vb2(lc + 1);
+        const T fy0 = fyd(lq), fy1 = fyd(lq + 1), fx0 = fxd(lc),
+                fx1 = fxd(lc + 1);
+        const T gy0 = fy0 * ub0, gy1 = fy1 * ub1, gx0 = fx0 * vb0,
+                gx1 = fx1 * vb1;
+        const T u2 = fy0 + fy1, du2 = ub0 + ub1, v2 = fx0 + fx1,
+                dv2 = vb0 + vb1;
+        const long long c = (long long)(tl.j0 + lq + 3) * P + tl.i0 + lc + 3;
+        const T rs2 = rsin2[c], cs = cosa_s[c];
+        const T tmp = rs2 * ((ub0 * ub0 + ub1 * ub1 + vb0 * vb0 + vb1 * vb1)
+                             + T(2) * (gy0 + gy1 + gx0 + gx1)
+                             - cs * (u2 * dv2 + v2 * du2 + du2 * dv2));
+        const long long o = (pl * n + tl.j0 + lq) * n + tl.i0 + lc;
+        const T hs0 = heat_w != nullptr ? heat_w[o] : T(0);
+        a.out[2][o] = delp[c] * (hs0 - T(0.25) * dcon * tmp);
+      }
+    }
+
+    __syncthreads();
+  }
 }
 
-template <typename T> struct Work {
-  // ke, vortB [W, W]; wk, vabs, qx, qy, d2 [P, P]; compact seam; fxv [n,
-  // n+1], fyv [n+1, n]; two sets of vorticity damping fluxes; u_pre, v_pre
-  T *ke, *vortB, *wk, *vabs, *qx, *qy, *d2, *crx_c, *xfx_c, *cry_c, *yfx_c,
-      *rax_c, *ray_c, *fxv, *fyv, *fx2a, *fy2a, *fx2b, *fy2b, *u_pre, *v_pre;
-};
+// the box (TX, TY) of each element size, as ops/dsw.py's BOX
+template <typename T> struct Box;
+template <> struct Box<float> { static constexpr int TX = 32, TY = 12; };
+template <> struct Box<double> { static constexpr int TX = 16, TY = 8; };
 
 template <typename T>
-int run(const void* const* in, const void* const* met, void* const* out,
-        void* const* work, const void* const* prof, const int* iv,
-        const double* dv, cudaStream_t s) {
+size_t smem_bytes() {
+  constexpr int TY = Box<T>::TY, TX = Box<T>::TX;
+  const size_t win = fv::win_elems<TY, TX>();
+  return (size_t)(N_PLANES + NF) * win * sizeof(T) + (size_t)N_FLAGS * win;
+}
+
+template <typename T>
+WindArgs<T> make_args(const void* const* in, const void* const* met,
+                      void* const* out, const void* const* prof,
+                      const int* iv, const double* dv) {
   WindArgs<T> a;
-  const T** ip = &a.delp;
-  for (int b = 0; b < 18; ++b) ip[b] = static_cast<const T*>(in[b]);
-  const T** mp = reinterpret_cast<const T**>(&a.m);
-  for (int b = 0; b < 28; ++b) mp[b] = static_cast<const T*>(met[b]);
-  const T** pp = &a.d2_bg;
-  for (int b = 0; b < 5; ++b) pp[b] = static_cast<const T*>(prof[b]);
-  Work<T> w;
-  T** wp = reinterpret_cast<T**>(&w);
-  for (int b = 0; b < 21; ++b) wp[b] = static_cast<T*>(work[b]);
-  T* u_new = static_cast<T*>(out[0]);
-  T* v_new = static_cast<T*>(out[1]);
-  T* heat = static_cast<T*>(out[2]);
-  // iv: n, K, hord_mt, hord_vt, nord, nord_v, need0, needN, smag, do_heat,
-  //     on_v, on_v2; dv: dt, dddmp, da_min_c, dd8
-  const int n = iv[0], K = iv[1], hord_mt = iv[2], hord_vt = iv[3];
-  const int nord_v = iv[5], on_v = iv[10], on_v2 = iv[11];
-  a.n = n;
-  a.K = K;
-  a.need0 = iv[6];
-  a.needN = iv[7];
-  a.smag = iv[8];
-  a.do_heat = iv[9];
+  for (int b = 0; b < 18; ++b) a.in[b] = static_cast<const T*>(in[b]);
+  for (int b = 0; b < 28; ++b) a.met[b] = static_cast<const T*>(met[b]);
+  for (int b = 0; b < 3; ++b) a.out[b] = static_cast<T*>(out[b]);
+  for (int b = 0; b < 5; ++b) a.prof[b] = static_cast<const T*>(prof[b]);
+  // iv: n, K, hord_mt, hord_vt, nord_v, need0, needN, smag, do_heat,
+  //     on_v, on_v2, boxes along x and y; dv: dt, dddmp, da_min_c, dd8
+  a.n = iv[0];
+  a.K = iv[1];
+  a.hord_mt = iv[2];
+  a.hord_vt = iv[3];
+  a.nord_v = iv[4];
+  a.need0 = iv[5];
+  a.needN = iv[6];
+  a.smag = iv[7];
+  a.do_heat = iv[8];
+  a.on_v = iv[9];
+  a.on_v2 = iv[10];
+  a.ntx = iv[11];
+  a.nty = iv[12];
   a.dt = dv[0];
   a.dddmp = dv[1];
   a.da_min_c = dv[2];
   a.dd8 = dv[3];
-  const int P = n + 6, W = n + 7, m = n + 1, planes = 6 * K;
-  const dim3 blk(fv::BX, fv::BY);
-  const int dcode = sizeof(T) == 8 ? 1 : 0;
-  int rc;
+  return a;
+}
 
-  // kinetic energy: the ke_section kernel on (u, v, uc, vc, ut, vt)
-  const void* kin[12] = {a.u, a.v, a.uc, a.vc, a.ut, a.vt, a.m.cosa,
-                         a.m.rsina, a.m.dx, a.m.rdx, a.m.dy, a.m.rdy};
-  if ((rc = kek::ke_section(kin, w.ke, n, K, hord_mt, a.dt, dcode, s)))
-    return rc;
-  k_wk<T><<<fv::grid_for(P, P, planes), blk, 0, s>>>(a, w.wk, w.vabs);
-  k_vortB<T><<<fv::grid_for(W, W, planes), blk, 0, s>>>(a, w.ke, w.vortB);
-
-  // vorticity transport: the tp2d sweep of wk + f0 on the seam
-  fv::k_compact<T><<<fv::grid_for(P, P, planes), blk, 0, s>>>(
-      a.crx, a.xfx, a.cry, a.yfx, a.ra_x, a.ra_y, w.crx_c, w.xfx_c, w.cry_c,
-      w.yfx_c, w.rax_c, w.ray_c, n, K);
-  fv::k_copy_corners<T><<<fv::grid_for(P, P, planes), blk, 0, s>>>(
-      w.vabs, w.qx, w.qy, n, K);
-  const void* tin[14] = {w.vabs, w.qx, w.qy, w.crx_c, w.cry_c, w.xfx_c,
-                         w.yfx_c, a.m.area, w.rax_c, w.ray_c, a.m.dxa,
-                         a.m.dya, nullptr, nullptr};
-  const int kvar = K > 1 ? (0x3FFF & ~((1 << 7) | (1 << 10) | (1 << 11))) : 0;
-  if ((rc = tpk::tp2d_sweep(tin, w.fxv, w.fyv, n, 1, K, 0, kvar,
-                            hord_vt == 10 ? 8 : hord_vt, hord_vt, 0, dcode,
-                            s)))
-    return rc;
-
-  // vorticity damping fluxes of wk: (nord_v, damp_v) and (0, damp_v2)
-  const T *fx2a = nullptr, *fy2a = nullptr, *fx2b = nullptr, *fy2b = nullptr;
-  if (on_v) {
-    fv::deln_fluxes<T>(w.wk, a.damp4_v, nord_v, a.m.del6_u, a.m.del6_v,
-                       a.m.rarea, w.fx2a, w.fy2a, w.d2, n, K, s);
-    fx2a = w.fx2a;
-    fy2a = w.fy2a;
-  }
-  if (on_v2) {
-    T* fx = on_v ? w.fx2b : w.fx2a;
-    T* fy = on_v ? w.fy2b : w.fy2a;
-    fv::deln_fluxes<T>(w.wk, a.damp4_v2, 0, a.m.del6_u, a.m.del6_v,
-                       a.m.rarea, fx, fy, w.d2, n, K, s);
-    if (on_v) {
-      fx2b = fx;
-      fy2b = fy;
-    } else {
-      fx2a = fx;
-      fy2a = fy;
-    }
-  }
-  k_u<T><<<fv::grid_for(m, n, planes), blk, 0, s>>>(a, w.ke, w.fyv, fy2a,
-                                                    fy2b, w.u_pre, u_new);
-  k_v<T><<<fv::grid_for(n, m, planes), blk, 0, s>>>(a, w.ke, w.fxv, fx2a,
-                                                    fx2b, w.v_pre, v_new);
-  if (a.do_heat)
-    k_heat<T><<<fv::grid_for(n, n, planes), blk, 0, s>>>(
-        a, w.vortB, w.u_pre, w.v_pre, fx2a, fx2b, fy2a, fy2b, heat);
+template <typename T>
+int run(const void* const* in, const void* const* met, void* const* out,
+        const void* const* prof, const int* iv, const double* dv,
+        cudaStream_t s) {
+  // iv[13..15]: the wrapper's box and shared-memory bytes, which must be
+  // this instantiation's
+  const size_t bytes = smem_bytes<T>();
+  if (iv[13] != Box<T>::TX || iv[14] != Box<T>::TY || (size_t)iv[15] != bytes)
+    return (int)cudaErrorInvalidValue;
+  const WindArgs<T> a = make_args<T>(in, met, out, prof, iv, dv);
+  auto kern = winds_kernel<T, Box<T>::TY, Box<T>::TX>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  const long long blocks = 6LL * ((a.K + KL - 1) / KL) * a.ntx * a.nty;
+  kern<<<(unsigned)blocks, NT, bytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -395,16 +613,18 @@ int run(const void* const* in, const void* const* met, void* const* out,
 // uc [6,K,P,W], vc [6,K,W,P], ua, va [6,K,P,P], divg_d [6,K,W,W] (null when
 // nord == 0), vortS [6,K,W,W] (null without the Smagorinsky term), heat_w
 // [6,K,n,n] (null without w damping), then the seam crx, cry, xfx, yfx,
-// ra_x, ra_y, ut, vt (full frames); met: the 28 metric planes in
-// WindMetrics order; out: u [6,K,n+1,n], v [6,K,n,n+1], heat [6,K,n,n]
-// (null without heating); work (21): see Work; prof (5): the per-level
-// d2_bg, d_con, nord_mask, damp4_v, damp4_v2 [K] (null when off); iv, dv:
-// see run. dtype 0 = float32, 1 = float64.
+// ra_x, ra_y, ut, vt (full frames); met: the 28 metric planes in ops/dsw.py
+// WIND_METRICS order; out: u [6,K,n+1,n], v [6,K,n,n+1], heat [6,K,n,n]
+// (null without heating); prof (5): the per-level d2_bg, d_con, nord_mask,
+// damp4_v, damp4_v2 [K] (null when off); iv: n, K, hord_mt, hord_vt,
+// nord_v, need0, needN, smag, do_heat, on_v, on_v2, boxes along x and y,
+// box TX, TY, shared-memory bytes; dv: dt, dddmp, da_min_c, dd8.
+// dtype 0 = float32, 1 = float64. Returns a cudaError_t code.
 extern "C" int d_sw_winds(const void* const* in, const void* const* met,
-                          void* const* out, void* const* work,
-                          const void* const* prof, const int* iv,
-                          const double* dv, int dtype, void* stream) {
+                          void* const* out, const void* const* prof,
+                          const int* iv, const double* dv, int dtype,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(in, met, out, work, prof, iv, dv, s);
-  return run<double>(in, met, out, work, prof, iv, dv, s);
+  if (dtype == 0) return run<float>(in, met, out, prof, iv, dv, s);
+  return run<double>(in, met, out, prof, iv, dv, s);
 }

@@ -11,221 +11,23 @@
 // out per level; ~200 flops per point. Design: one thread per output corner
 // point computes everything it needs from device memory; the neighbouring
 // reads (4 cells each way along a line) are shared through L1, so each
-// operand crosses device memory about once. The limiter branches and the
-// tile-edge zeroing are selects, never a multiply by a mask, so NaN held in
-// a cube-corner halo cannot leak. Built with --fmad=false so the arithmetic
+// operand crosses device memory about once. The xtp_u device code is
+// fv_ppm.cuh's, shared with the d_sw winds kernel. The limiter branches and
+// the tile-edge zeroing are selects, never a multiply by a mask, so NaN held
+// in a cube-corner halo cannot leak. Built with --fmad=false so the arithmetic
 // rounds as the plain PyTorch version does.
 
-#include <cuda_runtime.h>
+#include "fv_ppm.cuh"
 
 namespace {
+
+using fv::Line;
+using fv::xtp_flux;
 
 constexpr int H = 3;
 constexpr int BX = 32, BY = 8;
 
 __host__ __device__ constexpr int f(int i) { return i - 1 + H; }
-
-template <typename T> __device__ __forceinline__ T sgn(T x) {
-  return T((x > T(0)) - (x < T(0)));
-}
-
-// A line of NC cells: element C at p[C * s]; the same for the widths.
-template <typename T> struct Line {
-  const T* u;
-  const T* dx;
-  const T* rdx;
-  int s;
-  int nc;
-  __device__ T U(int C) const { return u[(long long)C * s]; }
-  __device__ T D(int C) const { return dx[(long long)C * s]; }
-  __device__ T R(int C) const { return rdx[(long long)C * s]; }
-};
-
-template <typename T> struct Cell {
-  T bl, br;
-  bool smt5;
-};
-
-// bl, br (and the linear family's smt5) of cell C of an xtp_u line
-// (sw_core.xtp_u with cube edges). zrow: the line lies on a tile-edge wall
-// row, where the four corner cells are zeroed.
-template <typename T>
-__device__ Cell<T> xtp_cell(const Line<T>& L, int C, int npx, int iord,
-                            bool zrow) {
-  const T P1 = T(7.0 / 12.0), P2 = T(-1.0 / 12.0);
-  const T C1 = T(-2.0 / 14.0), C2 = T(11.0 / 14.0), C3 = T(5.0 / 14.0);
-  const T S11 = T(11.0 / 14.0), S14 = T(4.0 / 7.0), S15 = T(3.0 / 14.0);
-  const T R3 = T(1.0 / 3.0);
-  Cell<T> out{T(0), T(0), false};
-  const int nc = L.nc;
-  if (C < f(0) || C > f(npx)) return out;
-  auto u = [&](int i) { return L.U(f(i)); };
-  auto extrap_w = [&]() {
-    T xl = T(0.5) * ((T(2) * L.D(f(0)) + L.D(f(-1))) * u(0)
-                     - L.D(f(0)) * u(-1)) / (L.D(f(0)) + L.D(f(-1)));
-    T xr = T(0.5) * ((T(2) * L.D(f(1)) + L.D(f(2))) * u(1)
-                     - L.D(f(1)) * u(2)) / (L.D(f(1)) + L.D(f(2)));
-    return xl + xr;
-  };
-  auto extrap_e = [&]() {
-    T xl = T(0.5) * ((T(2) * L.D(f(npx - 1)) + L.D(f(npx - 2))) * u(npx - 1)
-                     - L.D(f(npx - 1)) * u(npx - 2))
-           / (L.D(f(npx - 1)) + L.D(f(npx - 2)));
-    T xr = T(0.5) * ((T(2) * L.D(f(npx)) + L.D(f(npx + 1))) * u(npx)
-                     - L.D(f(npx)) * u(npx + 1))
-           / (L.D(f(npx)) + L.D(f(npx + 1)));
-    return xl + xr;
-  };
-  const bool corner = C == f(0) || C == f(1) || C == f(npx - 1) || C == f(npx);
-  T bl, br;
-  if (iord < 8) {
-    auto al = [&](int W) {
-      return P1 * (L.U(W - 1) + L.U(W)) + P2 * (L.U(W - 2) + L.U(W + 1));
-    };
-    if (C == f(0)) {
-      bl = C1 * u(-2) + C2 * u(-1) + C3 * u(0) - u(0);
-      br = extrap_w() - u(0);
-    } else if (C == f(1)) {
-      bl = extrap_w() - u(1);
-      br = (C3 * u(1) + C2 * u(2) + C1 * u(3)) - u(1);
-    } else if (C == f(2)) {
-      bl = (C3 * u(1) + C2 * u(2) + C1 * u(3)) - u(2);
-      br = al(f(3)) - u(2);
-    } else if (C == f(npx - 2)) {
-      bl = al(f(npx - 2)) - u(npx - 2);
-      br = (C1 * u(npx - 3) + C2 * u(npx - 2) + C3 * u(npx - 1)) - u(npx - 2);
-    } else if (C == f(npx - 1)) {
-      bl = (C1 * u(npx - 3) + C2 * u(npx - 2) + C3 * u(npx - 1)) - u(npx - 1);
-      br = extrap_e() - u(npx - 1);
-    } else if (C == f(npx)) {
-      bl = extrap_e() - u(npx);
-      br = C3 * u(npx) + C2 * u(npx + 1) + C1 * u(npx + 2) - u(npx);
-    } else {
-      bl = al(C) - L.U(C);
-      br = al(C + 1) - L.U(C);
-    }
-    if (corner && zrow) { bl = T(0); br = T(0); }
-    bool sm;
-    if (iord == 5 || corner) sm = bl * br < T(0);
-    else sm = T(3) * fabs(bl + br) < fabs(bl - br);
-    out.bl = bl;
-    out.br = br;
-    out.smt5 = sm;
-    return out;
-  }
-  // iord >= 8
-  auto dm = [&](int K) -> T {
-    if (K < 1 || K > nc - 2) return T(0);
-    T um = L.U(K - 1), u0 = L.U(K), up = L.U(K + 1);
-    T xt = T(0.25) * (up - um);
-    T dmax = fmax(fmax(um, u0), up) - u0;
-    T dmin = u0 - fmin(fmin(um, u0), up);
-    return sgn(xt) * fmin(fmin(fabs(xt), dmax), dmin);
-  };
-  auto dq = [&](int K) -> T {
-    return K < nc - 1 ? L.U(K + 1) - L.U(K) : T(0);
-  };
-  auto al = [&](int W) {
-    return T(0.5) * (L.U(W - 1) + L.U(W)) + R3 * (dm(W - 1) - dm(W));
-  };
-  auto iv1 = [&](T q, T& l, T& r) {
-    T da1 = l - r;
-    T da2 = da1 * da1;
-    T a6da = T(3) * (l + r) * da1;
-    T ln = a6da > da2 ? T(-2) * r : l;
-    T rn = a6da < -da2 ? T(-2) * l : r;
-    bool cross = l * r < T(0);
-    l = cross ? ln : T(0);
-    r = cross ? rn : T(0);
-  };
-  if (C == f(0)) {
-    bl = S14 * dm(f(-1)) - S11 * dq(f(-1));
-    br = extrap_w() - u(0);
-  } else if (C == f(1)) {
-    T xt = S15 * u(1) + S11 * u(2) - S14 * dm(f(2));
-    bl = extrap_w() - u(1);
-    br = xt - u(1);
-  } else if (C == f(2)) {
-    T xt = S15 * u(1) + S11 * u(2) - S14 * dm(f(2));
-    bl = xt - u(2);
-    br = al(f(3)) - u(2);
-    iv1(u(2), bl, br);
-  } else if (C == f(npx - 2)) {
-    T xte = S15 * u(npx - 1) + S11 * u(npx - 2) + S14 * dm(f(npx - 2));
-    bl = al(f(npx - 2)) - u(npx - 2);
-    br = xte - u(npx - 2);
-    iv1(u(npx - 2), bl, br);
-  } else if (C == f(npx - 1)) {
-    T xte = S15 * u(npx - 1) + S11 * u(npx - 2) + S14 * dm(f(npx - 2));
-    bl = xte - u(npx - 1);
-    br = extrap_e() - u(npx - 1);
-  } else if (C == f(npx)) {
-    bl = extrap_e() - u(npx);
-    br = S11 * dq(f(npx)) - S14 * dm(f(npx + 1));
-  } else {
-    T qq = L.U(C);
-    T alL = al(C) - qq, alR = al(C + 1) - qq;
-    if (iord == 8) {
-      T x2 = T(2) * dm(C);
-      bl = -sgn(x2) * fmin(fabs(x2), fabs(alL));
-      br = sgn(x2) * fmin(fabs(x2), fabs(alR));
-    } else if (iord == 9 || iord == 10) {
-      T pmp_1 = T(-2) * dq(C);
-      T lac_1 = pmp_1 + T(1.5) * dq(C + 1);
-      T lo1 = fmax(fmax(pmp_1, lac_1), T(0));
-      T hi1 = fmin(fmin(pmp_1, lac_1), T(0));
-      T pmp_2 = T(2) * dq(C - 1);
-      T lac_2 = pmp_2 - T(1.5) * dq(C - 2);
-      T lo2 = fmax(fmax(pmp_2, lac_2), T(0));
-      T hi2 = fmin(fmin(pmp_2, lac_2), T(0));
-      if (iord == 9) {
-        bl = fmin(lo1, fmax(alL, hi1));
-        br = fmin(lo2, fmax(alR, hi2));
-      } else {
-        bool small0 = fabs(dm(C)) < T(1.0e-9);
-        bool flat = small0 && (fabs(dm(C - 1)) + fabs(dm(C + 1)) < T(1.0e-9));
-        bool big = !small0 && fabs(T(3) * (alL + alR)) > fabs(alL - alR);
-        T blc = fmin(lo1, fmax(alL, hi1));
-        T brc = fmin(lo2, fmax(alR, hi2));
-        bl = flat ? T(0) : (big ? blc : alL);
-        br = flat ? T(0) : (big ? brc : alR);
-      }
-    } else {
-      bl = alL;
-      br = alR;
-    }
-  }
-  if (corner && zrow) { bl = T(0); br = T(0); }
-  out.bl = bl;
-  out.br = br;
-  return out;
-}
-
-// xtp_u flux at wall W of a line, Courant distance c
-template <typename T>
-__device__ T xtp_flux(const Line<T>& L, int W, T c, int npx, int iord,
-                      bool zrow) {
-  const int nc = L.nc;
-  Cell<T> cl = (W >= 1) ? xtp_cell(L, W - 1, npx, iord, zrow)
-                        : Cell<T>{T(0), T(0), false};
-  Cell<T> cr = (W < nc) ? xtp_cell(L, W, npx, iord, zrow)
-                        : Cell<T>{T(0), T(0), false};
-  bool cpos = c > T(0);
-  T rl = W >= 1 ? L.R(W - 1) : T(0);
-  T rr = W < nc ? L.R(W) : T(0);
-  T ul = W >= 1 ? L.U(W - 1) : T(0);
-  T ur = W < nc ? L.U(W) : T(0);
-  T cfl = c * (cpos ? rl : rr);
-  T b0l = cl.bl + cl.br, b0r = cr.bl + cr.br;
-  if (iord < 8) {
-    T fx0 = cpos ? (T(1) - cfl) * (cl.br - cfl * b0l)
-                 : (T(1) + cfl) * (cr.bl + cfl * b0r);
-    T low = cpos ? ul : ur;
-    return low + ((cl.smt5 || cr.smt5) ? fx0 : T(0));
-  }
-  return cpos ? ul + (T(1) - cfl) * (cl.br - cfl * b0l)
-              : ur + (T(1) + cfl) * (cr.bl + cfl * b0r);
-}
 
 template <typename T> struct KeArgs {
   // u v uc vc ut vt (per level), cosa rsina dx rdx dy rdy (per tile)
@@ -302,9 +104,9 @@ __global__ void __launch_bounds__(BX * BY) ke_section_kernel(KeArgs<T> a) {
   }
 
   // ytp_v along column I of v (x-wall array), xtp_u along row J of u
-  Line<T> lv{v + I, dy + I, rdy + I, NW, NC};
+  Line<T> lv{v + I, dy + I, rdy + I, NW, NC, 0};
   Line<T> lu{u + (long long)J * NC, dx + (long long)J * NC,
-             rdx + (long long)J * NC, 1, NC};
+             rdx + (long long)J * NC, 1, NC, 0};
   const bool zcol = I == f(1) || I == f(npx);
   const bool zrow = J == f(1) || J == f(npx);
   T kev = vb * xtp_flux(lv, J, vb, npx, a.iord, zcol);

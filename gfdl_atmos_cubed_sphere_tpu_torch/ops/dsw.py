@@ -4,18 +4,23 @@ versions.
 Replaces the TPU kernel d_sw_pallas
 (gfdl_atmos_cubed_sphere_tpu/ops/pallas_dsw.py:155), which makes two
 pallas_calls through _run_stage (:98): the fluxes stage and the winds
-stage. Each stage is one C entry point, csrc/d_sw_fluxes.cu and
-csrc/d_sw_winds.cu, that issues a sequence of launches of one thread per
-output point over a workspace this wrapper allocates; the PPM sweeps inside
-run the tp2d sweep kernel's device code (three in the fluxes stage: delp, w,
-pt; one in the winds stage: the absolute vorticity) and the KE stage the
-ke_section kernel's. The Smagorinsky operand a2b_ord4(vorticity) is
-computed between the stages through the a2b kernel wrapper, as on the TPU.
-Per-level damping profiles go to the kernels as device [K] arrays. The
-hydrostatic form (w = None) runs the fluxes stage without the w transport,
-damping and heat; the winds stage does not read w.
+stage. Each stage is one launch of one tile-fused kernel,
+csrc/d_sw_fluxes.cu and csrc/d_sw_winds.cu: a block owns a box of compute
+cells of one cube tile and a run of levels, holds its window (the box and
+a 3-cell halo) of the inputs in shared memory and runs every stage there;
+only the outputs go to device memory. The wrappers allocate the outputs
+and nothing else, and compute the grid (`tile_plan`) and the shared memory
+of a block (`smem_bytes`), which the kernels check against their own. The
+PPM sweeps inside (three in the fluxes stage: delp, w, pt; one in the
+winds stage: the absolute vorticity) and the KE stage run the tp sweep's
+and the ke_section kernel's arithmetic (csrc/fv_ppm.cuh). The Smagorinsky
+operand a2b_ord4(vorticity) is computed between the stages through the
+a2b kernel wrapper, as on the TPU. Per-level damping profiles go to the
+kernels as device [K] arrays. The hydrostatic form (w = None) runs the
+fluxes stage without the w transport, damping and heat; the winds stage
+does not read w.
 Bound by device-memory bytes: ~1.4 GB (fluxes) and ~1.5 GB (winds) of f32
-at C192L79, ~0.42 and ~0.45 ms at 3.35 TB/s.
+at C192L79, ~0.42 and ~0.47 ms at 3.35 TB/s.
 
 `d_sw` launches both kernels for a CUDA tensor and takes the plain
 versions, sw_core.d_sw(stage="fluxes") and sw_core.d_sw(stage="winds"),
@@ -35,8 +40,8 @@ from .ke import KERNEL_HORDS as KE_HORDS
 from .tp_sweep import KERNEL_HORDS as TP_HORDS, tp2d_sweep_ref
 
 H = 3
-#: metric planes of each stage, in the kernels' FluxMetrics / WindMetrics
-#: order (the TPU kernel's _METRICS_FLUX / _METRICS_WIND)
+#: metric planes of each stage, in the order the kernels take them (the
+#: TPU kernel's _METRICS_FLUX / _METRICS_WIND)
 FLUX_METRICS = (
     "cosa_u", "cosa_v", "rsin_u", "rsin_v",
     "sin_sg1", "sin_sg2", "sin_sg3", "sin_sg4",
@@ -49,6 +54,17 @@ WIND_METRICS = (
     "area", "rarea", "rarea_c", "cosa", "rsina",
     "del6_u", "del6_v", "divg_u", "divg_v",
     "f0", "rsin2", "cosa_s")
+
+#: the box (TX, TY) of compute cells a block of each stage kernel owns, by
+#: element size (csrc/d_sw_fluxes.cu, d_sw_winds.cu Box)
+BOX = {"fluxes": {4: (32, 16), 8: (16, 12)},
+       "winds": {4: (32, 12), 8: (16, 8)}}
+#: shared memory of each stage kernel: its window planes (the kernels'
+#: Plane enums) and a second set of its field planes (the next level's,
+#: loading), and its byte planes of PPM smoothness flags
+SMEM_PLANES = {"fluxes": 47, "winds": 52}
+SMEM_FIELDS = {"fluxes": 5, "winds": 15}
+SMEM_FLAG_PLANES = 2
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = {"fluxes": 0, "winds": 0}
@@ -197,16 +213,63 @@ def _ptrs(ts):
 def _entry(name):
     fn = getattr(_build.library(name), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 5 + [
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 4 + [
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double),
         ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
-def _launch_fluxes(delp, pt, w, uc, vc, g, *, dt, hord_dp, hord_tm, hord_vt,
-                   nord_v, damp_v, damp_v2=None, nord_v2=0, damp_w=0.0,
-                   nord_w=0, damp_w2=None, nord_w2=0, ke_bg=0.0,
-                   lim_fac=1.0):
+def tile_plan(stage, n, itemsize):
+    """(TX, TY, boxes along x, boxes along y) of a stage kernel's grid for
+    n cells per side: a block owns a box of at most TY x TX compute cells
+    of one tile and a run of levels; box t of nt along an axis holds cells
+    [t n // nt, (t + 1) n // nt)."""
+    tx, ty = BOX[stage][itemsize]
+    return tx, ty, -(-n // tx), -(-n // ty)
+
+
+def box_starts(n, nt):
+    """The first compute cell of each of nt boxes along an axis, and n."""
+    return [t * n // nt for t in range(nt + 1)]
+
+
+def owned_ranges(n, nt, kind):
+    """[lo, hi) of the points each of nt boxes along an axis writes, in
+    the indices of the output frame: kind "cells" (the padded n + 6),
+    "walls" (the padded n + 7), "compute_cells" (n) or "compute_walls"
+    (n + 1). The first and last boxes take the halo beyond them."""
+    st = box_starts(n, nt)
+    out = []
+    for t in range(nt):
+        lo, hi = st[t], st[t + 1]
+        last = t == nt - 1
+        if kind == "compute_cells":
+            out.append((lo, hi))
+        elif kind == "compute_walls":
+            out.append((lo, hi + 1 if last else hi))
+        else:
+            top = n + (6 if kind == "cells" else 7)
+            out.append((0 if t == 0 else lo + H, top if last else hi + H))
+    return out
+
+
+def smem_bytes(stage, itemsize):
+    """Dynamic shared memory of one block of a stage kernel: its window
+    planes and a second set of field planes, (TY + 7) x (TX + 7) elements
+    each, and its byte planes of flags."""
+    tx, ty = BOX[stage][itemsize]
+    win = (ty + 7) * (tx + 7)
+    planes = SMEM_PLANES[stage] + SMEM_FIELDS[stage]
+    return planes * win * itemsize + SMEM_FLAG_PLANES * win
+
+
+def _fluxes_operands(delp, pt, w, uc, vc, g, *, dt, hord_dp, hord_tm,
+                     hord_vt, nord_v, damp_v, damp_v2=None, nord_v2=0,
+                     damp_w=0.0, nord_w=0, damp_w2=None, nord_w2=0,
+                     ke_bg=0.0, lim_fac=1.0):
+    """The fluxes kernel's arguments: (fields, metric planes, outputs,
+    per-level profiles, int and double parameters, the output namespace).
+    Raises ValueError for what the kernel does not take."""
     if delp.ndim != 4 or delp.shape[0] != 6:
         raise ValueError(f"d_sw fluxes kernel takes delp [6, K, P, P], got "
                          f"{tuple(delp.shape)}")
@@ -225,12 +288,9 @@ def _launch_fluxes(delp, pt, w, uc, vc, g, *, dt, hord_dp, hord_tm, hord_vt,
     m = n + 1
     if n < 8:
         raise ValueError("d_sw kernels need at least 8 cells per side")
-    _check_fields("d_sw fluxes", [
-        (delp, (6, K, P, P)), (pt, (6, K, P, P)), (w, (6, K, P, P)),
-        (uc, (6, K, P, W)), (vc, (6, K, W, P))], delp.dtype, delp.device)
     fields = [None if a is None else a.contiguous()
               for a in (delp, pt, w, uc, vc)]
-    mets = _metric_list(g, FLUX_METRICS, delp)
+    mets = [getattr(g, nm).contiguous() for nm in FLUX_METRICS]
     on_v = damp_v is not None and _max(damp_v) > 1.0e-4
     on_v2 = damp_v2 is not None and _max(damp_v2) > 1.0e-4
     on_w = w is not None and sw_core._on(damp_w)
@@ -252,25 +312,39 @@ def _launch_fluxes(delp, pt, w, uc, vc, g, *, dt, hord_dp, hord_tm, hord_vt,
     outs = [out.delp, out.pt, out.w, out.fx, out.fy, out.crx, out.cry,
             out.xfx, out.yfx, out.ra_x, out.ra_y, out.ut, out.vt,
             out.heat_source]
-    work = [new(P, m), new(P, m), new(m, P), new(m, P), new(P, n),
-            new(n, P), new(P, P), new(P, P), new(P, P), new(P, W),
-            new(W, P), new(n, m), new(m, n), new(n, m), new(m, n),
-            new(n, n)]
-    iv = (ctypes.c_int * 11)(n, K, hord_dp, hord_vt, hord_tm, nord_v,
-                             nord_w, on_v, on_v2, on_w, on_w2)
-    dv = (ctypes.c_double * 2)(float(dt), float(ke_bg * abs(dt)))
+    tx, ty, ntx, nty = tile_plan("fluxes", n, delp.element_size())
+    iv = (n, K, hord_dp, hord_vt, hord_tm, nord_v, nord_w, on_v, on_v2,
+          on_w, on_w2, ntx, nty, tx, ty,
+          smem_bytes("fluxes", delp.element_size()))
+    dv = (float(dt), float(ke_bg * abs(dt)))
+    return fields, mets, outs, prof, iv, dv, out
+
+
+def _launch_fluxes(delp, pt, w, uc, vc, g, **kw):
+    fields, mets, outs, prof, iv, dv, out = _fluxes_operands(
+        delp, pt, w, uc, vc, g, **kw)
+    K, P = delp.shape[1], delp.shape[-1]
+    _check_fields("d_sw fluxes", [
+        (delp, (6, K, P, P)), (pt, (6, K, P, P)), (w, (6, K, P, P)),
+        (uc, (6, K, P, P + 1)), (vc, (6, K, P + 1, P))], delp.dtype,
+        delp.device)
+    _metric_list(g, FLUX_METRICS, delp)
     rc = _entry("d_sw_fluxes")(
-        _ptrs(fields), _ptrs(mets), _ptrs(outs), _ptrs(work), _ptrs(prof),
-        iv, dv, _build.dtype_code(delp), _build.stream_ptr(delp))
+        _ptrs(fields), _ptrs(mets), _ptrs(outs), _ptrs(prof),
+        (ctypes.c_int * len(iv))(*iv), (ctypes.c_double * len(dv))(*dv),
+        _build.dtype_code(delp), _build.stream_ptr(delp))
     _build.check(rc, "d_sw_fluxes")
     launches["fluxes"] += 1
     return out
 
 
-def _launch_winds(delp, u, v, uc, vc, ua, va, divg_d, vortS, heat_w, seam,
-                  g, *, dt, hord_mt, hord_vt, nord, nord_v, dddmp, d2_bg,
-                  d4_bg, damp_v, d_con=0.0, nord_mask=None, damp_v2=None,
-                  nord_v2=0, lim_fac=1.0):
+def _winds_operands(delp, u, v, uc, vc, ua, va, divg_d, vortS, heat_w,
+                    seam, g, *, dt, hord_mt, hord_vt, nord, nord_v, dddmp,
+                    d2_bg, d4_bg, damp_v, d_con=0.0, nord_mask=None,
+                    damp_v2=None, nord_v2=0, lim_fac=1.0):
+    """The winds kernel's arguments: (inputs, metric planes, outputs,
+    per-level profiles, int and double parameters, the output namespace).
+    Raises ValueError for what the kernel does not take."""
     if delp.ndim != 4 or delp.shape[0] != 6:
         raise ValueError(f"d_sw winds kernel takes delp [6, K, P, P], got "
                          f"{tuple(delp.shape)}")
@@ -284,7 +358,6 @@ def _launch_winds(delp, u, v, uc, vc, ua, va, divg_d, vortS, heat_w, seam,
         raise ValueError("d_sw winds kernel takes lim_fac = 1")
     K, P = delp.shape[1], delp.shape[-1]
     n = P - 2 * H
-    W = n + 1 + 2 * H
     m = n + 1
     if n < 8:
         raise ValueError("d_sw kernels need at least 8 cells per side")
@@ -295,13 +368,8 @@ def _launch_winds(delp, u, v, uc, vc, ua, va, divg_d, vortS, heat_w, seam,
         vortS = smagorinsky_operand(u, v, g)
     ins = [delp, u, v, uc, vc, ua, va, divg_d if needN else None,
            vortS if smag else None, heat_w] + [seam[k] for k in SEAM]
-    shapes = [(P, P), (W, P), (P, W), (P, W), (W, P), (P, P), (P, P),
-              (W, W), (W, W), (n, n), (P, W), (W, P), (P, W), (W, P),
-              (P, P), (P, P), (P, W), (W, P)]
-    _check_fields("d_sw winds", [(a, (6, K) + s) for a, s in
-                                 zip(ins, shapes)], delp.dtype, delp.device)
     ins = [None if a is None else a.contiguous() for a in ins]
-    mets = _metric_list(g, WIND_METRICS, delp)
+    mets = [getattr(g, nm).contiguous() for nm in WIND_METRICS]
     on_v = sw_core._on(damp_v)
     on_v2 = sw_core._on(damp_v2)
     do_heat = sw_core._on(d_con)
@@ -316,21 +384,32 @@ def _launch_winds(delp, u, v, uc, vc, ua, va, divg_d, vortS, heat_w, seam,
     def new(*s):
         return torch.empty((6, K) + s, dtype=delp.dtype, device=delp.device)
 
-    u_new, v_new = new(m, n), new(n, m)
-    heat = new(n, n) if do_heat else None
-    work = [new(W, W), new(W, W), new(P, P), new(P, P), new(P, P),
-            new(P, P), new(P, P), new(P, m), new(P, m), new(m, P),
-            new(m, P), new(P, n), new(n, P), new(n, m), new(m, n),
-            new(P, W), new(W, P), new(P, W), new(W, P), new(m, n),
-            new(n, m)]
-    iv = (ctypes.c_int * 12)(n, K, hord_mt, hord_vt, nord, nord_v, need0,
-                             needN, smag, do_heat, on_v, on_v2)
-    dv = (ctypes.c_double * 4)(float(dt), float(dddmp), float(g.da_min_c),
-                               dd8)
+    out = SimpleNamespace(u=new(m, n), v=new(n, m),
+                          heat_source=new(n, n) if do_heat else None)
+    tx, ty, ntx, nty = tile_plan("winds", n, delp.element_size())
+    iv = (n, K, hord_mt, hord_vt, nord_v, need0, needN, smag, do_heat, on_v,
+          on_v2, ntx, nty, tx, ty, smem_bytes("winds", delp.element_size()))
+    dv = (float(dt), float(dddmp), float(g.da_min_c), dd8)
+    return (ins, mets, [out.u, out.v, out.heat_source], prof, iv, dv, out)
+
+
+def _launch_winds(delp, u, v, uc, vc, ua, va, divg_d, vortS, heat_w, seam,
+                  g, **kw):
+    ins, mets, outs, prof, iv, dv, out = _winds_operands(
+        delp, u, v, uc, vc, ua, va, divg_d, vortS, heat_w, seam, g, **kw)
+    K, P = delp.shape[1], delp.shape[-1]
+    n = P - 2 * H
+    W = P + 1
+    shapes = [(P, P), (W, P), (P, W), (P, W), (W, P), (P, P), (P, P),
+              (W, W), (W, W), (n, n), (P, W), (W, P), (P, W), (W, P),
+              (P, P), (P, P), (P, W), (W, P)]
+    _check_fields("d_sw winds", [(a, (6, K) + s) for a, s in
+                                 zip(ins, shapes)], delp.dtype, delp.device)
+    _metric_list(g, WIND_METRICS, delp)
     rc = _entry("d_sw_winds")(
-        _ptrs(ins), _ptrs(mets), _ptrs([u_new, v_new, heat]), _ptrs(work),
-        _ptrs(prof), iv, dv, _build.dtype_code(delp),
-        _build.stream_ptr(delp))
+        _ptrs(ins), _ptrs(mets), _ptrs(outs), _ptrs(prof),
+        (ctypes.c_int * len(iv))(*iv), (ctypes.c_double * len(dv))(*dv),
+        _build.dtype_code(delp), _build.stream_ptr(delp))
     _build.check(rc, "d_sw_winds")
     launches["winds"] += 1
-    return SimpleNamespace(u=u_new, v=v_new, heat_source=heat)
+    return out

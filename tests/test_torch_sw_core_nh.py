@@ -164,3 +164,94 @@ def test_sponge_level_params():
             assert a == b, k
         else:
             assert np.array_equal(a, b), k
+
+
+@pytest.mark.parametrize("stage", ["fluxes", "winds"])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n", [12, 24, 192, 768])
+def test_d_sw_stage_boxes_cover_each_frame_once(n, itemsize, stage):
+    """The stage kernels' grid: boxes of at most TX x TY cells, at least
+    min(n, TX / 2) wide, never under 3 (so only the box holding a cube
+    corner reaches into its halo), whose owned points cover every output
+    frame (the padded cell and wall frames of the seam, the compute cells
+    and walls) exactly once."""
+    tx, ty, ntx, nty = dsw.tile_plan(stage, n, itemsize)
+    assert (tx, ty) == dsw.BOX[stage][itemsize]
+    for nt, most in ((ntx, tx), (nty, ty)):
+        st = dsw.box_starts(n, nt)
+        sizes = np.diff(st)
+        assert st[0] == 0 and st[-1] == n
+        assert sizes.max() <= most and sizes.min() >= min(n, most // 2) >= 3
+        for kind, frame in (("cells", n + 6), ("walls", n + 7),
+                            ("compute_cells", n), ("compute_walls", n + 1)):
+            hits = np.zeros(frame, int)
+            for lo, hi in dsw.owned_ranges(n, nt, kind):
+                hits[lo:hi] += 1
+            assert (hits == 1).all(), (kind, hits)
+
+
+def test_d_sw_stage_shared_memory_fits_a_block():
+    """Each stage kernel's window planes fit the 232448 bytes of shared
+    memory a Hopper block can take, in both precisions, and C768L127 stays
+    inside the grid's x extent."""
+    for stage in ("fluxes", "winds"):
+        for itemsize in (4, 8):
+            tx, ty = dsw.BOX[stage][itemsize]
+            win = (ty + 7) * (tx + 7)
+            b = dsw.smem_bytes(stage, itemsize)
+            planes = dsw.SMEM_PLANES[stage] + dsw.SMEM_FIELDS[stage]
+            assert b == (planes * itemsize + dsw.SMEM_FLAG_PLANES) * win
+            assert 48 * 1024 < b <= 232448, (stage, itemsize, b)
+    _, _, ntx, nty = dsw.tile_plan("fluxes", 768, 4)
+    assert 6 * 127 * ntx * nty < 2 ** 31
+
+
+def test_d_sw_stage_operands_are_outputs_only():
+    """The stage kernels' argument packing: the outputs and per-level
+    profiles only (no workspace), the box and shared-memory bytes in the
+    int parameters, null w / heat for the hydrostatic form, and ValueError
+    for what the kernels do not take."""
+    gt = build_grid_ops(NPX, dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(5)
+    P, W, Kt = N + 2 * H, N + 2 * H + 1, 2
+
+    def f(*s):
+        return torch.as_tensor(rng.standard_normal((6, Kt) + s))
+
+    kw = {k: v for k, v in _dsw_kw().items() if k in dsw.FLUX_KW}
+    kw.update(damp_v=0.02, damp_v2=None, damp_w=0.02, damp_w2=None)
+    for w in (f(P, P), None):
+        fields, mets, outs, prof, iv, dv, out = dsw._fluxes_operands(
+            f(P, P), f(P, P), w, f(P, W), f(W, P), gt, **kw)
+        assert len(fields) == 5 and len(mets) == len(dsw.FLUX_METRICS)
+        assert len(outs) == 14 and len(prof) == 4 and len(dv) == 2
+        assert (outs[2] is None) == (w is None) == (outs[13] is None)
+        assert list(iv[-5:]) == [*dsw.tile_plan("fluxes", N, 8)[2:],
+                                 *dsw.BOX["fluxes"][8],
+                                 dsw.smem_bytes("fluxes", 8)]
+        assert tuple(out.fx.shape) == (6, Kt, N, N + 1)
+        assert tuple(out.ut.shape) == (6, Kt, P, W)
+    wkw = {k: v for k, v in _dsw_kw().items() if k in dsw.WIND_KW}
+    seam = {"crx": f(P, W), "cry": f(W, P), "xfx": f(P, W),
+            "yfx": f(W, P), "ra_x": f(P, P), "ra_y": f(P, P),
+            "ut": f(P, W), "vt": f(W, P)}
+    wkw.update(d2_bg=0.0, d_con=1.0, nord_mask=None, damp_v=0.02,
+               damp_v2=None)
+    ins, mets, outs, prof, iv, dv, out = dsw._winds_operands(
+        f(P, P), f(W, P), f(P, W), f(P, W), f(W, P), f(P, P), f(P, P),
+        f(W, W), f(W, W), f(N, N), seam, gt, **wkw)
+    assert len(ins) == 18 and len(mets) == len(dsw.WIND_METRICS)
+    assert len(outs) == 3 and len(prof) == 5 and len(dv) == 4
+    assert list(iv[-5:]) == [*dsw.tile_plan("winds", N, 8)[2:],
+                             *dsw.BOX["winds"][8], dsw.smem_bytes("winds", 8)]
+    assert tuple(out.u.shape) == (6, Kt, N + 1, N)
+    assert tuple(out.heat_source.shape) == (6, Kt, N, N)
+    for bad in (dict(hord_dp=7), dict(nord_v=2), dict(lim_fac=0.5)):
+        with pytest.raises(ValueError):
+            dsw._fluxes_operands(f(P, P), f(P, P), None, f(P, W), f(W, P),
+                                 gt, **dict(kw, **bad))
+    with pytest.raises(ValueError, match="8 cells"):
+        dsw._fluxes_operands(*(torch.zeros(6, 1, 13, 13),) * 3,
+                             torch.zeros(6, 1, 13, 14),
+                             torch.zeros(6, 1, 14, 13), gt, **kw)
+    assert dsw.launches == {"fluxes": 0, "winds": 0}
