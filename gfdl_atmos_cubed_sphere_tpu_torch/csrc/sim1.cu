@@ -10,46 +10,90 @@
 // Bound on an H100: bytes. A column reads dm, pm, w, dz, pt (K levels), pem
 // (K+1) and ws, and writes pe2 (K+1), w2 and dz2, with a few tens of flops
 // and two transcendentals per level. Design: one thread per column of
-// [T, K, Y, X]; adjacent threads take adjacent x, so every per-level load
-// and store coalesces. The sweep scratch (gam, aa, bb, dd, grat, pp) lives
-// in a workspace of six [T, K+1, Y, X] planes the wrapper allocates, read
-// back by the same thread in the reverse sweeps. The operation order
-// follows the plain version (ops/nh_core.py sim1_solver), including
-// PyTorch's `c / x` = reciprocal(x) * c for a Python scalar c; maxima
-// propagate NaN as torch.maximum does. Built with --fmad=false.
+// [T, K, Y, X]; adjacent threads take adjacent x, so every level slice of
+// a block is one coalesced row. The walk makes four streaming passes over
+// the levels (the gas law fused with the pp forward sweep; the w forward
+// sweep; pe2; dz2, bottom-up), 16 level-planes of device-memory traffic in
+// all, and keeps no scratch in device memory: what outlives a pass (gam,
+// then the forward w's factors; pp, then w; then pe2) lives in shared
+// memory, 2 (K + 1) values per column, and the ratios grat and bb, the
+// right-hand side dd and the w system's aa are recomputed where they are
+// used, in the plain version's operation order. Each pass streams its
+// inputs D levels ahead of the walk through a per-thread ring in shared
+// memory filled by cp.async, so the few warps an SM holds keep enough
+// loads in flight. The recurrences are not reordered (no cyclic reduction
+// or parallel scan): the operation order follows the plain version
+// (ops/nh_core.py sim1_solver), including PyTorch's `c / x` =
+// reciprocal(x) * c for a Python scalar c; maxima propagate NaN as
+// torch.maximum does. Built with --fmad=false.
 
-#include <cuda_runtime.h>
+#include "fv_tile.cuh"
 
 namespace {
 
-template <typename T> __device__ __forceinline__ T tmax(T a, T b) {
-  return (a != a || b != b) ? a + b : (a > b ? a : b);
-}
+constexpr int D = 8;     // levels a pass streams ahead of its walk
+constexpr int NF = 4;    // fields of a ring slot
 
 template <typename T> struct Sim1Args {
   const T *dm, *pm, *pem, *w1, *dz, *pt, *ws;
-  T *pe2, *w2, *dz2, *work;
+  T *pe2, *w2, *dz2;
   int T_, K, Y, X;
   double dt, rgas, gama, akap, p_fac;
 };
 
+// keep the compiler from moving shared-memory accesses across a ring wait
+// or refill
+__device__ __forceinline__ void order() { asm volatile("" ::: "memory"); }
+
+// One streaming pass of this thread's column over levels 0..n-1 (or
+// n-1..0 when down) of nf fields: src[f] + level * plane. body(k, v) gets
+// the level and the fields' values at it, which the ring holds D levels
+// ahead of the walk.
+template <typename T, int nf, class Body>
+__device__ void stream(T* ring, int nt, const T* const* src,
+                       long long plane, int n, bool down, Body body) {
+  auto lev = [&](int i) { return down ? n - 1 - i : i; };
+  auto issue = [&](int slot, int i) {
+    for (int f = 0; f < nf; ++f)
+      fv::copy_async(ring + (slot * NF + f) * nt,
+                     src[f] + (long long)lev(i) * plane);
+  };
+  for (int i = 0; i < D; ++i) {
+    if (i < n) issue(i, i);
+    fv::copy_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    fv::copy_wait<D - 1>();
+    order();
+    const int s = i % D;
+    T v[nf];
+    for (int f = 0; f < nf; ++f) v[f] = ring[(s * NF + f) * nt];
+    body(lev(i), v);
+    order();
+    if (i + D < n) issue(s, i + D);
+    fv::copy_commit();
+  }
+  fv::copy_wait<0>();
+  order();
+}
+
 template <typename T> __global__ void sim1_kernel(Sim1Args<T> a) {
+  const int nt = blockDim.x, tid = threadIdx.x;
   const long long plane = (long long)a.Y * a.X;
   const long long ncol = (long long)a.T_ * plane;
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long c = (long long)blockIdx.x * nt + tid;
   if (c >= ncol) return;
   const int K = a.K;
   const long long t = c / plane, yx = c % plane;
-  // element (t, k, y, x) of a K-level field and of a (K+1)-level field
-  auto F = [&](int k) { return (t * K + k) * plane + yx; };
-  auto E = [&](int k) { return (t * (K + 1) + k) * plane + yx; };
-  const long long wsz = (long long)a.T_ * (K + 1) * plane;
-  T* gam = a.work;
-  T* aa = a.work + wsz;
-  T* bb = a.work + 2 * wsz;
-  T* dd = a.work + 3 * wsz;
-  T* grat = a.work + 4 * wsz;
-  T* pp = a.work + 5 * wsz;
+  const long long f0 = t * K * plane + yx, e0 = t * (K + 1) * plane + yx;
+  // shared memory, element (k, thread) at [k * nt + tid]: gam (K + 1
+  // levels; then pe2), pp (K + 1; then w), the ring (D slots of NF fields)
+  T* sm = reinterpret_cast<T*>(fv_smem) + tid;
+  T* gam = sm;
+  T* pp = sm + (K + 1) * nt;
+  T* ring = sm + 2 * (K + 1) * nt;
+  auto G = [&](int k) -> T& { return gam[k * nt]; };
+  auto PP = [&](int k) -> T& { return pp[k * nt]; };
 
   const T dt = T(a.dt), rgas = T(a.rgas), gm2 = T(a.gama);
   const T c_aa = T(2.0 * a.dt * a.dt * 0.5 * (a.gama + a.gama));
@@ -59,81 +103,119 @@ template <typename T> __global__ void sim1_kernel(Sim1Args<T> a) {
   const T p_fac = T(a.p_fac);
   const T R3 = T(1.0 / 3.0);
 
-  // gas-law pressure perturbation (kept in dd), ratios and the pp system
-  for (int k = 0; k < K; ++k) {
-    T pe = exp(gm2 * log(-a.dm[F(k)] / a.dz[F(k)] * rgas * a.pt[F(k)]))
-           - a.pm[F(k)];
-    dd[E(k)] = pe;
-  }
-  for (int k = 0; k < K - 1; ++k) {
-    T gr = a.dm[F(k)] / a.dm[F(k + 1)];
-    grat[E(k)] = gr;
-    bb[E(k)] = T(2) * (T(1) + gr);
-    dd[E(k)] = T(3) * (dd[E(k)] + gr * dd[E(k + 1)]);
-  }
-  bb[E(K - 1)] = T(2);
-  dd[E(K - 1)] = T(3) * dd[E(K - 1)];
-
-  // ---- Thomas sweep for the interface pressure perturbation pp --------
-  T bet = bb[E(0)];
-  pp[E(0)] = T(0);
-  pp[E(1)] = dd[E(0)] / bet;
-  for (int k = 1; k < K; ++k) {
-    T g = grat[E(k - 1)] / bet;
-    gam[E(k)] = g;
-    bet = bb[E(k)] - g;
-    pp[E(k + 1)] = (dd[E(k)] - pp[E(k)]) / bet;
-  }
-  for (int k = K - 1; k >= 1; --k)
-    pp[E(k)] = pp[E(k)] - gam[E(k)] * pp[E(k + 1)];
-
-  // ---- implicit w solve -------------------------------------------------
-  for (int k = 1; k < K; ++k)
-    aa[E(k)] = (T(1) / (a.dz[F(k - 1)] + a.dz[F(k)])) * c_aa * a.pem[E(k)];
-  bet = a.dm[F(0)] - aa[E(1)];
-  a.w2[F(0)] = (a.dm[F(0)] * a.w1[F(0)] + dt * pp[E(1)]) / bet;
-  for (int k = 1; k < K - 1; ++k) {
-    T g = aa[E(k)] / bet;
-    gam[E(k)] = g;
-    bet = a.dm[F(k)] - (aa[E(k)] + aa[E(k + 1)] + aa[E(k)] * g);
-    a.w2[F(k)] = (a.dm[F(k)] * a.w1[F(k)] + dt * (pp[E(k + 1)] - pp[E(k)])
-                  - aa[E(k)] * a.w2[F(k - 1)]) / bet;
-  }
-  const T p1w = (T(1) / a.dz[F(K - 1)]) * c_p1 * a.pem[E(K)];
-  const T gK = aa[E(K - 1)] / bet;
-  gam[E(K - 1)] = gK;
-  const T betK = a.dm[F(K - 1)] - (aa[E(K - 1)] + p1w + aa[E(K - 1)] * gK);
-  a.w2[F(K - 1)] = (a.dm[F(K - 1)] * a.w1[F(K - 1)]
-                    + dt * (pp[E(K)] - pp[E(K - 1)])
-                    - p1w * a.ws[c] - aa[E(K - 1)] * a.w2[F(K - 2)]) / betK;
-  for (int k = K - 2; k >= 0; --k)
-    a.w2[F(k)] = a.w2[F(k)] - gam[E(k + 1)] * a.w2[F(k + 1)];
-
-  // ---- new nonhydro pressure + dz ---------------------------------------
-  a.pe2[E(0)] = T(0);
-  for (int k = 0; k < K; ++k)
-    a.pe2[E(k + 1)] = a.pe2[E(k)]
-                      + a.dm[F(k)] * (a.w2[F(k)] - a.w1[F(k)]) * rdt;
-  T p1 = (a.pe2[E(K - 1)] + T(2) * a.pe2[E(K)]) * R3;
+  // ---- the gas-law perturbation pe, grat, bb, dd and the forward pp
+  // sweep, one row behind the levels streamed -----------------------------
+  T dm_p = T(0), pe_p = T(0), gr_p = T(0), bet = T(0), pp_r = T(0);
+  auto thomas = [&](int r, T bb, T dd) {
+    if (r == 0) {
+      bet = bb;
+      PP(0) = T(0);
+      pp_r = dd / bet;
+    } else {
+      const T g = gr_p / bet;
+      G(r) = g;
+      bet = bb - g;
+      pp_r = (dd - pp_r) / bet;
+    }
+    PP(r + 1) = pp_r;
+  };
   {
-    const T pmk = a.pm[F(K - 1)];
-    a.dz2[F(K - 1)] = -a.dm[F(K - 1)] * rgas * a.pt[F(K - 1)]
-                      * exp(capa1 * log(tmax(p_fac * pmk, p1 + pmk)));
+    const T* src[4] = {a.dm + f0, a.dz + f0, a.pt + f0, a.pm + f0};
+    stream<T, 4>(ring, nt, src, plane, K, false, [&](int k, const T* v) {
+      const T pe = exp(gm2 * log(-v[0] / v[1] * rgas * v[2])) - v[3];
+      if (k > 0) {
+        const T gr = dm_p / v[0];
+        thomas(k - 1, T(2) * (T(1) + gr), T(3) * (pe_p + gr * pe));
+        gr_p = gr;
+      }
+      dm_p = v[0];
+      pe_p = pe;
+    });
   }
+  thomas(K - 1, T(2), T(3) * pe_p);
+  // backward pp sweep
+  for (int k = K - 1; k >= 1; --k) PP(k) = PP(k) - G(k) * PP(k + 1);
+
+  // ---- the forward w sweep: aa from dz and pem; w(k) replaces pp(k) ----
+  T dz_p = T(0), w1_p = T(0), aa_p = T(0), w_p = T(0), pp_k = T(0);
+  {
+    const T* src[4] = {a.dm + f0, a.w1 + f0, a.dz + f0, a.pem + e0};
+    stream<T, 4>(ring, nt, src, plane, K, false, [&](int j, const T* v) {
+      if (j > 0) {
+        const T aa = (T(1) / (dz_p + v[2])) * c_aa * v[3];
+        const int k = j - 1;
+        const T pp1 = PP(k + 1);
+        if (k == 0) {
+          bet = dm_p - aa;
+          w_p = (dm_p * w1_p + dt * pp1) / bet;
+        } else {
+          const T g = aa_p / bet;
+          G(k) = g;
+          bet = dm_p - (aa_p + aa + aa_p * g);
+          w_p = (dm_p * w1_p + dt * (pp1 - pp_k) - aa_p * w_p) / bet;
+        }
+        PP(k) = w_p;
+        pp_k = pp1;
+        aa_p = aa;
+      }
+      dm_p = v[0];
+      w1_p = v[1];
+      dz_p = v[2];
+    });
+  }
+  {
+    const T p1w = (T(1) / dz_p) * c_p1 * a.pem[e0 + K * plane];
+    const T gK = aa_p / bet;
+    G(K - 1) = gK;
+    const T betK = dm_p - (aa_p + p1w + aa_p * gK);
+    w_p = (dm_p * w1_p + dt * (PP(K) - pp_k) - p1w * a.ws[c]
+           - aa_p * w_p) / betK;
+    PP(K - 1) = w_p;
+  }
+  // backward w sweep; w2 out
+  a.w2[f0 + (long long)(K - 1) * plane] = w_p;
   for (int k = K - 2; k >= 0; --k) {
-    const T gr = grat[E(k)];
-    p1 = (a.pe2[E(k)] + bb[E(k)] * a.pe2[E(k + 1)] + gr * a.pe2[E(k + 2)])
-         * R3 - gr * p1;
-    const T pmk = a.pm[F(k)];
-    a.dz2[F(k)] = -a.dm[F(k)] * rgas * a.pt[F(k)]
-                  * exp(capa1 * log(tmax(p_fac * pmk, p1 + pmk)));
+    w_p = PP(k) - G(k + 1) * w_p;
+    PP(k) = w_p;
+    a.w2[f0 + (long long)k * plane] = w_p;
+  }
+
+  // ---- the new nonhydrostatic pressure pe2 (kept in gam) ---------------
+  {
+    T pe = T(0);
+    G(0) = pe;
+    a.pe2[e0] = pe;
+    const T* src[2] = {a.dm + f0, a.w1 + f0};
+    stream<T, 2>(ring, nt, src, plane, K, false, [&](int k, const T* v) {
+      pe = pe + v[0] * (PP(k) - v[1]) * rdt;
+      G(k + 1) = pe;
+      a.pe2[e0 + (long long)(k + 1) * plane] = pe;
+    });
+  }
+
+  // ---- dz from the blended pressure, bottom-up ---------------------------
+  {
+    T p1 = T(0), dm_n = T(0);
+    const T* src[3] = {a.dm + f0, a.pm + f0, a.pt + f0};
+    stream<T, 3>(ring, nt, src, plane, K, true, [&](int k, const T* v) {
+      if (k == K - 1) {
+        p1 = (G(K - 1) + T(2) * G(K)) * R3;
+      } else {
+        const T gr = v[0] / dm_n;
+        const T bb = T(2) * (T(1) + gr);
+        p1 = (G(k) + bb * G(k + 1) + gr * G(k + 2)) * R3 - gr * p1;
+      }
+      a.dz2[f0 + (long long)k * plane] =
+          -v[0] * rgas * v[2]
+          * exp(capa1 * log(fv::tmax(p_fac * v[1], p1 + v[1])));
+      dm_n = v[0];
+    });
   }
 }
 
 template <typename T>
-int launch(const void* const* in, void* pe2, void* w2, void* dz2, void* work,
-           int T_, int K, int Y, int X, const double* s,
-           cudaStream_t stream) {
+int launch(const void* const* in, void* const* out, const int* iv,
+           const double* s, cudaStream_t stream) {
   Sim1Args<T> a;
   a.dm = static_cast<const T*>(in[0]);
   a.pm = static_cast<const T*>(in[1]);
@@ -142,40 +224,43 @@ int launch(const void* const* in, void* pe2, void* w2, void* dz2, void* work,
   a.dz = static_cast<const T*>(in[4]);
   a.pt = static_cast<const T*>(in[5]);
   a.ws = static_cast<const T*>(in[6]);
-  a.pe2 = static_cast<T*>(pe2);
-  a.w2 = static_cast<T*>(w2);
-  a.dz2 = static_cast<T*>(dz2);
-  a.work = static_cast<T*>(work);
-  a.T_ = T_;
-  a.K = K;
-  a.Y = Y;
-  a.X = X;
+  a.pe2 = static_cast<T*>(out[0]);
+  a.w2 = static_cast<T*>(out[1]);
+  a.dz2 = static_cast<T*>(out[2]);
+  a.T_ = iv[0];
+  a.K = iv[1];
+  a.Y = iv[2];
+  a.X = iv[3];
+  const int nt = iv[4], smem = iv[5];
   a.dt = s[0];
   a.rgas = s[1];
   a.gama = s[2];
   a.akap = s[3];
   a.p_fac = s[4];
-  const long long ncol = (long long)T_ * Y * X;
-  const int nt = 128;
-  sim1_kernel<T><<<(unsigned)((ncol + nt - 1) / nt), nt, 0, stream>>>(a);
+  // the wrapper's plan (ops/sim1.py launch_plan) must be this kernel's
+  if (a.K < 3 || nt < 32 || nt > 1024 || nt % 32
+      || smem != (2 * (a.K + 1) + D * NF) * nt * (int)sizeof(T))
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sim1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long ncol = (long long)a.T_ * a.Y * a.X;
+  sim1_kernel<T><<<(unsigned)((ncol + nt - 1) / nt), nt, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point: dm, pm, pem, w, dz, pt, ws (device pointers;
-// pem has K+1 levels, ws is [T, Y, X]), outputs pe2 (K+1 levels), w2, dz2,
-// and a workspace of 6 * T * (K+1) * Y * X elements. dtype 0 = float32,
-// 1 = float64. Returns cudaGetLastError.
-extern "C" int sim1(const void* dm, const void* pm, const void* pem,
-                    const void* w, const void* dz, const void* pt,
-                    const void* ws, void* pe2, void* w2, void* dz2,
-                    void* work, int T_, int K, int Y, int X, double dt,
-                    double rgas, double gama, double akap, double p_fac,
-                    int dtype, void* stream) {
-  const void* in[7] = {dm, pm, pem, w, dz, pt, ws};
-  const double s[5] = {dt, rgas, gama, akap, p_fac};
+// Plain C entry point. in: dm, pm, pem, w, dz, pt, ws (device pointers;
+// pem has K+1 levels, ws is [T, Y, X]); out: pe2 (K+1 levels), w2, dz2.
+// iv: T, K, Y, X, threads per block, shared-memory bytes (ops/sim1.py
+// launch_plan). s: dt, rgas, gama, akap, p_fac. dtype 0 = float32,
+// 1 = float64. Returns a cudaError_t.
+extern "C" int sim1(const void* const* in, void* const* out, const int* iv,
+                    const double* s, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(in, pe2, w2, dz2, work, T_, K, Y, X, s, st);
-  return launch<double>(in, pe2, w2, dz2, work, T_, K, Y, X, s, st);
+  if (dtype == 0) return launch<float>(in, out, iv, s, st);
+  return launch<double>(in, out, iv, s, st);
 }

@@ -2,12 +2,15 @@
 
 Replaces the TPU kernel a2b_ord4_pallas
 (gfdl_atmos_cubed_sphere_tpu/ops/pallas_a2b.py:45, body _a2b_ord4_sel at
-ops/a2b_edge.py:300). The kernel, csrc/a2b_ord4.cu, computes one output
-corner point per thread: the 4th-order x- and y-interpolations, their edge
-and near-edge rows, and the frame assembly. The output edge rows and
-columns and the four cube-corner values come in from `a2b_edge_rows`, as on
-the TPU. Bound by device-memory bytes: the input plane, two metric planes
-and the output plane, ~0.06 GB of f32 at C768 (~17 us at 3.35 TB/s).
+ops/a2b_edge.py:300). The kernel, csrc/a2b_ord4.cu, is one launch per call
+and the wrapper issues nothing else: a block owns a box of output corners
+of one cube tile (`launch_plan`) and a run of levels; its warps walk the
+box's rows with each lane's stencil window in registers, and on the
+tile-edge boxes its threads compute the points next to the edges, the
+output edge rows and columns and the four cube-corner values too, which
+the TPU kernel took precomputed from `a2b_edge_rows`. Bound by
+device-memory bytes: the input plane and the output plane per level,
+~0.06 GB of f32 at C768 (~17 us at 3.35 TB/s).
 
 `a2b_ord4` launches the kernel for a CUDA tensor and takes the plain
 version, `a2b_ord4_ref`, only for a CPU tensor.
@@ -19,6 +22,10 @@ import torch
 
 from . import _build
 from .a2b_edge import A1, A2, B1, B2, C1, C2, H, a2b_edge_rows, fi
+
+#: the kernel's box of output corners (rows x columns) and run of levels
+#: (csrc/a2b_ord4.cu TX, TY, KL)
+TX, TY, KL = 32, 32, 16
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
@@ -143,6 +150,20 @@ def a2b_ord4(qin, g):
     return _launch(qin, g)
 
 
+def launch_plan(n, itemsize):
+    """(boxes along x, boxes along y, shared-memory bytes of a block) of
+    the kernel for n cells per side: a block owns a box of at most TY x TX
+    of the n + 1 compute corners of one tile (box t of nt along an axis
+    holds corners [t (n + 1) // nt, (t + 1) (n + 1) // nt), the kernel's
+    fv::tile_start) and a run of at most KL levels; a tile-edge box keeps
+    its edge values for each level of the run in shared memory (qy on two
+    walls at TX + 3 columns, qx on two walls at TY + 3 rows, two edge rows,
+    two edge columns, four cube-corner values). The kernel refuses a plan
+    whose boxes are under 4 or over TX / TY corners wide."""
+    ntx, nty = -(-(n + 1) // TX), -(-(n + 1) // TY)
+    return ntx, nty, KL * (4 * (TX + TY) + 16) * itemsize
+
+
 def _launch(qin, g):
     global launches
     if not qin.is_cuda or qin.ndim != 4 or qin.shape[0] != 6:
@@ -153,29 +174,29 @@ def _launch(qin, g):
     NW = n + 1 + 2 * H
     if n < 6:
         raise ValueError("a2b_ord4 kernel needs at least 6 cells per side")
-    qin = qin.contiguous()
-    srow, nrow, wcol, ecol, cvals = (a.contiguous()
-                                     for a in a2b_edge_rows(qin, g))
-    ops = [qin, g.dxa, g.dya, srow, nrow, wcol, ecol, cvals]
-    shapes = [(P, P), (P, P), (P, P), (1, NW), (1, NW), (NW, 1), (NW, 1),
-              (1, 4)]
+    ops = [qin.contiguous(), g.dxa, g.dya, g.edge_s_full, g.edge_n_full,
+           g.edge_w_full, g.edge_e_full, g.a2b_corner_w]
+    shapes = [(6, K, P, P), (6, 1, P, P), (6, 1, P, P), (6, 1, 1, NW),
+              (6, 1, 1, NW), (6, 1, NW, 1), (6, 1, NW, 1), (6, 1, 4, 3)]
     for b, (a, shp) in enumerate(zip(ops, shapes)):
         if (not a.is_cuda or a.device != qin.device or a.dtype != qin.dtype
                 or not a.is_contiguous()):
             raise ValueError(f"a2b_ord4 operand {b}: device, dtype or "
                              f"layout differ from qin")
-        if (a.ndim != 4 or a.shape[0] != 6 or a.shape[1] not in (1, K)
-                or tuple(a.shape[2:]) != shp):
-            raise ValueError(f"a2b_ord4 operand {b}: shape {tuple(a.shape)}")
-    if g.dxa.shape[1] != 1 or g.dya.shape[1] != 1:
-        raise ValueError("a2b_ord4 kernel takes metrics [6, 1, P, P]")
+        if tuple(a.shape) != shp:
+            raise ValueError(f"a2b_ord4 operand {b}: shape {tuple(a.shape)}, "
+                             f"want {shp}")
     out = torch.empty((6, K, NW, NW), dtype=qin.dtype, device=qin.device)
+    ntx, nty, smem = launch_plan(n, qin.element_size())
     fn = _build.library("a2b_ord4").a2b_ord4
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    rc = fn(*(a.data_ptr() for a in ops), out.data_ptr(), n, K,
-            _build.dtype_code(qin), _build.stream_ptr(qin))
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                   ctypes.c_void_p]
+    ptrs = (ctypes.c_void_p * len(ops))(*(a.data_ptr() for a in ops))
+    iv = (ctypes.c_int * 7)(n, K, ntx, nty, TX, TY, smem)
+    rc = fn(ptrs, out.data_ptr(), iv, _build.dtype_code(qin),
+            _build.stream_ptr(qin))
     _build.check(rc, "a2b_ord4")
     launches += 1
     return out

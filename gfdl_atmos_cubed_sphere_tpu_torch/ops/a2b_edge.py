@@ -64,8 +64,8 @@ def a2b_edge_rows(qin, g):
     """The a2b_ord4 output edge rows/columns and cube-corner values
     (a2b_edge.F90:105-133 corners, :142-158 edge factors). Returns
     (srow, nrow [.., 1, NW], wcol, ecol [.., NW, 1], cvals [.., 1, 4] in
-    sw/se/ne/nw order). They stay outside the a2b_ord4 kernel, as on the
-    TPU."""
+    sw/se/ne/nw order). The plain version's part; the a2b_ord4 kernel
+    computes them itself."""
     f = fi
     n = qin.shape[-1] - 2 * H
     npx = npy = n + 1

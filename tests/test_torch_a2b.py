@@ -3,6 +3,9 @@ against the JAX package: its XLA a2b_ord4 and its Pallas kernel
 a2b_ord4_pallas run in interpret mode, as tests/test_pallas_a2b.py runs it
 (float64, CPU)."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -101,3 +104,38 @@ def test_a2b_without_cube_edges(case, fn):
     got = getattr(ta2b, fn)(torch.as_tensor(qp), g).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def test_a2b_ord4_ref_at_batched_levels(case):
+    """nh_p_grad's batched call shape, 3 (K + 1) + K levels (K = 10), f64."""
+    gj, gt, _ = case
+    q = np.random.default_rng(13).standard_normal((6, 3 * 11 + 10, N, N))
+    qp = np.array(gj.halo.pad_cell(jnp.asarray(q)))
+    _close(ja2b.a2b_ord4(jnp.asarray(qp), gj),
+           a2b.a2b_ord4_ref(torch.as_tensor(qp), gt))
+
+
+def _kernel_constants():
+    src = (Path(a2b.__file__).parents[1] / "csrc" / "a2b_ord4.cu").read_text()
+    m = re.search(r"constexpr int TX = (\d+), TY = (\d+), NT = \d+, "
+                  r"KL = (\d+);", src)
+    return tuple(int(x) for x in m.groups())
+
+
+def test_a2b_launch_plan_matches_the_kernel():
+    assert _kernel_constants() == (a2b.TX, a2b.TY, a2b.KL)
+
+
+@pytest.mark.parametrize("n", [12, 24, 48, 192, 768])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_a2b_launch_plan(n, itemsize):
+    """The plan the wrapper passes is one the kernel takes at every call
+    shape, C12 to C768 and up to 319 levels (the plan does not depend on
+    the levels): boxes at least 4 corners wide (so the points next to a
+    tile edge lie in the first and last box of an axis) and at most TY x
+    TX, and a block's shared memory within the card's 232,448 bytes."""
+    ntx, nty, smem = a2b.launch_plan(n, itemsize)
+    assert smem <= 232448
+    for nt, box in ((ntx, a2b.TX), (nty, a2b.TY)):
+        widths = np.diff([t * (n + 1) // nt for t in range(nt + 1)])
+        assert widths.min() >= 4 and widths.max() <= box

@@ -56,6 +56,15 @@ def test_fv_dynamics_nh_dry():
         b = getattr(got, nm).numpy()
         assert np.isfinite(a).all(), nm
         assert np.abs(b - a).max() <= 1e-10 * np.abs(a).max(), nm
+    # the surface pressure telescopes from the final delp (the physics
+    # leaves delp as the remap made it): against the JAX result's delp to
+    # the whole step's tolerance, against the port's own to rounding
+    ps = got.ps.numpy()
+    ps_jax = ptop + np.asarray(want[0]).sum(axis=1)
+    assert ps.shape == ps_jax.shape == (6, NPX - 1, NPX - 1)
+    assert np.abs(ps - ps_jax).max() <= 1e-10 * np.abs(ps_jax).max()
+    ps_own = ptop + got.delp.numpy().sum(axis=1)
+    assert np.abs(ps - ps_own).max() <= 1e-12 * np.abs(ps_own).max()
 
 
 @pytest.mark.parametrize("over", [dict(consv_te=1.0),

@@ -80,3 +80,12 @@ def test_fv_dynamics_nh_moist():
         assert np.isfinite(a).all(), nm
         err = np.abs(b.numpy() - a).max() / np.abs(a).max()
         assert err <= 1e-10, (nm, err)
+    # the surface pressure telescopes from the final delp (the physics
+    # leaves delp as the remap made it): against the JAX result's delp to
+    # the whole step's tolerance, against the port's own to rounding
+    ps = got.ps.numpy()
+    ps_jax = ptop + np.asarray(want[0]).sum(axis=1)
+    assert ps.shape == ps_jax.shape == (6, NPX - 1, NPX - 1)
+    assert np.abs(ps - ps_jax).max() <= 1e-10 * np.abs(ps_jax).max()
+    ps_own = ptop + got.delp.numpy().sum(axis=1)
+    assert np.abs(ps - ps_own).max() <= 1e-12 * np.abs(ps_own).max()

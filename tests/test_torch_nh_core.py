@@ -6,6 +6,9 @@ Jablonowski-Williamson state at C12L10 (float64, CPU, <= 1e-12 x max|ref|).
 On the CPU the JAX package takes its XLA formulation and the port the plain
 versions of its kernels; the kernel launch counters stay 0."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,3 +163,30 @@ def test_update_dz_d(case):
     assert _launched() == (0, 0)
     for nm, a, b in zip(("zh", "ws"), want, got):
         _close(a, b, nm)
+
+
+def _kernel_ring():
+    src = (Path(sim1.__file__).parents[1] / "csrc" / "sim1.cu").read_text()
+    d = re.search(r"constexpr int D = (\d+);", src)
+    nf = re.search(r"constexpr int NF = (\d+);", src)
+    return int(d.group(1)), int(nf.group(1))
+
+
+def test_sim1_launch_plan_matches_the_kernel():
+    assert _kernel_ring() == (sim1.RING_LEVELS, sim1.RING_FIELDS)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_sim1_launch_plan(itemsize):
+    """Every column is owned by exactly one thread of one block, and a
+    block's shared memory (gam and pp, 2 (K + 1) values per column, and
+    the ring) fits the card (232,448 bytes), C12 to C768, up to 319
+    levels."""
+    for n in (12, 24, 192, 768):
+        ncol = 6 * (n + 2 * H) ** 2
+        for K in (3, 10, 79, 160, 319):
+            nt, blocks, smem = sim1.launch_plan(ncol, K, itemsize)
+            assert nt in (32, 64, 128, 256)
+            assert (blocks - 1) * nt < ncol <= blocks * nt
+            per_col = 2 * (K + 1) + sim1.RING_LEVELS * sim1.RING_FIELDS
+            assert smem == nt * per_col * itemsize <= 232448
