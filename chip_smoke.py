@@ -41,12 +41,16 @@ pkgz and geopk, one_grad_p's batched a2b, the same tracers and physics).
    ratio to the bound; for the two d_sw stages each kernel's launches and
    ms per call; a profiler reading that lost a launch's record is taken
    again, and the smoke fails after five incomplete ones), the plain
-   version's time and its bound. For a2b_ord4 and
-   sim1, at every call shape, f32 and f64, it prints every device kernel
-   one wrapper call issues, PyTorch's ops, copies and fills included
-   ("device_kernels_per_call" in the kernels line's shapes), and fails
-   unless a2b_ord4 issues exactly 1 in all and sim1 exactly 1 of its own
-   (its copies of non-contiguous operands would be listed). The
+   version's time and its bound. For a2b_ord4, sim1,
+   tp2d_sweep and c_sw, at every call shape, f32 and f64, it prints every
+   device kernel one wrapper call issues, PyTorch's ops, copies and fills
+   included ("device_kernels_per_call" in the kernels line's shapes), and
+   fails unless a2b_ord4, tp2d_sweep and c_sw issue exactly 1 in all and
+   sim1 exactly 1 of its own (its copies of non-contiguous operands would
+   be listed). It prints the resources of the tp sweep, c_sw and d_sw
+   stage kernels as built (registers and spill bytes per thread, static
+   and dynamic shared memory per block, resident blocks per SM; "resources"
+   in the kernels line). The
    tp sweep and ke_section kernels are also checked at every other hord
    they take (tp_sweep.KERNEL_HORDS, ke.KERNEL_HORDS) on the SW inputs;
 3. the SW step (case 2, C48, float64, n_split=2, 4 steps) and the NH big
@@ -162,7 +166,16 @@ HYDRO_PER_STEP = {"c_sw": 6, "d_sw_fluxes": 6, "d_sw_winds": 6, "sim1": 0,
 A2B_METRICS = ("dxa", "dya", "edge_s_full", "edge_n_full", "edge_w_full",
                "edge_e_full", "a2b_corner_w")
 # the kernels whose every device kernel per wrapper call phase 2 counts
-ALL_KERNELS_COUNTED = ("a2b_ord4", "sim1")
+ALL_KERNELS_COUNTED = ("a2b_ord4", "sim1", "tp2d_sweep", "c_sw")
+# the kernels whose resources phase 2 reads from the built library (the
+# redesigned tp sweep and c_sw, and the d_sw stages that share their
+# headers): {name: [(label, exported function, leading arguments)]}
+RESOURCES = {
+    "tp2d_sweep": [("", "tp2d_sweep_attrs", ())],
+    "c_sw": [("", "c_sw_attrs", ())],
+    "d_sw_fluxes": [("", "d_sw_fluxes_attrs", ())],
+    "d_sw_winds": [("", "d_sw_winds_attrs", ())],
+}
 # position of the hord argument in the calls of the wrappers that take one
 HORD_ARG = {"tp2d_sweep": 3, "ke_section": 13}
 C768_DT = 225.0 / 8        # see phase 4 in the module docstring
@@ -424,10 +437,10 @@ def own_kernel_launches(fn, reps=5, own=True):
 
 
 def count_device_kernels(label, name, fn):
-    """Every device kernel one wrapper call issues, printed: a2b_ord4 must
-    issue exactly one in all, sim1 exactly one of the port's own (its
-    PyTorch copies of non-contiguous operands are printed). Returns the
-    count of all."""
+    """Every device kernel one wrapper call issues, printed: a2b_ord4,
+    tp2d_sweep and c_sw must issue exactly one in all (no PyTorch op, copy
+    or fill), sim1 exactly one of the port's own (its PyTorch copies of
+    non-contiguous operands are printed). Returns the count of all."""
     every = own_kernel_launches(fn, reps=2, own=False)
     total = sum(c for _, c in every.values())
     mine = sum(c for k, (_, c) in every.items() if is_own_kernel(k))
@@ -435,13 +448,42 @@ def count_device_kernels(label, name, fn):
         f"{mine:g} of the port's own")
     for k, (v, c) in sorted(every.items(), key=lambda kv: -kv[1][0]):
         log(f"      {v:.4f} ms, {c:g} per call: {k[:110]}")
-    if name == "a2b_ord4":
-        require(total == 1, f"{label}: a2b_ord4 issued {total:g} device "
+    if name != "sim1":
+        require(total == 1, f"{label}: {name} issued {total:g} device "
                             f"kernels per call, not 1")
     else:
         require(mine == 1, f"{label}: sim1 issued {mine:g} kernels of its "
                            f"own per call, not 1")
     return total
+
+
+def kernel_resources():
+    """Registers per thread, local (spill) bytes per thread, static and
+    dynamic shared memory per block and resident blocks per SM of the
+    RESOURCES kernels, float32 and float64, read from the built libraries
+    (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    and printed. Returns {name: [record per form]}."""
+    import ctypes
+    from gfdl_atmos_cubed_sphere_tpu_torch.ops import _build
+    keys = ("registers", "spill_bytes", "static_smem", "dynamic_smem",
+            "blocks_per_sm", "threads")
+    recs = {}
+    for name, forms in RESOURCES.items():
+        lib = _build.library(SOURCE.get(name, name))
+        for label, fn, lead in forms:
+            for dtype, dname in ((0, "float32"), (1, "float64")):
+                out = (ctypes.c_int * 6)()
+                f = getattr(lib, fn)
+                f.restype = ctypes.c_int
+                rc = f(*lead, dtype, out)
+                require(rc == 0, f"{fn}: cudaError {rc}")
+                rec = dict(zip(keys, list(out)), form=label, dtype=dname)
+                recs.setdefault(name, []).append(rec)
+                log(f"  resources {name} {label} {dname}: {out[0]} "
+                    f"registers, {out[1]} spill bytes, {out[2]} + {out[3]} "
+                    f"bytes of shared memory, {out[4]} blocks of {out[5]} "
+                    f"threads an SM")
+    return recs
 
 
 def flatten_outputs(out):
@@ -989,6 +1031,7 @@ def main():
 
     # ---- 2. kernels against their plain versions ----------------------------
     log("phase 2 kernels vs plain versions")
+    resources = kernel_resources()
     shapes_sw = check_kernels(cap768, SW_KERNELS, npx - 1, 1e-4,
                               "sw_c768 f32", measure=True, sw=True)
     check_kernels(cap48, SW_KERNELS, 48, 1e-12, "C48 f64", measure=False,
@@ -1108,6 +1151,8 @@ def main():
             "bound_by": rec["bound_by"], "library_ms": None,
             "kernel_ms": rec["kernel_ms"], "path": path,
             "shapes": shapes[name]}
+        if name in resources:
+            entry["resources"] = resources[name]
         if path == "c192_nh moist":
             entry["c192_nh_dry"] = {"launches": nh_launches[name]}
         for other, _, orecs, oshapes, olaunches in paths:

@@ -659,3 +659,13 @@ extern "C" int d_sw_fluxes(const void* const* in, const void* const* met,
   if (dtype == 0) return run<float>(in, met, out, prof, iv, dv, s);
   return run<double>(in, met, out, prof, iv, dv, s);
 }
+
+// The kernel's resources (fv_tile.cuh kernel_attrs): registers, local
+// (spill) bytes, static and dynamic shared memory, resident blocks per SM
+// and threads per block into out[0..5]. Returns a cudaError_t code.
+extern "C" int d_sw_fluxes_attrs(int dtype, int* out) {
+  auto f32 = fluxes_kernel<float, Box<float>::TY, Box<float>::TX>;
+  auto f64 = fluxes_kernel<double, Box<double>::TY, Box<double>::TX>;
+  if (dtype == 0) return fv::kernel_attrs(f32, NT, smem_bytes<float>(), out);
+  return fv::kernel_attrs(f64, NT, smem_bytes<double>(), out);
+}

@@ -3,13 +3,14 @@
 // (d_sw_fluxes.cu, d_sw_winds.cu).
 //
 // A one-dimensional PPM flux is split in two: the per-cell edge values
-// (bl, br, and the linear family's smoothness flag) and the upwind
-// combination at a wall from its two cells. ppm_flux / xtp_flux evaluate
-// both cells of one wall, as the standalone kernels do (ppm_flux keeps the
-// sweep kernel's own per-wall code, which computes the neighbourhood's
-// slopes once); the fused stage kernels evaluate each cell of a line once
-// into shared memory (ppm_cell, xtp_cell) and then combine per wall. Both
-// paths run the same expressions in the same order, so they round alike.
+// (bl, br, and the linear family's smoothness flag; ppm_edges, xtp_cell)
+// and the upwind combination at a wall from its two cells (ppm_combine,
+// xtp_combine). xtp_flux evaluates both cells of one wall, as the
+// ke_section kernel does; the fused stage kernels evaluate each cell of a
+// line once into shared memory (ppm_cell, xtp_cell) and then combine per
+// wall; the tp sweep holds a line one cell per lane of a warp and takes
+// the neighbour cell's values by shuffles. All run the same expressions in
+// the same order, so they round alike.
 // Every branch is a select on values, never a multiply by a mask, so NaN
 // held in a cube-corner halo stays where the plain PyTorch versions put it.
 
@@ -36,11 +37,13 @@ __device__ __forceinline__ T ppm_extrap(QF Q, DF DX, int m2) {
   return T(0.5) * (left + right);
 }
 
-// the linear family's interface value at wall wa
-template <typename T, typename QF, typename DF>
+// the linear family's interface value at wall wa (EDGE false: the caller
+// knows wa lies in [2, n - 2], away from the face edges)
+template <typename T, bool EDGE = true, typename QF, typename DF>
 __device__ __forceinline__ T ppm_al(QF Q, DF DX, int wa, int n) {
   const T P1 = T(7.0 / 12.0), P2 = T(-1.0 / 12.0);
   const T C1 = T(-2.0 / 14.0), C2 = T(11.0 / 14.0), C3 = T(5.0 / 14.0);
+  if (!EDGE) return P1 * (Q(wa - 1) + Q(wa)) + P2 * (Q(wa - 2) + Q(wa + 1));
   if (wa == -1) return C1 * Q(-3) + C2 * Q(-2) + C3 * Q(-1);
   if (wa == 0) return ppm_extrap<T>(Q, DX, -2);
   if (wa == 1) return C3 * Q(0) + C2 * Q(1) + C1 * Q(2);
@@ -200,175 +203,6 @@ __device__ __forceinline__ T ppm_combine(T qL, T qR, const PpmCell<T>& L,
   }
   return cpos ? qL + (T(1) - c) * (L.br - c * b0L)
               : qR + (T(1) + c) * (R.bl + c * b0R);
-}
-
-// One PPM interface value at wall w of a line of cells. qp/dp point at cell
-// w-3 of the line (element k*stride is cell w-3+k, k = 0..5), n is the
-// number of compute cells, c the Courant number at the wall. Transcribes
-// tp_core.xppm for iord 5, 6, 8 and 10 with cube-edge stencils on. The
-// sweep kernel's per-wall form: the slopes of the wall's neighbourhood
-// once, both cells' edge values inline (ppm_edges is the same arithmetic
-// per cell, for the fused stage kernels).
-template <typename T>
-__device__ T ppm_flux(const T* __restrict__ qp, int qs,
-                      const T* __restrict__ dp, int ds,
-                      int w, int n, T c, int iord) {
-  const T P1 = T(7.0 / 12.0), P2 = T(-1.0 / 12.0);
-  const T C1 = T(-2.0 / 14.0), C2 = T(11.0 / 14.0), C3 = T(5.0 / 14.0);
-  const T S11 = T(11.0 / 14.0), S14 = T(4.0 / 7.0), S15 = T(3.0 / 14.0);
-  const T R3 = T(1.0 / 3.0);
-  const int base = w - 3;
-  T v[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) v[k] = qp[k * qs];
-  auto Q = [&](int cell) -> T { return v[cell - base]; };
-  auto DX = [&](int cell) -> T { return dp[(cell - base) * ds]; };
-  auto extrap = [&](int m2) -> T {  // cells m2, m2+1 | m2+2, m2+3
-    T dm2 = DX(m2), dm1 = DX(m2 + 1), d0 = DX(m2 + 2), d1 = DX(m2 + 3);
-    T left = ((T(2) * dm1 + dm2) * Q(m2 + 1) - dm1 * Q(m2)) / (dm2 + dm1);
-    T right = ((T(2) * d0 + d1) * Q(m2 + 2) - d0 * Q(m2 + 3)) / (d0 + d1);
-    return T(0.5) * (left + right);
-  };
-
-  T bl[2], br[2];
-  bool s5[2];
-  if (iord < 7) {
-    // linear PPM family: al at walls w-1, w, w+1
-    T al[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      int wa = w - 1 + a;
-      T val;
-      if (wa == -1) val = C1 * Q(-3) + C2 * Q(-2) + C3 * Q(-1);
-      else if (wa == 0) val = extrap(-2);
-      else if (wa == 1) val = C3 * Q(0) + C2 * Q(1) + C1 * Q(2);
-      else if (wa == n - 1) val = C1 * Q(n - 3) + C2 * Q(n - 2) + C3 * Q(n - 1);
-      else if (wa == n) val = extrap(n - 2);
-      else if (wa == n + 1) val = C3 * Q(n) + C2 * Q(n + 1) + C1 * Q(n + 2);
-      else val = P1 * (Q(wa - 1) + Q(wa)) + P2 * (Q(wa - 2) + Q(wa + 1));
-      al[a] = val;
-    }
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      int cell = w - 1 + s;
-      T qc = Q(cell);
-      T l = al[s] - qc, r = al[s + 1] - qc;
-      T b0 = l + r;
-      bool sm;
-      if (cell == -1 || cell == 0 || cell == n - 1 || cell == n)
-        sm = l * r < T(0);
-      else if (iord == 5)
-        sm = l * r < T(0);
-      else
-        sm = T(3) * fabs(b0) < fabs(l - r);
-      bl[s] = l;
-      br[s] = r;
-      s5[s] = sm;
-    }
-    bool cpos = c > T(0);
-    T b0L = bl[0] + br[0], b0R = bl[1] + br[1];
-    T fx1 = cpos ? (T(1) - c) * (br[0] - c * b0L)
-                 : (T(1) + c) * (bl[1] + c * b0R);
-    T low = cpos ? Q(w - 1) : Q(w);
-    return low + ((s5[0] || s5[1]) ? fx1 : T(0));
-  }
-
-  // monotone family (iord 8, 10): dm at cells w-2..w+1
-  T dmv[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    int cell = w - 2 + k;
-    T qm = Q(cell - 1), q0 = Q(cell), qp1 = Q(cell + 1);
-    T xt = T(0.25) * (qp1 - qm);
-    T dmax = fmax(fmax(qm, q0), qp1) - q0;
-    T dmin = q0 - fmin(fmin(qm, q0), qp1);
-    dmv[k] = sgn(xt) * fmin(fmin(fabs(xt), dmax), dmin);
-  }
-  auto DM = [&](int cell) -> T { return dmv[cell - (w - 2)]; };
-  auto AL = [&](int wa) -> T {
-    return T(0.5) * (Q(wa - 1) + Q(wa)) + R3 * (DM(wa - 1) - DM(wa));
-  };
-  auto DQ = [&](int cell) -> T { return T(2) * (Q(cell + 1) - Q(cell)); };
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    int cell = w - 1 + s;
-    T qc = Q(cell);
-    T l, r;
-    bool edge = cell == -1 || cell == 0 || cell == 1 || cell == n - 2 ||
-                cell == n - 1 || cell == n;
-    if (edge) {
-      if (cell == -1 || cell == 0) {
-        T xt_w = extrap(-2);
-        T qmin = fmin(fmin(Q(-2), Q(-1)), fmin(Q(0), Q(1)));
-        T qmax = fmax(fmax(Q(-2), Q(-1)), fmax(Q(0), Q(1)));
-        xt_w = fmin(fmax(xt_w, qmin), qmax);
-        if (cell == -1) {
-          l = S14 * DM(-2) + S11 * (Q(-2) - Q(-1));
-          r = xt_w - Q(-1);
-        } else {
-          T xt2 = S15 * Q(0) + S11 * Q(1) - S14 * DM(1);
-          l = xt_w - Q(0);
-          r = xt2 - Q(0);
-        }
-      } else if (cell == 1) {
-        T xt2 = S15 * Q(0) + S11 * Q(1) - S14 * DM(1);
-        l = xt2 - Q(1);
-        r = AL(2) - Q(1);
-      } else if (cell == n - 2) {
-        T xt3 = S15 * Q(n - 1) + S11 * Q(n - 2) + S14 * DM(n - 2);
-        l = AL(n - 2) - Q(n - 2);
-        r = xt3 - Q(n - 2);
-      } else {
-        T xt_e = extrap(n - 2);
-        T qmin = fmin(fmin(Q(n - 2), Q(n - 1)), fmin(Q(n), Q(n + 1)));
-        T qmax = fmax(fmax(Q(n - 2), Q(n - 1)), fmax(Q(n), Q(n + 1)));
-        xt_e = fmin(fmax(xt_e, qmin), qmax);
-        if (cell == n - 1) {
-          T xt3 = S15 * Q(n - 1) + S11 * Q(n - 2) + S14 * DM(n - 2);
-          l = xt3 - Q(n - 1);
-          r = xt_e - Q(n - 1);
-        } else {
-          l = xt_e - Q(n);
-          r = S11 * (Q(n + 1) - Q(n)) - S14 * DM(n + 1);
-        }
-      }
-      // pert_ppm iv=1 on the six edge cells
-      T da1 = l - r;
-      T da2 = da1 * da1;
-      T a6da = T(3) * (l + r) * da1;
-      T ln = a6da > da2 ? T(-2) * r : l;
-      T rn = a6da < -da2 ? T(-2) * l : r;
-      bool cross = l * r < T(0);
-      l = cross ? ln : T(0);
-      r = cross ? rn : T(0);
-    } else if (iord == 8) {
-      T xt2 = T(2) * DM(cell);
-      l = -sgn(xt2) * fmin(fabs(xt2), fabs(AL(cell) - qc));
-      r = sgn(xt2) * fmin(fabs(xt2), fabs(AL(cell + 1) - qc));
-    } else {  // 10
-      l = AL(cell) - qc;
-      r = AL(cell + 1) - qc;
-      bool flat = (fabs(DM(cell - 1)) + fabs(DM(cell))) + fabs(DM(cell + 1)) <
-                  T(1.0e-25);
-      bool big = fabs(T(3) * (l + r)) > fabs(l - r);
-      T pmp_2 = DQ(cell - 1);
-      T lac_2 = pmp_2 - T(0.75) * DQ(cell - 2);
-      T br_c = fmin(fmax(T(0), fmax(pmp_2, lac_2)),
-                    fmax(r, fmin(T(0), fmin(pmp_2, lac_2))));
-      T pmp_1 = -DQ(cell);
-      T lac_1 = pmp_1 + T(0.75) * DQ(cell + 1);
-      T bl_c = fmin(fmax(T(0), fmax(pmp_1, lac_1)),
-                    fmax(l, fmin(T(0), fmin(pmp_1, lac_1))));
-      l = flat ? T(0) : (big ? bl_c : l);
-      r = flat ? T(0) : (big ? br_c : r);
-    }
-    bl[s] = l;
-    br[s] = r;
-  }
-  bool cpos = c > T(0);
-  T b0L = bl[0] + br[0], b0R = bl[1] + br[1];
-  return cpos ? Q(w - 1) + (T(1) - c) * (br[0] - c * b0L)
-              : Q(w) + (T(1) + c) * (bl[1] + c * b0R);
 }
 
 // ---- sw_core.xtp_u / ytp_v (the KE stage's self-advection) --------------

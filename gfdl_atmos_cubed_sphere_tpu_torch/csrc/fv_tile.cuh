@@ -1,9 +1,10 @@
-// Tile machinery of the two tile-fused d_sw stage kernels (d_sw_fluxes.cu,
-// d_sw_winds.cu): the tile plan, the window planes in dynamic shared
-// memory and their asynchronous loads, copy_corners in shared memory, the
-// double PPM sweep of one tile (the tp sweep's arithmetic, tp2d_sweep.cu,
+// Tile machinery of the tile-fused kernels: the tile plan (ops/tiles.py),
+// the window planes in dynamic shared memory and their asynchronous loads
+// (d_sw_fluxes.cu, d_sw_winds.cu, tp2d_sweep.cu, c_sw.cu); copy_corners in
+// shared memory, the double PPM sweep of one tile (fv_tp_2d's arithmetic,
 // with each cell's PPM edge values evaluated once per line) and the del-n
-// damping fluxes (tp_core.F90 deln_flux:1267) of one tile.
+// damping fluxes (tp_core.F90 deln_flux:1267) of one tile (the two d_sw
+// stage kernels).
 //
 // A block owns a ty x tx box of compute cells of one tile, rows [j0, j0 +
 // ty) and columns [i0, i0 + tx) in compute indices, and a run of levels.
@@ -50,11 +51,14 @@ struct Tile {
   int k0, kl;            // the block's run of levels [k0, k0 + kl)
   int j0, i0, ty, tx;    // the box in compute indices
   bool fy, ly, fx, lx;   // first / last box along y and x
-  __device__ void decode(int n_, int K, int ntx, int nty, int KL) {
+  __device__ void size(int n_) {
     n = n_;
     P = n + 6;
     W = n + 7;
     npx = n + 1;
+  }
+  __device__ void decode(int n_, int K, int ntx, int nty, int KL) {
+    size(n_);
     const int runs = (K + KL - 1) / KL;
     const int b = blockIdx.x;
     const int run = b % runs;
@@ -63,7 +67,11 @@ struct Tile {
     k = k0;
     const int rest = b / runs, boxes = ntx * nty;
     t = rest / boxes;
-    const int box = rest % boxes, iy = box / ntx, ix = box % ntx;
+    place(ntx, nty, rest % boxes);
+  }
+  // the box `box` of the tile's ntx x nty boxes (after size)
+  __device__ void place(int ntx, int nty, int box) {
+    const int iy = box / ntx, ix = box % ntx;
     j0 = tile_start(iy, n, nty);
     ty = tile_start(iy + 1, n, nty) - j0;
     i0 = tile_start(ix, n, ntx);
@@ -159,6 +167,50 @@ __device__ void load_window(T* dst, const T* src, int kind, const Tile& tl,
     const T* src_r = base + (long long)r * fc;
     for (int c = lane; c < cols; c += lanes)
       copy_async(dst + r * S + c, src_r + c);
+  }
+}
+
+// A kernel's resources with `threads` threads and `bytes` of dynamic
+// shared memory a block (the launch's): out[0] registers per thread, [1]
+// local (spill) bytes per thread, [2] static and [3] dynamic shared memory
+// per block, [4] resident blocks per SM, [5] threads per block. Returns a
+// cudaError_t code.
+template <typename K>
+inline int kernel_attrs(K kern, int threads, size_t bytes, int* out) {
+  cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  cudaFuncAttributes fa;
+  rc = cudaFuncGetAttributes(&fa, kern);
+  if (rc != cudaSuccess) return (int)rc;
+  int per_sm = 0;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                     bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = (int)bytes;
+  out[4] = per_sm;
+  out[5] = threads;
+  return 0;
+}
+
+// rows [lr0, lr1) x columns [lc0, lc1) of a window plane from an array
+// read where it lies: local (lr, lc) <- src[(r0 + lr) * sr + (c0 + lc) *
+// sc], asynchronously (a warp per row, its lanes along the row)
+template <typename T, int TX>
+__device__ void load_rect(T* dst, const T* src, long long sr, long long sc,
+                          int r0, int c0, int lr0, int lr1, int lc0,
+                          int lc1) {
+  constexpr int S = win_stride<TX>();
+  const int lanes = blockDim.x < 32 ? blockDim.x : 32;
+  const int nw = blockDim.x / lanes, warp = threadIdx.x / lanes;
+  const int lane = threadIdx.x % lanes;
+  for (int r = lr0 + warp; r < lr1; r += nw) {
+    const T* src_r = src + (long long)(r0 + r) * sr + (long long)c0 * sc;
+    for (int c = lc0 + lane; c < lc1; c += lanes)
+      copy_async(dst + r * S + c, src_r + (long long)c * sc);
   }
 }
 

@@ -2,14 +2,17 @@
 
 Replaces the TPU kernel c_sw_pallas
 (gfdl_atmos_cubed_sphere_tpu/ops/pallas_csw.py:58). The kernel,
-csrc/c_sw.cu, runs the half step in seven stages of one thread per output
-point (d2a2c_vect, its cube-corner fills, the C-grid winds, the corner
-divergence, the scaled area fluxes, the cell transports with KE and the
-corner vorticity, the wind update), its intermediates in a workspace this
-wrapper allocates. Bound by device-memory bytes: 5 fields and 27 metric
-planes in, 10 planes out, ~1.1 GB of f32 at C192L79 (~0.34 ms at
-3.35 TB/s). The hydrostatic form (w = None) transports no w and writes no
-wc.
+csrc/c_sw.cu, is one tile-fused launch per call: a block owns a box of one
+tile and one level (the d_sw stages' plan, ops/tiles.py), loads the window
+of the five fields into shared memory, reads the metric planes through the
+read-only cache and runs the half step's stages there (d2a2c_vect and its
+cube-corner fills, the C-grid winds, the corner divergence, the scaled
+area fluxes, the cell transports with KE and the corner vorticity, the
+wind update); each output point is written once. The wrapper allocates the
+outputs and nothing else, and reads every field where it lies. Bound by
+device-memory bytes: 5 fields in and 10 planes out (the 27 metric planes
+are shared by the levels), ~1.1 GB of f32 at C192L79 (~0.34 ms at 3.35
+TB/s). The hydrostatic form (w = None) transports no w and writes no wc.
 
 `c_sw` launches the kernel for a CUDA tensor and takes the plain version,
 sw_core.c_sw (sw_mode=False; hydrostatic when w is None), only for a CPU
@@ -21,7 +24,7 @@ from types import SimpleNamespace
 
 import torch
 
-from . import _build, sw_core
+from . import _build, sw_core, tiles
 
 H = 3
 #: metric planes the kernel reads, in its Metrics order
@@ -32,6 +35,16 @@ METRICS = (
     "cosa_u", "rsin_u", "cosa_v", "rsin_v", "sina_u", "sina_v",
     "dx", "dy", "dxc", "dyc", "rdxc", "rdyc",
     "rarea", "rarea_c", "fC")
+#: the box (TX, TY) of compute cells a block owns, by element size
+#: (csrc/c_sw.cu Box)
+BOX = {4: (32, 16), 8: (16, 12)}
+#: window planes of a block (csrc/c_sw.cu Plane): the 5 fields, 8 stage
+#: planes and a second u and v (the next level's); and the guard rows
+#: before and after them
+SMEM_PLANES = 15
+GUARD_ROWS = 5
+#: levels a block walks (each level's field loads overlap the level before)
+RUN = 4
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
@@ -58,11 +71,28 @@ def c_sw(delp, pt, w, u, v, g, dt2, nord=0):
     return _launch(delp, pt, w, u, v, g, dt2, nord)
 
 
-def _launch(delp, pt, w, u, v, g, dt2, nord):
-    global launches
+def smem_bytes(itemsize):
+    """Dynamic shared memory of one block (csrc/c_sw.cu smem_bytes)."""
+    tx = BOX[itemsize][0]
+    return (tiles.window_bytes(BOX[itemsize], SMEM_PLANES, itemsize)
+            + 2 * GUARD_ROWS * (tx + 7) * itemsize)
+
+
+def launch_plan(delp, pt, w, u, v, g, dt2, nord):
+    """The kernel's arguments, on any device: `fields` (delp, pt, w, u, v
+    as the caller holds them; w None for the hydrostatic form) with
+    `strides`, four per field in elements (tile, level, row, column);
+    `metrics`, the grid's planes in METRICS order; `outs`, the outputs in
+    the kernel's order; `iv`, the int parameters (n, K, boxes along x and
+    y, levels per block, box TX, TY, shared-memory bytes); and `out`, the
+    namespace c_sw returns. The outputs are the only tensors allocated.
+    Raises ValueError for what the kernel does not take."""
     if delp.ndim != 4 or delp.shape[0] != 6:
         raise ValueError(f"c_sw kernel takes delp [6, K, P, P], got "
                          f"{tuple(delp.shape)}")
+    if delp.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"c_sw kernel takes float32 or float64, not "
+                         f"{delp.dtype}")
     K, P = delp.shape[1], delp.shape[-1]
     n = P - 2 * H
     W = n + 1 + 2 * H
@@ -70,22 +100,24 @@ def _launch(delp, pt, w, u, v, g, dt2, nord):
         raise ValueError("c_sw kernel needs at least 8 cells per side")
     fields = [delp, pt, w, u, v]
     shapes = [(P, P), (P, P), (P, P), (W, P), (P, W)]
+    dev, dtype = delp.get_device(), delp.dtype
+    strides = []
     for b, (a, shp) in enumerate(zip(fields, shapes)):
         if a is None and b == 2:             # the hydrostatic form
+            strides += (0, 0, 0, 0)
             continue
-        if (not a.is_cuda or a.device != delp.device or a.dtype != delp.dtype
+        if (a.get_device() != dev or a.dtype != dtype
                 or tuple(a.shape) != (6, K) + shp):
             raise ValueError(f"c_sw operand {b}: device, dtype or shape "
                              f"{tuple(a.shape)} differ from {(6, K) + shp}")
-    fields = [None if a is None else a.contiguous() for a in fields]
-    mets = []
-    for nm in METRICS:
-        m = getattr(g, nm)
-        if (not m.is_cuda or m.dtype != delp.dtype or m.ndim != 4
-                or m.shape[:2] != (6, 1)):
-            raise ValueError(f"c_sw metric {nm}: want a CUDA [6, 1, ., .] "
-                             f"tensor of dtype {delp.dtype}")
-        mets.append(m.contiguous())
+        strides += a.stride()
+    mets = [getattr(g, nm) for nm in METRICS]
+    for nm, m in zip(METRICS, mets):
+        if (m.get_device() != dev or m.dtype != dtype or m.ndim != 4
+                or m.shape[:2] != (6, 1) or not m.is_contiguous()):
+            raise ValueError(f"c_sw metric {nm}: want a contiguous [6, 1, "
+                             f"., .] tensor of dtype {dtype} on the device "
+                             f"of delp")
 
     def new(*s):
         return torch.empty((6, K) + s, dtype=delp.dtype, device=delp.device)
@@ -95,21 +127,42 @@ def _launch(delp, pt, w, u, v, g, dt2, nord):
                           uc=new(P, W), vc=new(W, P), ua=new(P, P),
                           va=new(P, P), ut=new(P, W), vt=new(W, P),
                           divg_d=new(W, W) if nord > 0 else None)
-    work = [new(P, P), new(P, P), new(P, P), new(W, W)]
     outs = [out.delpc, out.ptc, out.wc, out.uc, out.vc, out.ua, out.va,
             out.ut, out.vt, out.divg_d]
+    tx, ty, ntx, nty = tiles.plan(BOX[delp.element_size()], n)
+    iv = (n, K, ntx, nty, RUN, tx, ty, smem_bytes(delp.element_size()))
+    return SimpleNamespace(fields=fields, strides=strides, metrics=mets,
+                           outs=outs, iv=iv, out=out)
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(
+        *(None if t is None else t.data_ptr() for t in ts))
+
+
+def _entry():
     fn = _build.library("c_sw").c_sw
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 4 \
-        + [ctypes.c_int] * 3 + [ctypes.c_double, ctypes.c_int,
-                                ctypes.c_void_p]
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.POINTER(ctypes.c_longlong),
+                       ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_double,
+                       ctypes.c_int, ctypes.c_void_p]
+    return fn
 
-    def arr(ts):
-        return (ctypes.c_void_p * len(ts))(
-            *(None if t is None else t.data_ptr() for t in ts))
 
-    rc = fn(arr(fields), arr(mets), arr(outs), arr(work), n, K, int(nord),
-            float(dt2), _build.dtype_code(delp), _build.stream_ptr(delp))
+def _launch(delp, pt, w, u, v, g, dt2, nord):
+    global launches
+    plan = launch_plan(delp, pt, w, u, v, g, dt2, nord)
+    if not delp.is_cuda:
+        raise ValueError("c_sw kernel takes CUDA tensors")
+    rc = _entry()(_ptrs(plan.fields),
+            (ctypes.c_longlong * len(plan.strides))(*plan.strides),
+            _ptrs(plan.metrics), _ptrs(plan.outs),
+            (ctypes.c_int * len(plan.iv))(*plan.iv), float(dt2),
+            _build.dtype_code(delp), _build.stream_ptr(delp))
     _build.check(rc, "c_sw")
     launches += 1
-    return out
+    return plan.out

@@ -33,10 +33,11 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from . import _build, sw_core
+from . import _build, sw_core, tiles
 from .a2b import a2b_ord4_ref
 from .a2b_edge import a2b_ord4
 from .ke import KERNEL_HORDS as KE_HORDS
+from .tiles import box_starts, owned_ranges  # noqa: F401 (the plan)
 from .tp_sweep import KERNEL_HORDS as TP_HORDS, tp2d_sweep_ref
 
 H = 3
@@ -221,46 +222,17 @@ def _entry(name):
 
 def tile_plan(stage, n, itemsize):
     """(TX, TY, boxes along x, boxes along y) of a stage kernel's grid for
-    n cells per side: a block owns a box of at most TY x TX compute cells
-    of one tile and a run of levels; box t of nt along an axis holds cells
-    [t n // nt, (t + 1) n // nt)."""
-    tx, ty = BOX[stage][itemsize]
-    return tx, ty, -(-n // tx), -(-n // ty)
-
-
-def box_starts(n, nt):
-    """The first compute cell of each of nt boxes along an axis, and n."""
-    return [t * n // nt for t in range(nt + 1)]
-
-
-def owned_ranges(n, nt, kind):
-    """[lo, hi) of the points each of nt boxes along an axis writes, in
-    the indices of the output frame: kind "cells" (the padded n + 6),
-    "walls" (the padded n + 7), "compute_cells" (n) or "compute_walls"
-    (n + 1). The first and last boxes take the halo beyond them."""
-    st = box_starts(n, nt)
-    out = []
-    for t in range(nt):
-        lo, hi = st[t], st[t + 1]
-        last = t == nt - 1
-        if kind == "compute_cells":
-            out.append((lo, hi))
-        elif kind == "compute_walls":
-            out.append((lo, hi + 1 if last else hi))
-        else:
-            top = n + (6 if kind == "cells" else 7)
-            out.append((0 if t == 0 else lo + H, top if last else hi + H))
-    return out
+    n cells per side (ops/tiles.py plan)."""
+    return tiles.plan(BOX[stage][itemsize], n)
 
 
 def smem_bytes(stage, itemsize):
     """Dynamic shared memory of one block of a stage kernel: its window
     planes and a second set of field planes, (TY + 7) x (TX + 7) elements
     each, and its byte planes of flags."""
-    tx, ty = BOX[stage][itemsize]
-    win = (ty + 7) * (tx + 7)
-    planes = SMEM_PLANES[stage] + SMEM_FIELDS[stage]
-    return planes * win * itemsize + SMEM_FLAG_PLANES * win
+    return tiles.window_bytes(BOX[stage][itemsize],
+                              SMEM_PLANES[stage] + SMEM_FIELDS[stage],
+                              itemsize, SMEM_FLAG_PLANES)
 
 
 def _fluxes_operands(delp, pt, w, uc, vc, g, *, dt, hord_dp, hord_tm,

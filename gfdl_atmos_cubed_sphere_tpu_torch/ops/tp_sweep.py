@@ -4,14 +4,16 @@ Replaces the TPU kernel tp2d_sweep_pallas
 (gfdl_atmos_cubed_sphere_tpu/ops/pallas_tp.py:177) in both its forms: q
 [6, K, P, P], and the batched-tracer q [6, T, K, P, P] of tracer_2d, whose
 wind and metric operands [6, 1, K or 1, ...] are shared by the T tracers
-(pallas_tp.py:217-245). The kernel, csrc/tp2d_sweep.cu, runs both
-directional sweeps of one (tile, tracer, level) face tile in one launch with
-its intermediates in shared memory. It is bound by device-memory bytes: it
-reads 12 planes (q, its two corner-filled copies, four wind planes, five
-metric planes) and writes 2, 14 f32 planes of [6, 1, 774, 774] at C768
-(~0.2 GB, ~60 us at 3.35 TB/s); the function's own arguments and outputs
-(12 planes) bound it at ~51 us. At C192L79 with T = 6 tracers the rank-5
-call moves ~2.8 GB (~0.8 ms).
+(pallas_tp.py:217-245). The kernel, csrc/tp2d_sweep.cu, is one tile-fused
+launch per call: a block owns a box of one tile and one level (the d_sw
+stages' plan, ops/tiles.py), keeps the box's window of the wind and metric
+operands in shared memory and streams the T tracers' q through it, with
+copy_corners and both directional sweeps inside. Every operand is read
+where it lies through its own strides (the sliced wall operands of
+tp_core.fv_tp_2d included), so the wrapper allocates fx and fy and
+nothing else. The rank-4 call is bound by device-memory bytes (C192L79,
+update_dz_d's K + 1 levels: ~0.66 GB, ~0.2 ms at 3.35 TB/s); the rank-5
+call reads its shared winds and metrics once for the T tracers.
 
 `tp2d_sweep` launches the kernel for a CUDA tensor and takes the plain
 version, `tp2d_sweep_ref`, only for a CPU tensor.
@@ -24,15 +26,31 @@ it, as on the TPU (pallas_tp.py:168-170). Nothing on a main path calls it;
 """
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 
-from . import _build, tp_core
+from . import _build, tiles, tp_core
 from .tp_core import xppm, yppm
 from ..parallel.halo import copy_corners
 
 H = 3
 KERNEL_HORDS = (5, 6, 8, 10)
+#: the box (TX, TY) of compute cells a block owns, by element size
+#: (csrc/tp2d_sweep.cu Box): a window row or column (TX + 6, TY + 6 cells)
+#: fits the 32 lanes of a warp
+BOX = {4: (24, 24), 8: (24, 24)}
+#: window planes of a block (csrc/tp2d_sweep.cu Slot): q, the winds and
+#: metrics, q_i, q_j and the inner fluxes
+SMEM_PLANES = 14
+#: levels a block walks for a single tracer (the box's metric planes load
+#: once for the run, and each level's loads overlap the level before); with
+#: T tracers a block takes one level and the tracers' q overlap instead
+RUN = 4
+#: the operands in the kernel's order, and the last two dimensions of each
+#: for n cells per side (P = n + 6, W = n + 1)
+OPERANDS = ("q", "crx", "cry", "xfx", "yfx", "area", "ra_x", "ra_y", "dxa",
+            "dya", "mfx", "mfy")
 
 #: kernel launches since the last reset (plain-version calls do not count),
 #: of those the launches on a rank-5 (batched-tracer) q and those made for
@@ -97,9 +115,29 @@ def tp2d_sweep(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
                    mfx, mfy)
 
 
-def _launch(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
-            mfx, mfy, for_fv_tp_2d=False):
-    global launches, launches_rank5, launches_fv_tp_2d
+def frames(n):
+    """The last two dimensions of each operand of OPERANDS."""
+    P, W = n + 2 * H, n + 1
+    return ((P, P), (P, W), (W, P), (P, W), (W, P), (P, P), (P, n), (n, P),
+            (P, P), (P, P), (n, W), (W, n))
+
+
+def smem_bytes(itemsize):
+    """Dynamic shared memory of one block (csrc/tp2d_sweep.cu
+    smem_bytes)."""
+    return tiles.window_bytes(BOX[itemsize], SMEM_PLANES, itemsize)
+
+
+def launch_plan(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
+                mfx=None, mfy=None):
+    """The kernel's arguments, on any device: `ops`, the operands in
+    OPERANDS order as the caller holds them (mfx, mfy may be None);
+    `strides`, five per operand in elements (tile, tracer, level, row,
+    column; 0 along an axis of length 1 or, at rank 4, the tracer axis);
+    `iv`, the int parameters (n, T, K, boxes along x and y, ord_in, ord_ou,
+    levels per block, box TX, TY, shared-memory bytes); and the outputs fx,
+    fy, the only tensors allocated. Raises ValueError for what the kernel
+    does not take."""
     if hord not in KERNEL_HORDS:
         raise ValueError(f"tp2d_sweep kernel supports hord {KERNEL_HORDS}, "
                          f"not {hord}")
@@ -108,65 +146,72 @@ def _launch(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
                          f"[6, T, K, P, P], got {tuple(q.shape)}")
     if (mfx is None) != (mfy is None):
         raise ValueError("mfx and mfy come together")
+    if q.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"tp2d_sweep kernel takes float32 or float64, not "
+                         f"{q.dtype}")
     rank5 = q.ndim == 5
-    # the rank-4 form is the rank-5 one with a single tracer
-    lift = (lambda a: a) if rank5 else (lambda a: a.unsqueeze(1))
     T, K, P = (q.shape[1], q.shape[2], q.shape[-1]) if rank5 else \
         (1, q.shape[1], q.shape[-1])
     n = P - 2 * H
-    W = n + 1
     if n < 6:
         raise ValueError("tp2d_sweep kernel needs at least 6 cells per side")
-    if 6 * T * K > 65535:
-        raise ValueError(f"tp2d_sweep kernel: 6 x {T} tracers x {K} levels "
-                         f"exceeds the grid's z extent")
-    qx = copy_corners(q, H, 1)
-    qy = copy_corners(q, H, 2)
-    ops = [q, qx, qy, crx, cry, xfx, yfx, area, ra_x, ra_y, dxa, dya,
-           mfx, mfy]
-    shapes = [(P, P), (P, P), (P, P), (P, W), (W, P), (P, W), (W, P),
-              (P, P), (P, n), (n, P), (P, P), (P, P), (n, W), (W, n)]
-    ptrs, tvar, kvar = [], 0, 0
-    for b, (a, shp) in enumerate(zip(ops, shapes)):
+    ops = (q, crx, cry, xfx, yfx, area, ra_x, ra_y, dxa, dya, mfx, mfy)
+    dev, dtype, nd = q.get_device(), q.dtype, q.ndim
+    strides = []
+    for b, (a, shp) in enumerate(zip(ops, frames(n))):
         if a is None:
-            ptrs.append(None)
+            strides += (0, 0, 0, 0, 0)
             continue
-        if not a.is_cuda or a.device != q.device or a.dtype != q.dtype:
-            raise ValueError(f"tp2d_sweep operand {b}: device/dtype differ "
-                             f"from q")
-        if a.ndim != q.ndim:
-            raise ValueError(f"tp2d_sweep operand {b}: rank {a.ndim}, q has "
-                             f"rank {q.ndim}")
-        a = lift(a)
-        if (a.shape[0] != 6 or a.shape[1] not in (1, T)
-                or a.shape[2] not in (1, K) or tuple(a.shape[3:]) != shp):
-            raise ValueError(f"tp2d_sweep operand {b}: shape "
-                             f"{tuple(a.shape)}, want [6, 1|{T}, 1|{K}, "
-                             f"{shp}]")
-        a = a.contiguous()
-        ops[b] = a
-        if a.shape[1] == T and T > 1:
-            tvar |= 1 << b
-        if a.shape[2] == K and K > 1:
-            kvar |= 1 << b
-        ptrs.append(a.data_ptr())
+        sh, st = a.shape, a.stride()
+        if a.dtype != dtype or a.get_device() != dev or len(sh) != nd:
+            raise ValueError(f"tp2d_sweep operand {OPERANDS[b]}: device, "
+                             f"dtype or rank differ from q")
+        if not rank5:
+            sh, st = (sh[0], 1) + tuple(sh[1:]), (st[0], 0) + st[1:]
+        if (sh[0] != 6 or sh[1] not in (1, T) or sh[2] not in (1, K)
+                or tuple(sh[3:]) != shp):
+            raise ValueError(f"tp2d_sweep operand {OPERANDS[b]}: shape "
+                             f"{tuple(sh)}, want [6, 1|{T}, 1|{K}, {shp}]")
+        strides += (st[0], 0 if sh[1] == 1 else st[1],
+                    0 if sh[2] == 1 else st[2], st[3], st[4])
+    tx, ty, ntx, nty = tiles.plan(BOX[q.element_size()], n)
+    iv = (n, T, K, ntx, nty, 8 if hord == 10 else hord, hord,
+          RUN if T == 1 else 1, tx, ty, smem_bytes(q.element_size()))
     lead = (6, T, K) if rank5 else (6, K)
-    fx = torch.empty(lead + (n, W), dtype=q.dtype, device=q.device)
-    fy = torch.empty(lead + (W, n), dtype=q.dtype, device=q.device)
-    lib = _build.library("tp2d_sweep")
-    fn = lib.tp2d_sweep
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-                   ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    arr = (ctypes.c_void_p * 14)(*ptrs)
-    rc = fn(arr, fx.data_ptr(), fy.data_ptr(), n, T, K, tvar, kvar,
-            8 if hord == 10 else hord, hord, int(mfx is not None),
-            _build.dtype_code(q), _build.stream_ptr(q))
+    fx = torch.empty(lead + (n, n + 1), dtype=dtype, device=q.device)
+    fy = torch.empty(lead + (n + 1, n), dtype=dtype, device=q.device)
+    return SimpleNamespace(ops=ops, strides=strides, iv=iv, fx=fx, fy=fy)
+
+
+def _entry():
+    fn = _build.library("tp2d_sweep").tp2d_sweep
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                       ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def _launch(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
+            mfx, mfy, for_fv_tp_2d=False):
+    global launches, launches_rank5, launches_fv_tp_2d
+    plan = launch_plan(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa,
+                       dya, mfx, mfy)
+    if not q.is_cuda:
+        raise ValueError("tp2d_sweep kernel takes CUDA tensors")
+    rc = _entry()(
+        (ctypes.c_void_p * 12)(
+            *(None if a is None else a.data_ptr() for a in plan.ops)),
+        (ctypes.c_longlong * 60)(*plan.strides), plan.fx.data_ptr(),
+        plan.fy.data_ptr(), (ctypes.c_int * 11)(*plan.iv),
+        _build.dtype_code(q), _build.stream_ptr(q))
     _build.check(rc, "tp2d_sweep")
     launches += 1
-    launches_rank5 += int(rank5)
+    launches_rank5 += int(q.ndim == 5)
     launches_fv_tp_2d += int(for_fv_tp_2d)
-    return fx, fy
+    return plan.fx, plan.fy
 
 
 def fv_tp_2d_ref(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
