@@ -13,6 +13,8 @@ tp sweep kernel, the tracer remap, neg_adj3 and the GFDL microphysics) and
 the moist hydrostatic c192_hydro step fv_dynamics_hydro (bench.py:34-35:
 the hydrostatic forms of c_sw and d_sw, the column kernels pgradc_fused,
 pkgz and geopk, one_grad_p's batched a2b, the same tracers and physics).
+Phase 8 drives the solo driver (driver/solo.py: its Atmosphere and its
+CLI), as users start the system, through the same kernels.
 
 1. build: the seconds nvcc took for the eight sources;
 2. each kernel against its plain PyTorch version on the card, on the inputs
@@ -104,7 +106,36 @@ pkgz and geopk, one_grad_p's batched a2b, the same tracers and physics).
    k_split = 1, n_split = 6, DynConfig's defaults otherwise, the moist
    state of phase 6) as phase 6: launch counts per big step of c_sw 6,
    d_sw fluxes 6, d_sw winds 6, pgradc_fused 6, pkgz 6, geopk 1,
-   a2b_ord4 6, sim1 0, and rank-5 tp2d_sweep launches = the sum of nsplt.
+   a2b_ord4 6, sim1 0, and rank-5 tp2d_sweep launches = the sum of nsplt;
+8. the solo driver (driver/solo.py), without tracers, with Held-Suarez
+   forcing: (a) at C24L10 in float64, hydrostatic and nonhydrostatic with
+   the Rayleigh sponge (tau = 10 days, its cutoff under the 500 hPa top of
+   set_eta(10)), the energy fixer (consv_te = 1) and the angular-momentum
+   fixer, 2 big steps and then adiabatic_init (dt < 0 in its backward
+   passes) on the card against the CPU with phase 3's limits and a float32
+   control; and 8 hydrostatic steps without physics on the card, where the
+   relative change of the global total energy with consv_te = 1 must be
+   under 1e-6 and under 0.2 x the change without it; (b) at C192L79 in
+   float32, hydrostatic with c192_hydro's dt = 450 s, k_split = 1,
+   n_split = 6, with the fixers and sponge (tau = 10, consv_te = 1,
+   consv_am) and without, then nonhydrostatic with them and c192_nh's
+   splits and damping: 1 warm-up step, 5 timed atmosphere() steps behind a
+   scalar readback (s/step, pts*lev/s, mass and total-energy change, peak
+   memory, launches per step, which must be phase 7's (hydrostatic, no
+   tracer sweep) and phase 5's (nonhydrostatic)), 1 step under the
+   profiler (busy share), 1 synchronised step by layer (the acoustic
+   loop, the remap, the sponge, the energy integrals and fixers,
+   hs_forcing), hs_forcing and audit timed on the state, the Timers
+   table, and the cost of the fixers and sponge as on minus off;
+   finite fields, and a mass change <= 1e-5 with them off; (c) the restart:
+   2 steps of the hydrostatic run with both fixers (no sponge: its
+   reference winds are the state at each start), write_restart as .fvio
+   and .npz (seconds), 1 more step; each file read into a new Atmosphere
+   and stepped once equals the continuous run bit for bit in every field;
+   (d) the CLI, main() with the README's quick-start options at C48L32 for
+   3 steps with an audit every 2 and a restart written, then a second
+   main() from that restart. Files go to build/torch_smoke/ and are
+   removed.
 
 Before the last line it prints the card's name and power limit and one JSON
 line with each kernel's launches (those of its path's timed phase: 6 for
@@ -112,7 +143,9 @@ the NH kernels, 7 for the column kernels and fv_tp_2d, which no path
 calls), error and times, and the kernel's numbers on the other paths it
 runs on; for a kernel its path calls at several shapes, ms, plain_ms,
 bound_ms and kernel_ms are means per launch weighted by the calls at each
-shape, and "shapes" lists each shape's own numbers. The last line is
+shape, and "shapes" lists each shape's own numbers; "solo_hydro" and
+"solo_nh" give its launches per big step on phase 8b's two forms (with the
+fixers on). The last line is
 {"ok": true, "device": {...}}. It needs one CUDA card; without one it exits
 with code 2 and prints no result.
 """
@@ -188,6 +221,14 @@ NH_CFG = dict(hydrostatic=False, adiabatic=True, dddmp=0.2, d_con=1.0,
 # bench.py:34-35: c192_hydro takes DynConfig's defaults otherwise
 HYDRO_CFG = dict(hydrostatic=True, adiabatic=True)
 TRACERS = ("sphum", "liq_wat", "rainwat", "ice_wat", "snowwat", "graupel")
+# phase 8, the solo driver: the fixers and the sponge; the splits of
+# c192_hydro (bench.py:34-35) and c192_nh (bench.py:31-33); at C24L10 the
+# sponge's cutoff sits under ptop = 500 hPa of set_eta(10) so that it acts
+SOLO_FIX = dict(tau=10.0, consv_te=1.0, consv_am=True)
+SOLO_HYDRO = dict(k_split=1, n_split=6)
+SOLO_NH = dict(k_split=2, n_split=6, dddmp=0.2, d_con=1.0, do_vort_damp=True)
+SOLO_C24 = dict(k_split=1, n_split=2, rf_cutoff=8.0e4)
+SOLO_DIR = "build/torch_smoke"
 
 
 def log(msg):
@@ -344,6 +385,49 @@ def device_ms_by_op(fn):
             if e.key.startswith("aten::") and e.self_device_time_total > 0}
 
 
+def timed_layers(run, targets, apart=()):
+    """Wall milliseconds of one run() by layer: each call of a function of
+    targets ([(module, attribute)]) synchronised before and after and
+    summed under its name, and the rest. A call made inside another timed
+    call counts to the outer one, except for the names in apart, which are
+    listed on their own as well and not subtracted again from the rest."""
+    import torch
+    acc = {a: 0.0 for _, a in targets}
+    origs = [getattr(m, a) for m, a in targets]
+    depth = [0]
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            if depth[0] and name not in apart:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            depth[0] += name not in apart
+            try:
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+            finally:
+                depth[0] -= name not in apart
+            acc[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    for (m, a), o in zip(targets, origs):
+        setattr(m, a, timed(a, o))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (m, a), o in zip(targets, origs):
+            setattr(m, a, o)
+    acc["rest"] = total - sum(v for k, v in acc.items() if k not in apart)
+    acc["total"] = total
+    return acc
+
+
 def layer_ms(nh, state):
     """Wall milliseconds of one big step by layer: the acoustic loops
     (dyn_core_nh or dyn_core_hydro), the vertical remaps (remap_nh or
@@ -351,7 +435,6 @@ def layer_ms(nh, state):
     (tracer_2d), neg_adj3 and the GFDL microphysics (gfdl_mp_driver), each
     call synchronised before and after. mapn_tracer, the tracers' share of
     the remap, is listed too and is not subtracted again from the rest."""
-    import torch
     from gfdl_atmos_cubed_sphere_tpu_torch.model import (dyn_core,
                                                          fv_dynamics,
                                                          tracer_2d)
@@ -362,34 +445,25 @@ def layer_ms(nh, state):
     if nh.moist:
         saved += [(tracer_2d, "tracer_2d"), (fv_sg, "neg_adj3"),
                   (gfdl_mp, "gfdl_mp_driver"), (fv_mapz, "mapn_tracer")]
-    acc = {a: 0.0 for _, a in saved}
-    origs = [getattr(m, a) for m, a in saved]
+    return timed_layers(lambda: nh.step(state), saved,
+                        apart=("mapn_tracer",))
 
-    def timed(name, fn):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            acc[name] += (time.perf_counter() - t0) * 1e3
-            return out
-        return run
 
-    for (m, a), o in zip(saved, origs):
-        setattr(m, a, timed(a, o))
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        nh.step(state)
-        torch.cuda.synchronize()
-        total = (time.perf_counter() - t0) * 1e3
-    finally:
-        for (m, a), o in zip(saved, origs):
-            setattr(m, a, o)
-    acc["rest"] = total - sum(v for k, v in acc.items()
-                              if k != "mapn_tracer")
-    acc["total"] = total
-    return acc
+def solo_layer_ms(atm):
+    """Wall milliseconds of one solo atmosphere() step by layer: the
+    acoustic loop, the remap, the sponge, the energy integrals and the
+    fixers (am_fixer with its own compute_aam), Held-Suarez, and the rest
+    (the driver, the entry pressures, the halo of the winds)."""
+    from gfdl_atmos_cubed_sphere_tpu_torch.model import (dyn_core,
+                                                         fv_dynamics)
+    from gfdl_atmos_cubed_sphere_tpu_torch.model import thermodynamics as th
+    from gfdl_atmos_cubed_sphere_tpu_torch.physics import held_suarez
+    form = "hydro" if atm.cfg.hydrostatic else "nh"
+    return timed_layers(lambda: atm.atmosphere(1), [
+        (dyn_core, f"dyn_core_{form}"), (fv_dynamics, f"remap_{form}"),
+        (fv_dynamics, "rayleigh_super"), (th, f"total_energy_2d_{form}"),
+        (th, "compute_aam"), (th, "am_fixer"), (th, "energy_fixer_dtmp"),
+        (held_suarez, "hs_forcing")])
 
 
 def is_own_kernel(key):
@@ -944,6 +1018,277 @@ def captured_calls(label, cap, per_step, nsplt):
                                f"times, tracer_2d subcycled {nsplt}")
 
 
+def solo_fields(atm):
+    """The prognostic fields of a solo Atmosphere's form."""
+    return ("delp", "pt", "u", "v") + (() if atm.cfg.hydrostatic
+                                       else ("w", "delz"))
+
+
+def solo_energy(atm):
+    """The area-weighted global mean of the column total energy (J/m^2) of
+    a solo Atmosphere's state, its fields taken to float64: the
+    hydrostatic or the nonhydrostatic form of model/thermodynamics.py."""
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.model import thermodynamics as th
+    s = {k: v.double() for k, v in atm.state.items()}
+    g, ptop = atm.g, atm.ptop
+    phis = g.phis_p[..., H:-H, H:-H].double()
+    if atm.cfg.hydrostatic:
+        pe = th.interface_pressure(s["delp"], ptop)
+        te = th.total_energy_2d_hydro(s["u"], s["v"], s["pt"], s["delp"],
+                                      torch.log(pe), pe, phis, g)
+    else:
+        te = th.total_energy_2d_nh(s["u"], s["v"], s["w"], s["pt"], None,
+                                   s["delp"], s["delz"], phis, g)
+    return float(th.g_mean(te, g))
+
+
+def solo_card_vs_cpu(geom):
+    """Phase 8a: the solo driver at C24L10 in float64 on the card against
+    the CPU, hydrostatic and nonhydrostatic, with Held-Suarez, the sponge
+    and both fixers: 2 big steps, then adiabatic_init (its backward passes
+    run every kernel with dt < 0), each field against its own maximum
+    with phase 3's limits and a float32 control on the card. Then the
+    energy fixer on the card: 8 hydrostatic steps without physics, the
+    relative change of the global total energy with consv_te = 1 under
+    1e-6 and under 0.2 x the change without it (the JAX package's
+    tests/test_thermo_moist.py criterion)."""
+    from gfdl_atmos_cubed_sphere_tpu_torch.driver.solo import Atmosphere
+    for hydro in (True, False):
+        kw = dict(physics="hs", hydrostatic=hydro, geom=geom,
+                  cfg_overrides=dict(SOLO_C24, **SOLO_FIX))
+        card = Atmosphere(25, 10, 900.0, dtype="f64", device="cuda", **kw)
+        cpu = Atmosphere(25, 10, 900.0, dtype="f64", device="cpu", **kw)
+        f32 = Atmosphere(25, 10, 900.0, dtype="f32", device="cuda", **kw)
+        label = "solo hydro" if hydro else "solo NH"
+        tols = CARD_TOL["hydro" if hydro else "NH"]
+        for stage in ("2 big steps", "adiabatic_init"):
+            for atm in (card, cpu, f32):
+                if stage == "2 big steps":
+                    atm.atmosphere(2)
+                else:
+                    atm.adiabatic_init()
+            bad = []
+            for nm in solo_fields(card):
+                b = cpu.state[nm]
+                require(bool(b.isfinite().all()), f"{label} CPU: NaN in {nm}")
+                top = float(b.abs().max())
+                r = float((card.state[nm].cpu() - b).abs().max()) / top
+                ctl = float((f32.state[nm].cpu().double() - b).abs().max()
+                            ) / top
+                tol = tols.get(nm, 1e-10)
+                log(f"  8a C24L10 f64 {label} {stage} {nm}: card vs CPU "
+                    f"{r:.3e} x its max (tol {tol:g}); control, the card "
+                    f"in float32: {ctl:.3e}")
+                if r > tol:
+                    bad.append(nm)
+                require(ctl > tol, f"8a {label}: the control reads {nm} "
+                                   f"within its limit {tol:g}")
+            require(not bad, f"8a {label} {stage}: the card disagrees with "
+                             f"the CPU in {bad}")
+    change = {}
+    for consv in (1.0, 0.0):
+        atm = Atmosphere(25, 10, 900.0, physics="none", dtype="f64",
+                         device="cuda", geom=geom,
+                         cfg_overrides=dict(SOLO_C24, consv_te=consv))
+        e0 = solo_energy(atm)
+        atm.atmosphere(8)
+        change[consv] = abs(solo_energy(atm) - e0) / abs(e0)
+    log(f"phase 8a energy fixer, C24L10 f64 on the card, 8 hydrostatic "
+        f"steps: relative total-energy change {change[1.0]:.3e} with "
+        f"consv_te = 1, {change[0.0]:.3e} without "
+        f"({change[1.0] / change[0.0]:.3f} x)")
+    require(change[1.0] < 1e-6 and change[1.0] < 0.2 * change[0.0],
+            f"8a: the energy fixer leaves a change of {change[1.0]:.3e} "
+            f"(without it {change[0.0]:.3e})")
+
+
+def solo_run(label, atm, per_step, card, gate_mass):
+    """Phase 8b: 1 warm-up step, then 5 timed atmosphere() steps behind a
+    scalar readback with the launch counts set to 0 just before them and
+    read just after, one step under the profiler, and the costs of
+    hs_forcing and audit on the state. Fails on a non-finite field, a
+    launch count other than per_step's x 5, and (when gate_mass) a mass
+    change over 1e-5. Returns a record of the numbers."""
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.physics.held_suarez import (
+        hs_forcing)
+    nsteps = 5
+    atm.atmosphere(1)                                     # warm-up
+    float(torch.sum(atm.state["delp"]))
+    mass0 = mass(atm.g, atm.state["delp"])
+    e0 = solo_energy(atm)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    atm.atmosphere(nsteps)
+    float(torch.sum(atm.state["delp"]))                   # readback barrier
+    sec = (time.perf_counter() - t0) / nsteps
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    for nm in solo_fields(atm):
+        require(bool(torch.isfinite(atm.state[nm]).all()),
+                f"{label}: NaN or inf in {nm}")
+    dm = abs(mass(atm.g, atm.state["delp"]) - mass0) / abs(mass0)
+    de = (solo_energy(atm) - e0) / abs(e0)
+    npts = 6 * atm.g.n ** 2 * atm.cfg.npz
+    log(f"phase {label}: {sec:.4f} s/step, {npts / sec:.4e} pts*lev/s on "
+        f"{card}; mass change {dm:.3e} and relative total-energy change "
+        f"{de:.3e} over {nsteps} steps; peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB; launches per step " + ", ".join(
+            f"{k} {v / nsteps:g}" for k, v in launches.items() if v))
+    for name, per in per_step.items():
+        require(launches[name] == per * nsteps,
+                f"{label}: {name} launched {launches[name]} times in "
+                f"{nsteps} steps, expected {per * nsteps}")
+    if gate_mass:
+        require(dm <= 1e-5, f"{label}: mass drifted by {dm:.3e}")
+    by, busy = device_ms_by_kernel(lambda: atm.atmosphere(1), reps=1)
+    s = atm.state
+    hs_ms = time_ms(lambda: hs_forcing(s["pt"], s["delp"], s["u"], s["v"],
+                                       atm.g, atm.ptop, atm.cfg.dt))
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        atm.audit(out=lambda line: None)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    audit_ms = statistics.median(walls)
+    log(f"  {label}: device busy {busy} of the wall time, device ms per "
+        f"step {sum(by.values()):.3f}; hs_forcing {hs_ms:.3f} ms, audit "
+        f"{audit_ms:.3f} ms per call")
+    log("  wall ms of one step by layer (synchronised): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in solo_layer_ms(atm).items()))
+    lines = []
+    atm.timers.report(out=lines.append)
+    log("  Timers: " + " | ".join(" ".join(x.split()) for x in lines))
+    return dict(s_per_step=sec, launches={k: v // nsteps
+                                          for k, v in launches.items()},
+                hs_ms=hs_ms, audit_ms=audit_ms, busy=busy, peak=peak,
+                energy_change=de, mass_change=dm)
+
+
+def solo_full_width(geom, card):
+    """Phases 8b and 8c: the solo driver at C192L79 in float32 with
+    Held-Suarez forcing: hydrostatic with the fixers and the sponge on and
+    off, then nonhydrostatic with them on (each run starts from the same
+    initial state, written once and read back); then the restart check.
+    Returns the launches per step of the hydrostatic and nonhydrostatic
+    runs with the fixers on."""
+    import os
+    import shutil
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.driver.solo import Atmosphere
+    os.makedirs(SOLO_DIR, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        kw = dict(physics="hs", geom=geom, device="cuda")
+        on = Atmosphere(193, 79, 450.0, cfg_overrides=dict(SOLO_HYDRO,
+                                                           **SOLO_FIX), **kw)
+        s0 = os.path.join(SOLO_DIR, "solo_c192_init.npz")
+        on.write_restart(s0)
+        log(f"phase 8b: solo Atmosphere at C192L79 f32, host set-up "
+            f"{time.perf_counter() - t0:.1f} s (grid shared with phase 5)")
+        hy_on = solo_run("8b solo_hydro fixers+sponge on", on,
+                         HYDRO_PER_STEP, card, gate_mass=False)
+        del on
+        off = Atmosphere(193, 79, 450.0, cfg_overrides=dict(SOLO_HYDRO),
+                         restart=s0, **kw)
+        hy_off = solo_run("8b solo_hydro fixers+sponge off", off,
+                          HYDRO_PER_STEP, card, gate_mass=True)
+        del off
+        nh = Atmosphere(193, 79, 450.0, hydrostatic=False,
+                        cfg_overrides=dict(SOLO_NH, **SOLO_FIX), restart=s0,
+                        **kw)
+        nh_on = solo_run("8b solo_nh fixers+sponge on", nh, NH_PER_STEP,
+                         card, gate_mass=False)
+        del nh
+        log(f"phase 8b solo_hydro: fixers and sponge cost "
+            f"{(hy_on['s_per_step'] - hy_off['s_per_step']) * 1e3:.1f} ms "
+            f"per step (on minus off: {hy_on['s_per_step']:.4f} - "
+            f"{hy_off['s_per_step']:.4f} s/step); relative total-energy "
+            f"change over 5 steps {hy_on['energy_change']:.3e} on, "
+            f"{hy_off['energy_change']:.3e} off (float32, not gated) on "
+            f"{card}")
+        solo_restart(s0, geom, card)
+    finally:
+        shutil.rmtree(SOLO_DIR, ignore_errors=True)
+    return hy_on["launches"], nh_on["launches"]
+
+
+def solo_restart(s0, geom, card):
+    """Phase 8c: the hydrostatic solo run with Held-Suarez and both fixers
+    (no sponge: its reference winds are the state at each (re)start) at
+    C192L79 f32 from the initial state s0: 2 steps, write_restart as
+    .fvio and as .npz (the seconds to return, the file complete on
+    return, and of them the device-to-host copy), 1 more step; each file
+    read into a new Atmosphere and stepped once must equal the continuous
+    run bit for bit in every field."""
+    import os
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.driver.solo import Atmosphere
+    kw = dict(physics="hs", geom=geom, device="cuda",
+              cfg_overrides=dict(SOLO_HYDRO, consv_te=1.0, consv_am=True))
+    atm = Atmosphere(193, 79, 450.0, restart=s0, **kw)
+    atm.atmosphere(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    [v.cpu() for v in atm.state.values()]
+    d2h = time.perf_counter() - t0
+    paths = []
+    for ext in ("fvio", "npz"):
+        path = os.path.join(SOLO_DIR, f"solo_c192_step2.{ext}")
+        t0 = time.perf_counter()
+        atm.write_restart(path)
+        sec = time.perf_counter() - t0
+        log(f"phase 8c write_restart .{ext}: returned after {sec:.3f} s "
+            f"with the file complete ({os.path.getsize(path) / 2 ** 20:.1f}"
+            f" MiB; the state's device-to-host copy alone {d2h:.3f} s) on "
+            f"{card}")
+        paths.append(path)
+    atm.atmosphere(1)
+    for path in paths:
+        t0 = time.perf_counter()
+        back = Atmosphere(193, 79, 450.0, restart=path, **kw)
+        t_load = time.perf_counter() - t0
+        require(back.step_count == 2, f"8c: {path} resumed at step "
+                                      f"{back.step_count}, not 2")
+        back.atmosphere(1)
+        diff = [k for k in atm.state
+                if not torch.equal(atm.state[k], back.state[k])]
+        log(f"phase 8c {os.path.basename(path)}: read into a new "
+            f"Atmosphere in {t_load:.2f} s; one step from it against the "
+            f"continuous run: fields that differ {diff or 'none'}")
+        require(not diff, f"8c: the run resumed from {path} differs from "
+                          f"the continuous run, first in {diff[:1]}")
+
+
+def solo_cli(card):
+    """Phase 8d: the CLI as users start it (the README's quick start at
+    C48L32, 3 steps, an audit every 2 and a restart written), then a second
+    run from that restart; both on the card."""
+    import os
+    import shutil
+    from gfdl_atmos_cubed_sphere_tpu_torch.driver.solo import main as solo
+    from gfdl_atmos_cubed_sphere_tpu_torch.io.restart import load_state
+    os.makedirs(SOLO_DIR, exist_ok=True)
+    try:
+        path = os.path.join(SOLO_DIR, "cli.fvio")
+        argv = ["--npx", "49", "--npz", "32", "--dt", "1200", "--physics",
+                "hs", "--days", "0.05", "--audit-every", "2"]
+        t0 = time.perf_counter()
+        solo(argv + ["--restart-out", path])
+        t1 = time.perf_counter()
+        solo(argv + ["--restart-in", path])
+        step = load_state(path)[2]["step"]
+        log(f"phase 8d CLI: main() ran 3 steps and wrote {path} (step "
+            f"{step}) in {t1 - t0:.1f} s, and a second main() resumed from "
+            f"it in {time.perf_counter() - t1:.1f} s on {card}")
+        require(step == 3, f"8d: the CLI's restart holds step {step}")
+    finally:
+        shutil.rmtree(SOLO_DIR, ignore_errors=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1089,6 +1434,7 @@ def main():
 
     for case in (nh24, nh24m, hy24):
         card_vs_cpu(case)
+    geom24 = nh24.geom
     del nh24, nh24m, hy24
 
     # ---- 4. full width sw_c768 ----------------------------------------------
@@ -1120,6 +1466,7 @@ def main():
     # ---- 5. full width c192_nh (dry) ----------------------------------------
     nh_launches = step_phase("5 c192_nh dry f32", nh, nh_state, nh_mass0,
                              card, shapes_nh, NH_PER_STEP, NH_KERNELS)
+    geom192 = nh.geom
     del nh, nh_state
 
     # ---- 6. full width c192_nh moist (the headline step) --------------------
@@ -1130,6 +1477,12 @@ def main():
     # ---- 7. full width c192_hydro moist --------------------------------------
     h_launches = step_phase("7 c192_hydro moist f32", hy, hy_state, hy_mass0,
                             card, shapes_hy, HYDRO_PER_STEP, HYDRO_KERNELS)
+    del hy, hy_state
+
+    # ---- 8. the solo driver ------------------------------------------------
+    solo_card_vs_cpu(geom24)
+    solo_hy_launches, solo_nh_launches = solo_full_width(geom192, card)
+    solo_cli(card)
 
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "kernel_ms")
@@ -1155,6 +1508,9 @@ def main():
             entry["resources"] = resources[name]
         if path == "c192_nh moist":
             entry["c192_nh_dry"] = {"launches": nh_launches[name]}
+        # launches per big step of the solo driver at C192L79 (phase 8b)
+        entry["solo_hydro"] = {"launches": solo_hy_launches[name]}
+        entry["solo_nh"] = {"launches": solo_nh_launches[name]}
         for other, _, orecs, oshapes, olaunches in paths:
             if other != path and name in orecs:
                 entry[other.split()[0]] = {

@@ -6,9 +6,12 @@ Counterpart of gfdl_atmos_cubed_sphere_tpu/model/fv_dynamics.py
 model/fv_dynamics.F90 and model/fv_mapz.F90 Lagrangian_to_Eulerian:56):
 the acoustic loop, the large-timestep tracer transport (tracer_2d), the
 vertical remap with the tracers (mapn_tracer), the negative-moisture
-adjustment (neg_adj3) and the GFDL microphysics (gfdl_mp_driver). The
-Rayleigh sponges, the energy and angular-momentum fixers and the inline
-fast physics are not ported and raise NotImplementedError.
+adjustment (neg_adj3) and the GFDL microphysics (gfdl_mp_driver), with
+the ideal-case Rayleigh sponge (rayleigh_super) or the real-case Rayleigh
+friction (rayleigh_friction) when tau > 0, the global total-energy fixer
+(consv_te > 0) and the angular-momentum fixer (consv_am). The inline
+Rayleigh damping (rf_fast) and the inline fast physics (do_fast_phys) are
+not ported and raise NotImplementedError.
 
 State carried between calls: u, v (D winds), delp, pt = TEMPERATURE, the
 tracer dict q, and on the nonhydrostatic path w (m/s) and delz (m,
@@ -16,17 +19,22 @@ negative). Inside the step pt becomes virtual potential temperature and is
 converted back on the last remap.
 """
 
+import functools
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from .. import constants as con
+from ..io.restart import to_host
 from ..ops import fv_mapz, fv_sg
 from ..ops.sw_core import _rl, _cl
 from ..ops.fill_corners import fi
 from ..physics import gfdl_mp
+from . import thermodynamics as thermo
 from . import tracer_2d as tracer
 from .dyn_core import DynConfig
+from .fv_update_phys import cubed_to_latlon
 
 H = 3
 
@@ -160,14 +168,87 @@ def _check_config(cfg, entry, also=None):
     neither big step ports, or one of the caller's own refusals in also
     ({description: whether cfg asks for it})."""
     unsupported = {
-        "consv_te > 0 (energy fixer)": cfg.consv_te > 0.0,
-        "consv_am (angular-momentum fixer)": cfg.consv_am,
-        "tau > 0 (Rayleigh sponges)": cfg.tau > 0.0,
+        "rf_fast (inline Rayleigh damping)": cfg.rf_fast and cfg.tau > 0.0,
         **(also or {}),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(f"{entry}: not ported: " + ", ".join(bad))
+
+
+def _ref_pressure(ak, bk):
+    """Layer reference pressures at ps = 1e5 Pa (fv_dynamics.F90:369)."""
+    akn, bkn = to_host(ak), to_host(bk)
+    return ((akn[1:] + akn[:-1]) + (bkn[1:] + bkn[:-1]) * 1.0e5) * 0.5
+
+
+@functools.lru_cache(maxsize=16)
+def _sponge_tensors(pm_bytes, dt, tau, rf_cutoff, ptop, dtype, device):
+    pm = np.frombuffer(pm_bytes, np.float64).copy()
+    sday = 86400.0
+    rf = np.where(
+        pm < rf_cutoff,
+        dt / (tau * sday)
+        * np.sin(0.5 * np.pi * np.log(rf_cutoff / np.maximum(pm, ptop))
+                 / np.log(rf_cutoff / ptop)) ** 2,
+        0.0)
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device).reshape(
+        1, -1, 1, 1) for a in (rf, pm))
+
+
+def _sponge_rates(pm, cfg, ptop, like):
+    """rf(k) = dt/tau * sin^2(pi/2 * ln(cutoff/p)/ln(cutoff/ptop)) above
+    rf_cutoff, 0 below (Rayleigh_Super:953, Rayleigh_Friction:1126), and
+    pm(k), as [1, K, 1, 1] tensors of like's dtype on its device: built
+    in float64 once for each profile, config and device, then reused."""
+    pm = np.ascontiguousarray(pm, np.float64)
+    return _sponge_tensors(pm.tobytes(), cfg.dt, cfg.tau, cfg.rf_cutoff,
+                           float(ptop), like.dtype, like.device)
+
+
+def rayleigh_super(u, v, w, u0, v0, ak, bk, cfg, ptop):
+    """Ideal-case Rayleigh sponge (fv_dynamics.F90 Rayleigh_Super:953):
+    relax u, v toward the reference winds u0, v0 (and damp w) above
+    rf_cutoff with the rf(k) profile. Returns (u, v, w)."""
+    rfk, _ = _sponge_rates(_ref_pressure(ak, bk), cfg, ptop, u)
+    u = (u + rfk * u0) / (1.0 + rfk)
+    v = (v + rfk * v0) / (1.0 + rfk)
+    if w is not None:
+        w = w / (1.0 + rfk)
+    return u, v, w
+
+
+def rayleigh_friction(u, v, w, pt, delz, pm, cfg, ptop, g,
+                      hydrostatic=True):
+    """Real-case Rayleigh friction (fv_dynamics.F90 Rayleigh_Friction:1126):
+    amplitude-dependent drag above rf_cutoff at the rate
+    rf(k)*sqrt(|V|^2/u000), applied to the D winds through staggered
+    averages of the A-grid speed field, the lost kinetic energy returned
+    as heat (cp or cv, with the delz rescale on the nonhydrostatic path). pm: [K] layer reference pressures; pt is
+    TEMPERATURE. Returns (u, v, w, pt, delz)."""
+    u000 = 4900.0
+    rfk, pmk = _sponge_rates(pm, cfg, ptop, u)
+    ua, va = cubed_to_latlon(u, v, g)
+    u2f = ua * ua + va * va
+    if not hydrostatic and w is not None:
+        u2f = u2f + w * w
+    fac = 1.0 - 1.0 / (1.0 + rfk * torch.sqrt(u2f / u000)) ** 2
+    if hydrostatic:
+        pt = pt + 0.5 * u2f / (con.CP_AIR - con.RDGAS * ptop / pmk) * fac
+    else:
+        heat = 0.5 * u2f / (con.CP_AIR - con.RDGAS) * fac
+        delz = delz / pt * (pt + heat)
+        pt = pt + heat
+    # the damping coefficient field, halo-padded for the staggered averages
+    n = u.shape[-1]
+    c = g.halo.pad_cell(rfk * torch.sqrt(u2f / u000))
+    cy = c[..., H - 1:H + n + 1, H:H + n]        # cells j-1..n for y-walls
+    u = u / (1.0 + 0.5 * (cy[..., :-1, :] + cy[..., 1:, :]))
+    cx = c[..., H:H + n, H - 1:H + n + 1]        # cells i-1..n for x-walls
+    v = v / (1.0 + 0.5 * (cx[..., :, :-1] + cx[..., :, 1:]))
+    if not hydrostatic and w is not None:
+        w = w / (1.0 + c[..., H:-H, H:-H])
+    return u, v, w, pt, delz
 
 
 def _moist_physics(pt, delp, delz, q, w, cfg, ptop, mp_cfg, hydrostatic):
@@ -185,15 +266,35 @@ def _moist_physics(pt, delp, delz, q, w, cfg, ptop, mp_cfg, hydrostatic):
     return pt, q, mp_diag.pop("w", w), mp_diag
 
 
+def _sponge(u, v, w, pt, delz, u0, v0, ak, bk, cfg, ptop, g, hydrostatic):
+    """The sponge at the top of a big step (fv_dynamics.F90:369-370): with
+    tau > 0, Rayleigh_Super toward u0, v0 when given, else the real-case
+    Rayleigh friction unless the case is ideal. pt is TEMPERATURE.
+    Returns (u, v, w, pt, delz, whether pt changed)."""
+    if not cfg.tau > 0.0:
+        return u, v, w, pt, delz, False
+    if u0 is not None:
+        u, v, w = rayleigh_super(u, v, w, u0, v0, ak, bk, cfg, ptop)
+        return u, v, w, pt, delz, False
+    if cfg.is_ideal_case:
+        return u, v, w, pt, delz, False
+    u, v, w, pt, delz = rayleigh_friction(
+        u, v, w, pt, delz, _ref_pressure(ak, bk), cfg, ptop, g,
+        hydrostatic=hydrostatic)
+    return u, v, w, pt, delz, True
+
+
 def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
-                   ptop, dp0, mp_cfg=None):
+                   ptop, dp0, u0=None, v0=None, mp_cfg=None):
     """One big timestep of nonhydrostatic dynamics (fv_dynamics.F90,
     hydrostatic=.false.). pt in/out is TEMPERATURE; w vertical velocity
     (m/s); delz layer thickness (m, negative); q: the tracer dict (may be
-    empty); with "sphum" in q and cfg.adiabatic False the virtual-
+    empty or None); with "sphum" in q and cfg.adiabatic False the virtual-
     temperature (zvir) path is on, and with the six GFDL-MP categories
     neg_adj3 runs, then gfdl_mp_driver when mp_cfg is given. ak, bk: [K+1]
-    (numpy or tensors); dp0: the reference pressure-thickness profile.
+    (numpy or tensors); dp0: the reference pressure-thickness profile;
+    u0, v0: the sponge's reference winds (tau > 0). cfg.consv_te > 0 turns
+    on the total-energy fixer, cfg.consv_am the angular-momentum fixer.
     Returns SimpleNamespace(delp, pt, u, v, w, delz, q, ps, mp_diag,
     omga)."""
     from .dyn_core import dyn_core_nh
@@ -201,15 +302,30 @@ def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
         "do_fast_phys (inline fast physics)": cfg.do_fast_phys})
     akap = con.KAPPA
     rrg = -con.RDGAS / con.GRAV
+    cv_air = con.CP_AIR - con.RDGAS
     mdt = cfg.dt / cfg.k_split
     zvir = con.ZVIR if q and "sphum" in q and not cfg.adiabatic else 0.0
+    aknp, bknp = ak, bk
     ak = torch.as_tensor(ak, dtype=delp.dtype, device=delp.device)
     bk = torch.as_tensor(bk, dtype=delp.dtype, device=delp.device)
     u, v = g.halo.reconcile_dgrid(u, v)
+    phis = g.phis_p[..., H:-H, H:-H]
 
     # entry: layer p**kappa from the gas law, pt -> theta_v
     tv = pt * (1.0 + zvir * q["sphum"]) if zvir else pt
     pkz = torch.exp(akap * torch.log(rrg * delp / delz * tv))
+    te0 = None
+    if cfg.consv_te > 0.0:
+        te0 = thermo.total_energy_2d_nh(u, v, w, tv,
+                                        q["sphum"] if zvir else None,
+                                        delp, delz, phis, g)
+    aam0 = None
+    if cfg.consv_am:
+        aam0, _, _ = thermo.compute_aam(u, v, delp, g, ptop)
+    u, v, w, pt, delz, heated = _sponge(u, v, w, pt, delz, u0, v0, aknp,
+                                        bknp, cfg, ptop, g, False)
+    if heated:
+        tv = pt * (1.0 + zvir * q["sphum"]) if zvir else pt
     ptv = tv / pkz
 
     conv = torch.zeros_like(delp)
@@ -230,7 +346,15 @@ def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
         delp, u, v, w, delz = rm.delp, rm.u, rm.v, rm.w, rm.delz
         q = rm.q
         if last:
-            pt = rm.tv         # no energy fixer
+            pt = rm.tv
+            if te0 is not None:
+                te1 = thermo.total_energy_2d_nh(
+                    u, v, w, rm.tv, q["sphum"] if zvir else None, delp,
+                    delz, phis, g)
+                dtmp = thermo.energy_fixer_dtmp(
+                    te0, te1, rm.pkz, delp, rm.pk2, ptop, cfg.consv_te, g,
+                    hydrostatic=False, reproduce=cfg.reproduce_sum)
+                pt = rm.tv + (dtmp / cv_air) * rm.pkz
             if zvir:
                 pt = pt / (1.0 + zvir * q["sphum"])
         else:
@@ -238,6 +362,9 @@ def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
 
     pt, q, w, mp_diag = _moist_physics(pt, delp, delz, q, w, cfg, ptop,
                                        mp_cfg, hydrostatic=False)
+    if cfg.consv_am:
+        u, v, _ = thermo.am_fixer(u, v, delp, aam0, g, ptop,
+                                  reproduce=cfg.reproduce_sum)
 
     return SimpleNamespace(delp=delp, pt=pt, u=u, v=v, w=w, delz=delz,
                            q=q, ps=rm.ps, mp_diag=mp_diag,
@@ -245,30 +372,44 @@ def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
 
 
 def fv_dynamics_hydro(delp, pt, u, v, q, g, cfg: DynConfig, ak, bk, ptop,
-                      mp_cfg=None):
+                      u0=None, v0=None, mp_cfg=None):
     """One big timestep of hydrostatic dynamics (fv_dynamics.F90,
     hydrostatic=.true.). pt in/out is TEMPERATURE; q: the tracer dict (may
-    be empty); with "sphum" in q and cfg.adiabatic False the virtual-
-    temperature (zvir) path is on, and with the six GFDL-MP categories
-    neg_adj3 runs, then gfdl_mp_driver when mp_cfg is given. ak, bk: [K+1]
-    (numpy or tensors). Returns SimpleNamespace(delp, pt, u, v, q, ps,
-    mp_diag, omga)."""
+    be empty or None); with "sphum" in q and cfg.adiabatic False the
+    virtual-temperature (zvir) path is on, and with the six GFDL-MP
+    categories neg_adj3 runs, then gfdl_mp_driver when mp_cfg is given.
+    ak, bk: [K+1] (numpy or tensors); u0, v0: the sponge's reference winds
+    (tau > 0). cfg.consv_te > 0 turns on the total-energy fixer,
+    cfg.consv_am the angular-momentum fixer. Returns
+    SimpleNamespace(delp, pt, u, v, q, ps, mp_diag, omga)."""
     from .dyn_core import dyn_core_hydro
     _check_config(cfg, "fv_dynamics_hydro")
     akap = con.KAPPA
     mdt = cfg.dt / cfg.k_split
     zvir = con.ZVIR if q and "sphum" in q and not cfg.adiabatic else 0.0
+    aknp, bknp = ak, bk
     ak = torch.as_tensor(ak, dtype=delp.dtype, device=delp.device)
     bk = torch.as_tensor(bk, dtype=delp.dtype, device=delp.device)
     u, v = g.halo.reconcile_dgrid(u, v)
+    phis = g.phis_p[..., H:-H, H:-H]
 
     # entry pressures and pt -> theta_v (fv_dynamics.F90:275-399)
-    pe = ptop + torch.cumsum(delp, dim=1)
-    pe = torch.cat([torch.full_like(pe[:, :1], ptop), pe], dim=1)
+    pe = thermo.interface_pressure(delp, ptop)
     peln = torch.log(pe)
     pk = torch.exp(akap * peln)
     pkz = (pk[:, 1:] - pk[:, :-1]) / (akap * (peln[:, 1:] - peln[:, :-1]))
     tv = pt * (1.0 + zvir * q["sphum"]) if zvir else pt
+    te0 = None
+    if cfg.consv_te > 0.0:
+        te0 = thermo.total_energy_2d_hydro(u, v, tv, delp, peln, pe, phis,
+                                           g)
+    aam0 = None
+    if cfg.consv_am:
+        aam0, _, _ = thermo.compute_aam(u, v, delp, g, ptop)
+    u, v, _, pt, _, heated = _sponge(u, v, None, pt, None, u0, v0, aknp,
+                                     bknp, cfg, ptop, g, True)
+    if heated:
+        tv = pt * (1.0 + zvir * q["sphum"]) if zvir else pt
     ptv = tv / pkz
 
     conv = torch.zeros_like(delp)
@@ -287,7 +428,17 @@ def fv_dynamics_hydro(delp, pt, u, v, q, g, cfg: DynConfig, ak, bk, ptop,
                          res.peln, res.pkz, ak, bk, g, cfg, akap)
         delp, u, v, q = rm.delp, rm.u, rm.v, rm.q
         if last:
-            pt = rm.tv         # no energy fixer
+            pt = rm.tv
+            if te0 is not None:
+                peln_i = torch.log(ak.reshape(1, -1, 1, 1)
+                                   + bk.reshape(1, -1, 1, 1)
+                                   * rm.ps[:, None])
+                te1 = thermo.total_energy_2d_hydro(
+                    u, v, rm.tv, delp, peln_i, torch.exp(peln_i), phis, g)
+                dtmp = thermo.energy_fixer_dtmp(
+                    te0, te1, rm.pkz, delp, rm.pk2, ptop, cfg.consv_te, g,
+                    hydrostatic=True, reproduce=cfg.reproduce_sum)
+                pt = rm.tv + (dtmp / con.CP_AIR) * rm.pkz
             if zvir:
                 pt = pt / (1.0 + zvir * q["sphum"])
         else:
@@ -295,5 +446,8 @@ def fv_dynamics_hydro(delp, pt, u, v, q, g, cfg: DynConfig, ak, bk, ptop,
 
     pt, q, _, mp_diag = _moist_physics(pt, delp, None, q, None, cfg, ptop,
                                        mp_cfg, hydrostatic=True)
+    if cfg.consv_am:
+        u, v, _ = thermo.am_fixer(u, v, delp, aam0, g, ptop,
+                                  reproduce=cfg.reproduce_sum)
     return SimpleNamespace(delp=delp, pt=pt, u=u, v=v, q=q, ps=rm.ps,
                            mp_diag=mp_diag, omga=_omega(conv, cfg.dt))

@@ -125,7 +125,28 @@ def build_grid_ops(npx, dtype=torch.float32, device="cuda",
                                             npx)[:, None]
     g = _pack(arrays, npx, dtype, device, geom.topology)
     g.geom = geom
+    _physics_metrics(g, geom)
     return g
+
+
+def _physics_metrics(g, geom):
+    """The geometry the physics coupling reads beside the dynamics' pack
+    (model/fv_update_phys.py, model/thermodynamics.py, physics/): cell
+    latitude and longitude [6, 1, NC, NC], the cell lat-lon unit vectors
+    vlon, vlat [6, 1, NC, NC, 3], and the compute-domain edge unit vectors
+    es (direction 1 on the y-walls, [6, 1, n+1, n, 3]) and ew (direction 2
+    on the x-walls, [6, 1, n, n+1, 3]); built once, in the working
+    dtype."""
+    a, h, n = geom.arrays, geom.ng, g.n
+
+    def t(arr):
+        return torch.as_tensor(np.array(arr, order="C")[:, None],
+                               dtype=g.dtype, device=g.device)
+
+    for name in ("aglat", "aglon", "vlon", "vlat"):
+        setattr(g, name, t(a[name]))
+    g.es1 = t(a["es"][:, h:h + n + 1, h:h + n, 0, :])
+    g.ew2 = t(a["ew"][:, h:h + n, h:h + n + 1, 1, :])
 
 
 def grid_from_arrays(arrays, npx, dtype=torch.float32, device="cuda"):

@@ -67,7 +67,7 @@ def test_fv_dynamics_nh_dry():
     assert np.abs(ps - ps_own).max() <= 1e-12 * np.abs(ps_own).max()
 
 
-@pytest.mark.parametrize("over", [dict(consv_te=1.0),
+@pytest.mark.parametrize("over", [dict(rf_fast=True, tau=5.0),
                                   dict(do_fast_phys=True)])
 def test_fv_dynamics_nh_refuses_what_is_not_ported(over):
     gt = build_grid_ops(NPX, dtype=torch.float64, device="cpu")

@@ -85,9 +85,7 @@ def test_fv_dynamics_hydro_moist():
 def test_hydro_refuses_what_is_not_ported():
     """The options of the hydrostatic path the port leaves out raise
     NotImplementedError before any work."""
-    cases = [(fv_dynamics_hydro, dict(consv_te=1.0)),
-             (fv_dynamics_hydro, dict(consv_am=True)),
-             (fv_dynamics_hydro, dict(tau=5.0)),
+    cases = [(fv_dynamics_hydro, dict(rf_fast=True, tau=5.0)),
              (dyn_core.dyn_core_hydro, dict(beta=0.1)),
              (dyn_core.dyn_core_hydro, dict(d_ext=0.02)),
              (dyn_core.dyn_core_hydro, dict(fill_dp=True)),
