@@ -36,23 +36,31 @@ CLI), as users start the system, through the same kernels.
    fv_tp_2d_kernel, which no path calls, on that step's d_sw pt-transport
    operands. Tolerance per output: max |diff| <= 1e-4 x max |ref| in
    float32 (the count of points over 1e-6 relative is printed: a limiter
-   branch may flip under float32 rounding) and <= 1e-12 in float64; the
-   non-finite points (NaN in the cube-corner halo) must coincide. Each
+   branch may flip under float32 rounding) and <= 1e-12 in float64, but
+   max |diff| 0 for pgradc_fused and pkgz (EXACT), which keep the plain
+   version's operation order; the non-finite points (NaN in the
+   cube-corner halo) must coincide. Those two are also held bit for bit
+   at COLUMN_DEPTHS, c192_hydro's C192 inputs with their levels repeated
+   to K = 79 in float64 and K = 32 and 125 in both dtypes, one device
+   kernel a call: the launch plans of ops/pg_col.py that the main paths
+   do not take, and every count of levels pgradc_fused's last batch can
+   hold (K % 4 of 3, 2, 0 and 1 at K = 79, 10, 32 and 125). Each
    with its time (CUDA events, median of 20 after warm-up; the kernel
    alone from the profiler, with the device kernels per call and the
    ratio to the bound; for the two d_sw stages each kernel's launches and
    ms per call; a profiler reading that lost a launch's record is taken
    again, and the smoke fails after five incomplete ones), the plain
    version's time and its bound. For a2b_ord4, sim1,
-   tp2d_sweep and c_sw, at every call shape, f32 and f64, it prints every
-   device kernel one wrapper call issues, PyTorch's ops, copies and fills
-   included ("device_kernels_per_call" in the kernels line's shapes), and
-   fails unless a2b_ord4, tp2d_sweep and c_sw issue exactly 1 in all and
-   sim1 exactly 1 of its own (its copies of non-contiguous operands would
-   be listed). It prints the resources of the tp sweep, c_sw and d_sw
-   stage kernels as built (registers and spill bytes per thread, static
-   and dynamic shared memory per block, resident blocks per SM; "resources"
-   in the kernels line). The
+   tp2d_sweep, c_sw, pgradc_fused and pkgz, at every call shape, f32 and
+   f64, it prints every device kernel one wrapper call issues, PyTorch's
+   ops, copies and fills included ("device_kernels_per_call" in the
+   kernels line's shapes), and fails unless each issues exactly 1 in all
+   but sim1, which must issue exactly 1 of its own (its copies of
+   non-contiguous operands would be listed). It prints the resources of
+   the tp sweep, c_sw, d_sw stage and column kernels (these at K = 79 and
+   125) as built (registers and spill bytes per thread, static and dynamic
+   shared memory per block, resident blocks per SM; "resources" in the
+   kernels line). The
    tp sweep and ke_section kernels are also checked at every other hord
    they take (tp_sweep.KERNEL_HORDS, ke.KERNEL_HORDS) on the SW inputs;
 3. the SW step (case 2, C48, float64, n_split=2, 4 steps) and the NH big
@@ -143,7 +151,8 @@ the NH kernels, 7 for the column kernels and fv_tp_2d, which no path
 calls), error and times, and the kernel's numbers on the other paths it
 runs on; for a kernel its path calls at several shapes, ms, plain_ms,
 bound_ms and kernel_ms are means per launch weighted by the calls at each
-shape, and "shapes" lists each shape's own numbers; "solo_hydro" and
+shape, and "shapes" lists each shape's own numbers ("depths": the column
+kernels' checks at COLUMN_DEPTHS); "solo_hydro" and
 "solo_nh" give its launches per big step on phase 8b's two forms (with the
 fixers on). The last line is
 {"ok": true, "device": {...}}. It needs one CUDA card; without one it exits
@@ -199,15 +208,45 @@ HYDRO_PER_STEP = {"c_sw": 6, "d_sw_fluxes": 6, "d_sw_winds": 6, "sim1": 0,
 A2B_METRICS = ("dxa", "dya", "edge_s_full", "edge_n_full", "edge_w_full",
                "edge_e_full", "a2b_corner_w")
 # the kernels whose every device kernel per wrapper call phase 2 counts
-ALL_KERNELS_COUNTED = ("a2b_ord4", "sim1", "tp2d_sweep", "c_sw")
+ALL_KERNELS_COUNTED = ("a2b_ord4", "sim1", "tp2d_sweep", "c_sw",
+                       "pgradc_fused", "pkgz")
+# the kernels phase 2 holds to their plain versions bit for bit
+EXACT = ("pgradc_fused", "pkgz")
+# the column depths phase 2 checks the column kernels at beside the main
+# paths' (c192_hydro's 79 in float32, C24L10's 10 in float64): 79 in
+# float64 (pgradc_fused 4 rows, pkgz 64 threads), the README's C48L32 CLI
+# depth (the plans of K = 79 but pkgz's 128 threads in float64) and 125
+# (pgradc_fused 4 / 2 rows, pkgz 64 / 32 threads in float32 / float64;
+# the plans of 127), with 79 and 10 every remainder of pgradc_fused's
+# batches of 4 levels
+COLUMN_DEPTHS = ((79, ("float64",)), (32, ("float32", "float64")),
+                 (125, ("float32", "float64")))
+
+
+def col_plan_args(kernel, K):
+    """The leading arguments of a column kernel's *_attrs export at depth
+    K: (K, its plan's window rows or threads a block) for an element
+    size."""
+    def lead(itemsize):
+        from gfdl_atmos_cubed_sphere_tpu_torch.ops import pg_col
+        plan = pg_col.launch_plan(kernel, K, 198, 198, itemsize)
+        return (K, plan.rows if kernel == "pgradc_fused" else plan.threads)
+    return lead
+
+
 # the kernels whose resources phase 2 reads from the built library (the
-# redesigned tp sweep and c_sw, and the d_sw stages that share their
-# headers): {name: [(label, exported function, leading arguments)]}
+# redesigned tp sweep, c_sw and column kernels, and the d_sw stages that
+# share their headers): {name: [(label, exported function, leading
+# arguments, or a function of the element size that gives them)]}
 RESOURCES = {
     "tp2d_sweep": [("", "tp2d_sweep_attrs", ())],
     "c_sw": [("", "c_sw_attrs", ())],
     "d_sw_fluxes": [("", "d_sw_fluxes_attrs", ())],
     "d_sw_winds": [("", "d_sw_winds_attrs", ())],
+    "pgradc_fused": [(f"K{K}", "pgradc_fused_attrs",
+                      col_plan_args("pgradc_fused", K)) for K in (79, 125)],
+    "pkgz": [(f"K{K}", "pkgz_attrs", col_plan_args("pkgz", K))
+             for K in (79, 125)],
 }
 # position of the hord argument in the calls of the wrappers that take one
 HORD_ARG = {"tp2d_sweep": 3, "ke_section": 13}
@@ -549,7 +588,8 @@ def kernel_resources():
                 out = (ctypes.c_int * 6)()
                 f = getattr(lib, fn)
                 f.restype = ctypes.c_int
-                rc = f(*lead, dtype, out)
+                args = lead(4 << dtype) if callable(lead) else lead
+                rc = f(*args, dtype, out)
                 require(rc == 0, f"{fn}: cudaError {rc}")
                 rec = dict(zip(keys, list(out)), form=label, dtype=dname)
                 recs.setdefault(name, []).append(rec)
@@ -675,9 +715,11 @@ def points_of(name, args, n):
 def check_call(label, name, args, kw, calls, n, tol, measure, sw=False):
     """One kernel call against its plain version (and, if measure, its
     times and bound): the record of that call shape with the calls the path
-    makes at it per step."""
+    makes at it per step. The EXACT kernels are held to max |diff| 0."""
     mod, attr, plain, _ = kernel_modules()[name]
     shp = list(call_shape(args))
+    if name in EXACT:
+        tol = 0.0
     err, got = compare(f"{label} {shp} x{calls}", name, args, kw, n, tol,
                        sw=sw)
     rec = {"shape": shp, "calls": calls, "max_abs_err": err}
@@ -720,6 +762,52 @@ def check_kernels(cap, names, n, tol, label, measure, sw=False):
                        measure is True or (callable(measure)
                                            and measure(name, shp)), sw=sw)
             for shp, (args, kw) in cap.args[name].items()]
+    return recs
+
+
+def check_column_depths(cap):
+    """pgradc_fused and pkgz against their plain versions bit for bit at
+    COLUMN_DEPTHS, on c192_hydro's captured C192 calls with their levels
+    repeated (or cut) to K and cast to each dtype, with the plan each call
+    takes and the device kernels it issues (1). Returns the records."""
+    import torch
+    from types import SimpleNamespace
+    from gfdl_atmos_cubed_sphere_tpu_torch.ops import pg_col
+    recs = []
+    for K, dnames in COLUMN_DEPTHS:
+        for dname in dnames:
+            dt = getattr(torch, dname)
+            for name in EXACT:
+                args, kw = next(iter(cap.args[name].values()))
+                K0 = args[0].shape[1]
+                lev = torch.arange(K, device=args[0].device) % K0
+
+                def depth(x):
+                    x = x[:, lev] if x.shape[1] == K0 else x
+                    return x.to(dt).contiguous()
+
+                P = args[0].shape[-1]
+                plan = pg_col.launch_plan(name, K, P, P, dt.itemsize)
+                if name == "pkgz":
+                    new = [depth(x) for x in args[:3]] + list(args[3:])
+                    shape = f"{plan.threads} threads"
+                else:
+                    g = args[5]
+                    new = ([depth(x) for x in args[:5]]
+                           + [SimpleNamespace(rdxc=g.rdxc.to(dt),
+                                              rdyc=g.rdyc.to(dt))]
+                           + list(args[6:]))
+                    shape = f"{plan.rows} window rows"
+                label = f"C192L{K} {dname}"
+                err, _ = compare(f"{label} ({shape})", name, new, kw, 192,
+                                 0.0)
+                nk = count_device_kernels(label, name,
+                                          lambda: getattr(pg_col, name)(
+                                              *new, **kw))
+                recs.append({"kernel": name, "K": K, "dtype": dname,
+                             "plan": shape, "max_abs_err": err,
+                             "device_kernels_per_call": nk})
+                del new
     return recs
 
 
@@ -1402,6 +1490,7 @@ def main():
                               "c192_hydro f32", measure=True)
     check_kernels(cap24h, HYDRO_KERNELS, 24, 1e-12, "C24L10 hydro f64",
                   measure=False)
+    col_depths = check_column_depths(cap192h)
     # fv_tp_2d_kernel, which no path calls, on the hydro step's d_sw pt
     # transport operands
     shapes_hy["fv_tp_2d"] = [check_call(
@@ -1506,6 +1595,8 @@ def main():
             "shapes": shapes[name]}
         if name in resources:
             entry["resources"] = resources[name]
+        if name in EXACT:
+            entry["depths"] = [r for r in col_depths if r["kernel"] == name]
         if path == "c192_nh moist":
             entry["c192_nh_dry"] = {"launches": nh_launches[name]}
         # launches per big step of the solo driver at C192L79 (phase 8b)

@@ -22,7 +22,16 @@ Then, in the order PARENT, this, this, PARENT:
 - for each path: s/step after 1 warm-up, from the same captured state,
   with the named kernels' wrappers of that checkout swapped into this
   one's step; as many steps as take MIN_SECONDS (at least 3) by one
-  untimed step of this checkout, the same count for each reading.
+  untimed step of this checkout, the same count for each reading; and the
+  peak device memory of the reading's steps beside what was resident
+  before them. When a named kernel runs on the hydrostatic path, the solo
+  driver's hydrostatic step (chip_smoke.py phase 8b's solo_hydro: C192L79
+  float32, Held-Suarez, the fixers and the sponge on) is read too, its
+  state going on from reading to reading.
+
+A wrapper of PARENT returns what it returned there, and the callers of
+this checkout take the path they take for it (one_grad_p concatenates
+PARENT's separate pk and gz again).
 
 Prints a line for each reading, the card's name and power limit, and, as
 the last line, one JSON object with the readings. Needs one CUDA card.
@@ -92,7 +101,22 @@ def paths_for(names):
             hy = cs.BigStep(193, 79, 450.0, 1, 6, torch.float32, "cuda",
                             geom=nhm.geom, ic=nhm.ic, moist=True, hydro=True)
             paths["c192_hydro moist"] = (hy.step, hy.state, 192, False)
+            paths["solo_hydro"] = solo_path(nhm.geom) + (192, False)
     return paths
+
+
+def solo_path(geom):
+    """(step, state) of the solo driver's hydrostatic form as phase 8b of
+    chip_smoke.py runs it with the fixers and the sponge on."""
+    from gfdl_atmos_cubed_sphere_tpu_torch.driver.solo import Atmosphere
+    atm = Atmosphere(193, 79, 450.0, physics="hs", geom=geom, device="cuda",
+                     cfg_overrides=dict(cs.SOLO_HYDRO, **cs.SOLO_FIX))
+
+    def step(_):
+        atm.atmosphere(1)
+        return [atm.state[k] for k in ("delp", "pt", "u", "v")]
+
+    return step, step(None)
 
 
 def max_diff(label, name, out, ref, n, sw):
@@ -159,16 +183,22 @@ def step_readings(label, step, state, names, wr):
                 setattr(m, attr, wr[tree][nm][2])
             st = step(state)                                 # warm-up
             float(torch.sum(st[0]))
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             sec, st = cs.timed_steps(step, st, nsteps)
+            peak = torch.cuda.max_memory_allocated()
         finally:
             for m, attr, orig in swapped:
                 setattr(m, attr, orig)
         for t in st:
             cs.require(bool(torch.isfinite(t).all()),
                        f"{tree} {label}: non-finite state")
-        cs.log(f"{tree:6s} {label}: {sec:.4f} s/step ({nsteps} steps)")
+        cs.log(f"{tree:6s} {label}: {sec:.4f} s/step ({nsteps} steps), "
+               f"peak device memory {peak / 2 ** 30:.3f} GiB "
+               f"({resident / 2 ** 30:.3f} GiB resident before)")
         recs.append({"tree": tree, "path": label, "s_per_step": sec,
-                     "steps": nsteps})
+                     "steps": nsteps, "peak_bytes": peak,
+                     "resident_bytes": resident})
     return recs
 
 
@@ -198,6 +228,8 @@ def main():
     paths = paths_for(names)
     caps = {}
     for label, (step, state, _, _) in paths.items():
+        if label == "solo_hydro":           # its calls are c192_hydro's
+            continue
         with cs.Capture() as caps[label]:
             state = step(state)
             float(torch.sum(state[0]))

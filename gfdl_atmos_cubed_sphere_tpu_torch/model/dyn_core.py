@@ -333,13 +333,18 @@ def nh_p_grad(u_acc, v_acc, pp, pk3, gz, delp_p, g, dt, npx, ptk):
 
 def _pg_terms(pk, gz, g, npx, ptk):
     """B-grid setup of the hydrostatic D-grid pressure gradient
-    (one_grad_p:1909): one batched a2b_ord4 of (pk, gz) [6, 2(K+1), P, P],
+    (one_grad_p:1909): one batched a2b_ord4 of (pk, gz) [6, 2(K+1), P, P]
+    (the tensor pk and gz are the halves of, as pkgz returns them, else
+    their concatenation),
     pk's top interface set to ptk, and the cross-difference increments
     du [6, K, n+1, n], dv [6, K, n, n+1]."""
     f = fi
     wsl = slice(f(1), f(npx) + 1)
     Kp1 = pk.shape[1]
-    bothB = a2b_ord4(torch.cat([pk, gz], dim=1), g)
+    both = pg_col.pkgz_joined(pk, gz)
+    if both is None:
+        both = torch.cat([pk, gz], dim=1)
+    bothB = a2b_ord4(both, g)
     pkB = bothB[:, :Kp1].clone()
     gzB = bothB[:, Kp1:]
     pkB[:, 0] = ptk

@@ -7,7 +7,9 @@ numpy seed):
   interpret mode, as tests/test_pallas_pg.py runs them (C16L16; 1e-12 x
   max|ref|, gz within 1e-7 + 1e-12 |ref|: the three cumulative sums add in
   different orders);
-- one_grad_p on geopk's pk, gz (1e-12);
+- one_grad_p on geopk's pk, gz (1e-12), and on pkgz's pk, gz, the halves
+  of one tensor (bit for bit against the concatenating path, 1e-12 against
+  JAX);
 - one dyn_core_hydro loop (n_split = 2) at C12L10 (1e-10 x each field's
   maximum).
 
@@ -127,25 +129,46 @@ def test_column_pressures(case):
 
 def test_one_grad_p(case):
     """The hydrostatic D-grid pressure gradient on geopk's pk, gz: the
-    batched a2b_ord4 of [6, 2(K+1), P, P] and the cross differences."""
-    c = case
+    batched a2b_ord4 of [6, 2(K+1), P, P] and the cross differences. Then
+    pkgz's output: pk and gz, bit for bit geopk's, are the halves of one
+    tensor, which one_grad_p takes whole (no concatenation); it equals the
+    concatenating path bit for bit and the JAX one_grad_p to 1e-12."""
+    c, t = case, case["t"]
     gj, gt, npx = c["gj"], c["gt"], c["npx"]
     n = npx - 1
-    K = c["t"]["delp_p"].shape[1]
+    K = t["delp_p"].shape[1]
     rng = np.random.default_rng(7)
     u_acc = rng.standard_normal((6, K, n + 1, n)) * 1e6
     v_acc = rng.standard_normal((6, K, n, n + 1)) * 1e6
     ptk = c["ptop"] ** AKAP
     pk, gz = c["geo"][2], c["geo"][3]
-    want = jax.jit(lambda a, b, p, z: jdc.one_grad_p(
-        a, b, p, z, gj, 450.0, npx, ptk))(u_acc, v_acc, pk, gz)
+    jogp = jax.jit(lambda a, b, p, z: jdc.one_grad_p(
+        a, b, p, z, gj, 450.0, npx, ptk))
+    want = jogp(u_acc, v_acc, pk, gz)
+    ua, va = torch.as_tensor(u_acc), torch.as_tensor(v_acc)
     _reset()
-    got = tdc.one_grad_p(torch.as_tensor(u_acc), torch.as_tensor(v_acc),
-                         torch.as_tensor(np.array(pk)),
+    got = tdc.one_grad_p(ua, va, torch.as_tensor(np.array(pk)),
                          torch.as_tensor(np.array(gz)), gt, 450.0, npx, ptk)
     assert _launched() == (0,) * 8
     for nm, a, b in zip(("u", "v"), want, got):
         _close(a, b, what=nm)
+
+    cells = (t["delp_p"], t["pt_p"], gt.phis_p, AKAP, c["ptop"])
+    P = t["delp_p"].shape[-1]
+    pk_s, gz_s = pg_col.pkgz(*cells)
+    pk_r, gz_r = pg_col.geopk_ref(*cells)[2:4]
+    assert torch.equal(pk_s, pk_r) and torch.equal(gz_s, gz_r)
+    both = pg_col.pkgz_joined(pk_s, gz_s)
+    assert tuple(both.shape) == (6, 2 * (K + 1), P, P)
+    assert both.data_ptr() == pk_s.data_ptr()
+    assert pg_col.pkgz_joined(pk_r, gz_r) is None
+    shared = tdc.one_grad_p(ua, va, pk_s, gz_s, gt, 450.0, npx, ptk)
+    cat = tdc.one_grad_p(ua, va, pk_r, gz_r, gt, 450.0, npx, ptk)
+    assert _launched() == (0,) * 8
+    want = jogp(u_acc, v_acc, pk_r.numpy(), gz_r.numpy())
+    for nm, a, b, w in zip(("u", "v"), shared, cat, want):
+        assert torch.equal(a, b), nm
+        _close(w, a, what=f"shared buffer {nm}")
 
 
 def test_dyn_core_hydro():

@@ -1,11 +1,14 @@
-"""The launch plans of the port's tp sweep and c_sw kernels (ops/tiles.py,
-ops/tp_sweep.py launch_plan, ops/csw.py launch_plan), on the CPU: the boxes
-cover every output frame exactly once, a block's shared memory fits the
-card, the Python constants are the kernels' own (csrc/tp2d_sweep.cu,
-csrc/c_sw.cu), the tp sweep reads each operand where it lies, c_sw
-allocates only its outputs, and both raise ValueError for what the kernels
-do not take. The kernels themselves run only on the card (chip_smoke.py
-phase 2 holds them against their plain versions)."""
+"""The launch plans of the port's tp sweep, c_sw and column-pressure
+kernels (ops/tiles.py, ops/tp_sweep.py, ops/csw.py and ops/pg_col.py
+launch_plan), on the CPU: the boxes and tiles cover every output frame
+exactly once, a block's shared memory fits the card, the Python constants
+are the kernels' own (csrc/tp2d_sweep.cu, csrc/c_sw.cu,
+csrc/col_pressure.cu), the tp sweep reads each operand where it lies, c_sw,
+pgradc_fused and pkgz allocate only their outputs (pkgz one tensor that
+holds pk and gz), and each raises ValueError for what its kernel does not
+take. The
+kernels themselves run only on the card (chip_smoke.py phase 2 holds them
+against their plain versions)."""
 
 import re
 from pathlib import Path
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 from gfdl_atmos_cubed_sphere_tpu_torch.model.grid_ops import build_grid_ops
-from gfdl_atmos_cubed_sphere_tpu_torch.ops import csw, tiles, tp_sweep
+from gfdl_atmos_cubed_sphere_tpu_torch.ops import csw, pg_col, tiles, tp_sweep
 
 pytestmark = pytest.mark.fast
 
@@ -239,3 +242,156 @@ def test_c_sw_raises_on_what_it_does_not_take(grid):
     g2.dxc = grid.dxc.transpose(-1, -2).contiguous().transpose(-1, -2)
     with pytest.raises(ValueError, match="dxc"):
         csw.launch_plan(**dict(ok, g=g2))
+
+
+COL_DEPTHS = (10, 16, 32, 79, 127)
+
+
+def test_col_pressure_constants_are_the_kernels():
+    src = _source("col_pressure")
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    names = ("RING", "BATCH", "WIN_X", "MAX_ROWS", "GZ_SLOTS", "UP_FIELDS",
+             "PKGZ_THREADS")
+    assert {k: consts[k] for k in names} == {
+        k: getattr(pg_col, k) for k in names}
+    assert pg_col.PGC_ROWS[0] == pg_col.MAX_ROWS
+    assert pg_col.PKGZ_BLOCKS[0] == pg_col.PKGZ_THREADS
+    # the shared-memory formulas: the same terms in the same order
+    assert "(K + 1 + GZ_SLOTS + UP_FIELDS * RING) * WIN_X * rows" in src
+    assert "(size_t)(K + 2 * RING) * threads * sizeof(T)" in src
+
+
+def test_card_checks_take_every_last_batch():
+    """The column depths chip_smoke.py checks on the card, with the main
+    paths' 79 and 10, leave every count of levels (0 to BATCH - 1) to
+    pgradc_fused's last batch, each an instantiation of its own."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    depths = {K for K, _ in cs.COLUMN_DEPTHS} | {79, 10}
+    assert {K % pg_col.BATCH for K in depths} == set(range(pg_col.BATCH))
+    assert "case 1:" in _source("col_pressure")
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("K", COL_DEPTHS)
+def test_col_pressure_blocks_fit(K, itemsize):
+    """Every depth the hydrostatic paths run (the tests' 10 and 16, the
+    CLI's 32, 79, and up to 127) has a plan in both dtypes whose block fits
+    the 232448 bytes a Hopper block can take, and pgradc_fused's leaves
+    room for two blocks an SM."""
+    pg = pg_col.launch_plan("pgradc_fused", K, P, P, itemsize)
+    pk = pg_col.launch_plan("pkgz", K, P, P, itemsize)
+    assert pg.smem == pg_col.pgradc_smem(K, pg.rows, itemsize) <= SMEM_LIMIT
+    assert 2 * (pg.smem + 1024) <= 233472
+    assert pg.threads == pg_col.WIN_X * pg.rows and pg.rows >= 2
+    assert pk.smem == pg_col.pkgz_smem(K, pk.threads, itemsize) <= SMEM_LIMIT
+    assert pk.threads % 32 == 0 and pk.grid[0] * pk.threads >= 6 * P * P
+    # a deeper column never takes a larger block
+    if K > COL_DEPTHS[0]:
+        prev = COL_DEPTHS[COL_DEPTHS.index(K) - 1]
+        assert pg.rows <= pg_col.launch_plan("pgradc_fused", prev, P, P,
+                                             itemsize).rows
+
+
+@pytest.mark.parametrize("K,itemsize", [(79, 4), (79, 8), (127, 8)])
+@pytest.mark.parametrize("n", [12, 48, 192])
+def test_pgradc_tiles_cover_each_frame_once(n, K, itemsize):
+    """pgradc_fused's blocks, on the grid the kernel is launched with, own
+    31 x (rows - 1) wall points each; clipped to the frames, they cover
+    uc's [P, W] and vc's [W, P] points exactly once, and a block's window
+    of WIN_X x rows cells holds the cells its points read (i-1 and i, j-1
+    and j)."""
+    Pn, Wn = n + 6, n + 7
+    plan = pg_col.launch_plan("pgradc_fused", K, Pn, Pn, itemsize)
+    hits = np.zeros((Wn, Wn), int)
+    for j0, j1, i0, i1 in pg_col.owned_points(plan):
+        assert j1 - j0 == plan.rows - 1 and i1 - i0 == pg_col.WIN_X - 1
+        hits[j0:min(j1, Wn), i0:min(i1, Wn)] += 1
+        # window cells [j0 - 1, j1) x [i0 - 1, i1): WIN_X x rows
+        assert (j1 - j0 + 1, i1 - i0 + 1) == (plan.rows, pg_col.WIN_X)
+    assert (hits[:Pn, :] == 1).all()          # uc [P, W]
+    assert (hits[:, :Pn] == 1).all()          # vc [W, P]
+    assert (hits == 1).all()
+
+
+def _col_cells(K, dtype=torch.float64):
+    rng = np.random.default_rng(31)
+
+    def f(*s):
+        return torch.as_tensor(rng.standard_normal(s), dtype=dtype)
+
+    return f(6, K, P, P), f(6, K, P, P), f(6, 1, P, P), f
+
+
+def test_pgradc_fused_allocates_only_its_outputs(grid, monkeypatch):
+    """pgradc_fused's arguments: the caller's tensors where they lie (no
+    copy of a contiguous operand, phis as a view), uc_out and vc_out the
+    only tensors allocated (no pk/gz workspace), the plan's grid passed to
+    the launch; pkgz allocates one [6, 2(K+1), P, P] tensor, whose halves
+    are pk and gz and which pkgz_joined finds."""
+    K, W = 4, P + 1
+    delp, pt, phis, f = _col_cells(K)
+    uc, vc = f(6, K, P, W), f(6, K, W, P)
+    made = []
+    empty = torch.empty
+
+    def counting(*a, **kw):
+        made.append(a)
+        return empty(*a, **kw)
+
+    monkeypatch.setattr(torch, "empty", counting)
+    a = pg_col.pgradc_args(delp, pt, phis, uc, vc, grid, NPX)
+    assert len(made) == 2 and len(a.outs) == 2
+    assert [tuple(o.shape) for o in a.outs] == [(6, K, P, W), (6, K, W, P)]
+    assert [x.data_ptr() for x in a.ins] == [
+        x.data_ptr() for x in (delp, pt, phis, uc, vc, grid.rdxc, grid.rdyc)]
+    assert a.iv == (N, K, a.plan.rows) + a.plan.grid[:2]
+    assert a.plan.grid[2] == 6
+    made.clear()
+    b = pg_col.pkgz_args(delp, pt, phis)
+    assert len(made) == 1
+    assert tuple(b.out.shape) == (6, 2 * (K + 1), P, P)
+    assert b.outs[0].data_ptr() == b.out.data_ptr()
+    assert b.outs[1].data_ptr() == b.out[:, K + 1].data_ptr()
+    assert pg_col.pkgz_joined(*b.outs).data_ptr() == b.out.data_ptr()
+    assert b.iv == (K, P, P, b.plan.threads, b.plan.grid[0])
+    assert pg_col.launches == {"pgradc_fused": 0, "pkgz": 0, "geopk": 0}
+
+
+def test_col_pressure_raises_on_what_it_does_not_take(grid):
+    K, W = 3, P + 1
+    delp, pt, phis, f = _col_cells(K)
+    uc, vc = f(6, K, P, W), f(6, K, W, P)
+    for kernel in ("pgradc_fused", "pkgz"):
+        for bad_k in (0, 2000):
+            with pytest.raises(ValueError):
+                pg_col.launch_plan(kernel, bad_k, P, P, 8)
+    deep, deep_pt, _, _ = _col_cells(2000, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        pg_col.pkgz_args(deep, deep_pt, phis.float())
+    with pytest.raises(ValueError, match="shared memory"):
+        pg_col.pgradc_args(deep, deep_pt, phis.float(), *(
+            torch.zeros((6, 2000) + s) for s in ((P, W), (W, P))),
+            type(grid)(**{**vars(grid), "rdxc": grid.rdxc.float(),
+                          "rdyc": grid.rdyc.float()}), NPX)
+    bad = [dict(uc=f(6, K, W, P)), dict(vc=vc.float()), dict(npx=NPX + 1),
+           dict(delpc=delp[0]), dict(ptc=pt[:, 1:]),
+           dict(phis_p=phis[..., 1:]),
+           dict(delpc=f(6, K, P, W), ptc=f(6, K, P, W),
+                phis_p=f(6, 1, P, W))]
+    ok = dict(delpc=delp, ptc=pt, phis_p=phis, uc=uc, vc=vc, g=grid,
+              npx=NPX)
+    for b in bad:
+        with pytest.raises(ValueError):
+            pg_col.pgradc_args(**dict(ok, **b))
+    for b in (dict(pt_p=pt.float()), dict(pt_p=pt[:, 1:]),
+              dict(phis_p=phis[..., 1:]), dict(delp_p=delp[0])):
+        with pytest.raises(ValueError):
+            pg_col.pkgz_args(**dict(dict(delp_p=delp, pt_p=pt, phis_p=phis),
+                                    **b))
+    with pytest.raises(ValueError):
+        pg_col.pkgz_args(delp.int(), pt.int(), phis.int())
