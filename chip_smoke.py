@@ -37,30 +37,32 @@ CLI), as users start the system, through the same kernels.
    operands. Tolerance per output: max |diff| <= 1e-4 x max |ref| in
    float32 (the count of points over 1e-6 relative is printed: a limiter
    branch may flip under float32 rounding) and <= 1e-12 in float64, but
-   max |diff| 0 for pgradc_fused and pkgz (EXACT), which keep the plain
-   version's operation order; the non-finite points (NaN in the
-   cube-corner halo) must coincide. Those two are also held bit for bit
-   at COLUMN_DEPTHS, c192_hydro's C192 inputs with their levels repeated
-   to K = 79 in float64 and K = 32 and 125 in both dtypes, one device
-   kernel a call: the launch plans of ops/pg_col.py that the main paths
-   do not take, and every count of levels pgradc_fused's last batch can
-   hold (K % 4 of 3, 2, 0 and 1 at K = 79, 10, 32 and 125). Each
+   max |diff| 0 for pgradc_fused, pkgz, geopk and ke_section (EXACT),
+   which keep the plain version's operation order; the non-finite points
+   (NaN in the cube-corner halo) must coincide. The three column kernels
+   are also held bit for bit at COLUMN_DEPTHS, c192_hydro's C192 inputs
+   with their levels repeated to K = 79 in float64 and K = 32 and 125 in
+   both dtypes, one device kernel a call: the launch plans of
+   ops/pg_col.py that the main paths do not take, and every count of
+   levels a last batch of 4 can hold (K % 4 of 3, 2, 0 and 1 at K = 79,
+   10, 32 and 125); ke_section likewise on the SW inputs stacked to
+   KE_LEVELS levels. Each
    with its time (CUDA events, median of 20 after warm-up; the kernel
    alone from the profiler, with the device kernels per call and the
    ratio to the bound; for the two d_sw stages each kernel's launches and
    ms per call; a profiler reading that lost a launch's record is taken
    again, and the smoke fails after five incomplete ones), the plain
-   version's time and its bound. For a2b_ord4, sim1,
-   tp2d_sweep, c_sw, pgradc_fused and pkgz, at every call shape, f32 and
+   version's time and its bound. For a2b_ord4, sim1, tp2d_sweep, c_sw,
+   pgradc_fused, pkgz, geopk and ke_section, at every call shape, f32 and
    f64, it prints every device kernel one wrapper call issues, PyTorch's
    ops, copies and fills included ("device_kernels_per_call" in the
    kernels line's shapes), and fails unless each issues exactly 1 in all
    but sim1, which must issue exactly 1 of its own (its copies of
    non-contiguous operands would be listed). It prints the resources of
-   the tp sweep, c_sw, d_sw stage and column kernels (these at K = 79 and
-   125) as built (registers and spill bytes per thread, static and dynamic
-   shared memory per block, resident blocks per SM; "resources" in the
-   kernels line). The
+   the tp sweep, c_sw, d_sw stage, column (at K = 79 and 125) and
+   ke_section kernels as built (registers and spill bytes per
+   thread, static and dynamic shared memory per block, resident blocks per
+   SM; "resources" in the kernels line). The
    tp sweep and ke_section kernels are also checked at every other hord
    they take (tp_sweep.KERNEL_HORDS, ke.KERNEL_HORDS) on the SW inputs;
 3. the SW step (case 2, C48, float64, n_split=2, 4 steps) and the NH big
@@ -209,15 +211,19 @@ A2B_METRICS = ("dxa", "dya", "edge_s_full", "edge_n_full", "edge_w_full",
                "edge_e_full", "a2b_corner_w")
 # the kernels whose every device kernel per wrapper call phase 2 counts
 ALL_KERNELS_COUNTED = ("a2b_ord4", "sim1", "tp2d_sweep", "c_sw",
-                       "pgradc_fused", "pkgz")
+                       "pgradc_fused", "pkgz", "geopk", "ke_section")
 # the kernels phase 2 holds to their plain versions bit for bit
-EXACT = ("pgradc_fused", "pkgz")
+EXACT = ("pgradc_fused", "pkgz", "geopk", "ke_section")
+# the column kernels phase 2 checks at COLUMN_DEPTHS
+COLUMN_KERNELS = ("pgradc_fused", "pkgz", "geopk")
+# the levels phase 2 checks ke_section at beside the SW path's one
+KE_LEVELS = 3
 # the column depths phase 2 checks the column kernels at beside the main
 # paths' (c192_hydro's 79 in float32, C24L10's 10 in float64): 79 in
-# float64 (pgradc_fused 4 rows, pkgz 64 threads), the README's C48L32 CLI
-# depth (the plans of K = 79 but pkgz's 128 threads in float64) and 125
-# (pgradc_fused 4 / 2 rows, pkgz 64 / 32 threads in float32 / float64;
-# the plans of 127), with 79 and 10 every remainder of pgradc_fused's
+# float64 (pgradc_fused 4 rows, geopk and pkgz 64 threads), the README's
+# C48L32 CLI depth (the plans of K = 79 but 128 threads in float64) and
+# 125 (pgradc_fused 4 / 2 rows, geopk and pkgz 64 / 32 threads in float32 /
+# float64; the plans of 127), with 79 and 10 every remainder of the
 # batches of 4 levels
 COLUMN_DEPTHS = ((79, ("float64",)), (32, ("float32", "float64")),
                  (125, ("float32", "float64")))
@@ -234,10 +240,10 @@ def col_plan_args(kernel, K):
     return lead
 
 
-# the kernels whose resources phase 2 reads from the built library (the
-# redesigned tp sweep, c_sw and column kernels, and the d_sw stages that
-# share their headers): {name: [(label, exported function, leading
-# arguments, or a function of the element size that gives them)]}
+# the kernels whose resources phase 2 reads from the built library (every
+# kernel redesigned for the card but a2b and sim1): {name: [(label,
+# exported function, leading arguments, or a function of the element size
+# that gives them)]}
 RESOURCES = {
     "tp2d_sweep": [("", "tp2d_sweep_attrs", ())],
     "c_sw": [("", "c_sw_attrs", ())],
@@ -247,6 +253,9 @@ RESOURCES = {
                       col_plan_args("pgradc_fused", K)) for K in (79, 125)],
     "pkgz": [(f"K{K}", "pkgz_attrs", col_plan_args("pkgz", K))
              for K in (79, 125)],
+    "geopk": [(f"K{K}", "geopk_attrs", col_plan_args("geopk", K))
+              for K in (79, 125)],
+    "ke_section": [("", "ke_section_attrs", ())],
 }
 # position of the hord argument in the calls of the wrappers that take one
 HORD_ARG = {"tp2d_sweep": 3, "ke_section": 13}
@@ -766,7 +775,7 @@ def check_kernels(cap, names, n, tol, label, measure, sw=False):
 
 
 def check_column_depths(cap):
-    """pgradc_fused and pkgz against their plain versions bit for bit at
+    """The COLUMN_KERNELS against their plain versions bit for bit at
     COLUMN_DEPTHS, on c192_hydro's captured C192 calls with their levels
     repeated (or cut) to K and cast to each dtype, with the plan each call
     takes and the device kernels it issues (1). Returns the records."""
@@ -777,7 +786,7 @@ def check_column_depths(cap):
     for K, dnames in COLUMN_DEPTHS:
         for dname in dnames:
             dt = getattr(torch, dname)
-            for name in EXACT:
+            for name in COLUMN_KERNELS:
                 args, kw = next(iter(cap.args[name].values()))
                 K0 = args[0].shape[1]
                 lev = torch.arange(K, device=args[0].device) % K0
@@ -788,7 +797,7 @@ def check_column_depths(cap):
 
                 P = args[0].shape[-1]
                 plan = pg_col.launch_plan(name, K, P, P, dt.itemsize)
-                if name == "pkgz":
+                if name != "pgradc_fused":     # pkgz, geopk
                     new = [depth(x) for x in args[:3]] + list(args[3:])
                     shape = f"{plan.threads} threads"
                 else:
@@ -833,6 +842,21 @@ def per_launch(shapes):
     return out
 
 
+def check_ke_levels(cap, n, label):
+    """ke_section against its plain version bit for bit on the SW path's
+    captured call with its six fields stacked to KE_LEVELS levels (each
+    level scaled apart), with the device kernels it issues (1)."""
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.ops import ke
+    for args, kw in cap.args["ke_section"].values():
+        new = [torch.cat([x * (1 + 0.25 * k) for k in range(KE_LEVELS)],
+                         dim=1) for x in args[:6]] + list(args[6:])
+        lab = f"{label} K = {KE_LEVELS}"
+        compare(lab, "ke_section", new, kw, n, 0.0, sw=True)
+        count_device_kernels(lab, "ke_section",
+                             lambda: ke.ke_section(*new, **kw))
+
+
 def check_other_hords(cap, n, tol, label):
     """The hords a kernel takes besides the SW path's (SWConfig's default
     6), each against the plain version on the captured inputs with only the
@@ -844,8 +868,8 @@ def check_other_hords(cap, n, tol, label):
             for hord in mod.KERNEL_HORDS:
                 if hord != args[pos]:
                     compare(f"{label} hord {hord}", name,
-                            args[:pos] + [hord] + args[pos + 1:], kw, n, tol,
-                            sw=True)
+                            args[:pos] + [hord] + args[pos + 1:], kw, n,
+                            0.0 if name in EXACT else tol, sw=True)
 
 
 def sw_setup(npx, dtype, device, geom=None):
@@ -1471,6 +1495,8 @@ def main():
                   sw=True)
     check_other_hords(cap768, npx - 1, 1e-4, "sw_c768 f32")
     check_other_hords(cap48, 48, 1e-12, "C48 f64")
+    check_ke_levels(cap768, npx - 1, "sw_c768 f32")
+    check_ke_levels(cap48, 48, "C48 f64")
     del cap768, cap48
     shapes_nh = check_kernels(cap192, NH_KERNELS, 192, 1e-4, "c192_nh f32",
                               measure=True)
@@ -1595,7 +1621,7 @@ def main():
             "shapes": shapes[name]}
         if name in resources:
             entry["resources"] = resources[name]
-        if name in EXACT:
+        if name in COLUMN_KERNELS:
             entry["depths"] = [r for r in col_depths if r["kernel"] == name]
         if path == "c192_nh moist":
             entry["c192_nh_dry"] = {"launches": nh_launches[name]}

@@ -15,27 +15,29 @@
 // Every walk keeps the plain version's order (ops/pg_col.py geopk_ref):
 // the pe prefix sum top-down in a register (cumsum, then + ptop), pk =
 // exp(akap log pe), the increments cp * pt * (pk(k+1) - pk(k)) and the gz
-// suffix sum from 0 at the bottom up, then + phis. Every branch is a
-// select, so NaN in the cube-corner halo stays where the plain version
-// puts it. Built with --fmad=false.
+// suffix sum from 0 at the bottom up, then + phis; pkz = (pk(k+1) -
+// pk(k)) / (akap (peln(k+1) - peln(k))). Every branch is a select, so NaN
+// in the cube-corner halo stays where the plain version puts it. Built
+// with --fmad=false.
 //
-// geopk (k_columns): one thread per (tile, j, i) column, adjacent threads
-// on adjacent i; the top-down pass writes pe, peln, pk, pkz and parks the
-// gz increments in gz, the bottom-up pass reads them back. It is the only
-// user of k_columns.
-//
-// pkgz (k_pkgz): one thread per column as well, but the increments stay
-// on chip, in shared memory laid out [k][thread] (no bank conflicts), so
-// pk and gz are each written once and nothing is read back. delp and pt
-// stream RING levels ahead of the walk through a per-thread ring in
-// shared memory filled by cp.async, as sim1's do: a copy in flight needs
-// no register and is not ordered behind the walk's stores (loads into
-// registers levels ahead were not tried in a committed build). pk and gz
-// are the two halves of one [6, 2(K+1), Y, X] tensor: one_grad_p's a2b
-// then reads them as one batch without a copy. A block holds (K + 2 RING)
-// values a thread; its threads (ops/pg_col.py launch_plan) are the most of
-// 128, 64, 32 within 48 KiB (f32 K = 79: 128 threads, 48640 bytes, four
-// blocks an SM).
+// geopk and pkgz (k_geopk, one kernel; FULL, a template flag, adds pe,
+// peln and pkz): one thread per (tile, j, i) column, adjacent threads on
+// adjacent i. The gz increments stay on chip, in shared memory laid out
+// [k][thread] (no bank conflicts), so every output is written once and
+// nothing is read back. delp and pt stream RING levels ahead of the walk
+// through a per-thread ring in shared memory filled by cp.async, as
+// sim1's do: a copy in flight needs no register and is not ordered
+// behind the walk's stores (loads into registers levels ahead were not
+// tried in a committed build). The top-down pass takes BATCH levels at a
+// time and forms pkz's divisions after the batch's levels (each IEEE
+// division ends in a branch to its slow path; whether the order moves
+// the walk's time was not measured apart). pk and gz are written with a
+// tile stride: pkgz's are the two halves of one [6, 2(K+1), Y, X] tensor,
+// which one_grad_p's a2b then reads as one batch without a copy; geopk's
+// are tensors of their own, beside pe, peln and pkz, which live on into
+// the remap. A block holds (K + 2 RING) values a thread; its threads
+// (ops/pg_col.py launch_plan) are the most of 128, 64, 32 within 48 KiB
+// (f32 K = 79: 128 threads, 48640 bytes, four blocks an SM).
 //
 // pgradc_fused (k_pgradc_fused): one launch, no workspace. A block owns a
 // tile of 31 x (rows - 1) wall points of the W x W frame that covers uc's
@@ -74,113 +76,43 @@ namespace {
 
 constexpr int H = 3;
 
-template <typename T> struct ColArgs {
-  const T *delp, *pt, *phis;           // [6, K, Y, X], phis [6, Y, X]
-  T *pe, *peln, *pk, *gz, *pkz;        // pe, peln, pkz may be null
-  int K, Y, X;
-  double akap, ptop, cp;
-};
-
-template <typename T> __global__ void k_columns(ColArgs<T> a) {
-  const long long plane = (long long)a.Y * a.X;
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= 6 * plane) return;
-  const int K = a.K;
-  const long long t = c / plane, yx = c % plane;
-  auto F = [&](int k) { return (t * K + k) * plane + yx; };
-  auto E = [&](int k) { return (t * (K + 1) + k) * plane + yx; };
-  const T akap = T(a.akap), ptop = T(a.ptop), cp = T(a.cp);
-  const bool full = a.pe != nullptr;
-
-  // top-down: pe = ptop + cumsum(delp), peln, pk; gz holds the increments
-  T ln0 = log(ptop);
-  T pk0 = exp(akap * ln0);
-  if (full) {
-    a.pe[E(0)] = ptop;
-    a.peln[E(0)] = ln0;
-  }
-  a.pk[E(0)] = pk0;
-  T s = T(0);
-  for (int k = 0; k < K; ++k) {
-    s = s + a.delp[F(k)];
-    const T pe = ptop + s;
-    const T ln = log(pe);
-    const T pk = exp(akap * ln);
-    const T dpk = pk - pk0;
-    if (full) {
-      a.pe[E(k + 1)] = pe;
-      a.peln[E(k + 1)] = ln;
-      a.pkz[F(k)] = dpk / (akap * (ln - ln0));
-    }
-    a.pk[E(k + 1)] = pk;
-    a.gz[E(k)] = cp * a.pt[F(k)] * dpk;
-    pk0 = pk;
-    ln0 = ln;
-  }
-  // bottom-up: gz = suffix sum of the increments + phis
-  const T ph = a.phis[t * plane + yx];
-  a.gz[E(K)] = T(0) + ph;
-  T g = T(0);
-  for (int k = K - 1; k >= 0; --k) {
-    g = g + a.gz[E(k)];
-    a.gz[E(k)] = g + ph;
-  }
-}
-
-template <typename T>
-int columns(const void* delp, const void* pt, const void* phis, void* pe,
-            void* peln, void* pk, void* gz, void* pkz, int K, int Y, int X,
-            const double* c, cudaStream_t s) {
-  ColArgs<T> a;
-  a.delp = static_cast<const T*>(delp);
-  a.pt = static_cast<const T*>(pt);
-  a.phis = static_cast<const T*>(phis);
-  a.pe = static_cast<T*>(pe);
-  a.peln = static_cast<T*>(peln);
-  a.pk = static_cast<T*>(pk);
-  a.gz = static_cast<T*>(gz);
-  a.pkz = static_cast<T*>(pkz);
-  a.K = K;
-  a.Y = Y;
-  a.X = X;
-  a.akap = c[0];
-  a.ptop = c[1];
-  a.cp = c[2];
-  const long long ncol = 6LL * Y * X;
-  const int nt = 128;
-  k_columns<T><<<(unsigned)((ncol + nt - 1) / nt), nt, 0, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
 constexpr int RING = 8;          // levels a pass loads ahead of its walk
-constexpr int BATCH = 4;         // pgradc_fused's levels per barrier
+constexpr int BATCH = 4;         // levels per barrier (pgradc_fused), per
+                                 // run of divisions (geopk)
 constexpr int WIN_X = 32;        // window columns of pgradc_fused: a warp
 constexpr int MAX_ROWS = 8;      // window rows of pgradc_fused, at most
 constexpr int GZ_SLOTS = 9;      // gz planes: 2 BATCH + 1 between barriers
 constexpr int UP_FIELDS = 3;     // pt, uc, vc streamed by the bottom-up pass
-constexpr int PKGZ_THREADS = 128;  // pkgz threads per block, at most
+constexpr int PKGZ_THREADS = 128;  // geopk / pkgz threads a block, at most
 static_assert(RING == 2 * BATCH && GZ_SLOTS == 2 * BATCH + 1,
               "the bottom-up ring holds two batches; the gz slots the levels "
               "one barrier apart");
+static_assert(BATCH == 4, "the remainder cases of the batched walks");
 
 // keep the compiler from moving shared-memory accesses across a ring wait
 // or refill
 __device__ __forceinline__ void order() { asm volatile("" ::: "memory"); }
 
-template <typename T>
+template <typename T, bool FULL>
 __global__ void __launch_bounds__(PKGZ_THREADS)
-    k_pkgz(const T* __restrict__ delp, const T* __restrict__ pt,
-           const T* __restrict__ phis, T* __restrict__ out,
-           long long plane, int K, double akap_, double ptop_, double cp_) {
+    k_geopk(const T* __restrict__ delp, const T* __restrict__ pt,
+            const T* __restrict__ phis, T* __restrict__ pk,
+            T* __restrict__ gz, long long ts, T* __restrict__ pe,
+            T* __restrict__ peln, T* __restrict__ pkz, long long plane,
+            int K, double akap_, double ptop_, double cp_) {
   const int nt = blockDim.x, tid = threadIdx.x;
   const long long c = (long long)blockIdx.x * nt + tid;
   if (c >= 6 * plane) return;            // no barrier in this kernel
   const long long t = c / plane, yx = c % plane;
   const T* d = delp + t * K * plane + yx;
   const T* q = pt + t * K * plane + yx;
-  // pk and gz: levels 0..K and K+1..2K+1 of out's tile t
-  T* pko = out + t * 2 * (K + 1) * plane + yx;
-  T* gzo = pko + (K + 1) * plane;
+  // this column of pk and gz (tile stride ts), and with FULL of pe, peln
+  // [K + 1] and pkz [K]
+  T* pko = pk + t * ts + yx;
+  T* gzo = gz + t * ts + yx;
+  T* peo = FULL ? pe + t * (K + 1) * plane + yx : nullptr;
+  T* lno = FULL ? peln + t * (K + 1) * plane + yx : nullptr;
+  T* pzo = FULL ? pkz + t * K * plane + yx : nullptr;
   // shared memory, element (k, thread) at [k * nt + tid]: the K gz
   // increments, then the ring (RING slots of delp and pt)
   T* incr = reinterpret_cast<T*>(fv_smem) + tid;
@@ -191,28 +123,62 @@ __global__ void __launch_bounds__(PKGZ_THREADS)
     fv::copy_async(ring + (2 * slot + 1) * nt, q + k * plane);
   };
 
-  // top-down: pe = ptop + cumsum(delp), pk; the gz increments in shared
+  // top-down: pe = ptop + cumsum(delp), peln, pk; the gz increments in
+  // shared memory; with FULL pkz, whose divisions come after the batch's
+  // levels (each IEEE division ends in a branch to its slow path)
   for (int s = 0; s < RING; ++s) {
     if (s < K) fill(s, s);
     fv::copy_commit();
   }
-  T pk0 = exp(akap * log(ptop));
+  T ln0 = log(ptop);
+  T pk0 = exp(akap * ln0);
+  if constexpr (FULL) {
+    peo[0] = ptop;
+    lno[0] = ln0;
+  }
   pko[0] = pk0;
   T sum = T(0);
-  for (int k = 0; k < K; ++k) {
-    const int slot = k % RING;
-    fv::copy_wait<RING - 1>();
-    order();
-    const T dk = ring[2 * slot * nt], qk = ring[(2 * slot + 1) * nt];
-    order();
-    if (k + RING < K) fill(slot, k + RING);
-    fv::copy_commit();
-    sum = sum + dk;
-    const T pe = ptop + sum;
-    const T pkk = exp(akap * log(pe));
-    pko[(k + 1) * plane] = pkk;
-    incr[k * nt] = cp * qk * (pkk - pk0);
-    pk0 = pkk;
+  auto batch = [&](auto nl, int k0) {
+    constexpr int NL = decltype(nl)::value;
+    T num[NL], den[NL];
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const int k = k0 + l, slot = k % RING;
+      fv::copy_wait<RING - 1>();
+      order();
+      const T dk = ring[2 * slot * nt], qk = ring[(2 * slot + 1) * nt];
+      order();
+      if (k + RING < K) fill(slot, k + RING);
+      fv::copy_commit();
+      sum = sum + dk;
+      const T pek = ptop + sum;
+      const T ln = log(pek);
+      const T pkk = exp(akap * ln);
+      const T dpk = pkk - pk0;
+      pko[(k + 1) * plane] = pkk;
+      incr[k * nt] = cp * qk * dpk;
+      if constexpr (FULL) {
+        peo[(k + 1) * plane] = pek;
+        lno[(k + 1) * plane] = ln;
+        num[l] = dpk;
+        den[l] = akap * (ln - ln0);
+      }
+      pk0 = pkk;
+      ln0 = ln;
+    }
+    if constexpr (FULL) {
+#pragma unroll
+      for (int l = 0; l < NL; ++l) pzo[(k0 + l) * plane] = num[l] / den[l];
+    }
+  };
+  int k0 = 0;
+  for (; k0 + BATCH <= K; k0 += BATCH)
+    batch(std::integral_constant<int, BATCH>(), k0);
+  switch (K - k0) {
+    case 1: batch(std::integral_constant<int, 1>(), k0); break;
+    case 2: batch(std::integral_constant<int, 2>(), k0); break;
+    case 3: batch(std::integral_constant<int, 3>(), k0); break;
+    default: break;
   }
   fv::copy_wait<0>();
   // bottom-up: gz = suffix sum of the increments + phis
@@ -400,7 +366,6 @@ __global__ void __launch_bounds__(WIN_X * MAX_ROWS)
   int m0 = 0;
   for (; m0 + BATCH <= K; m0 += BATCH)
     batch(std::integral_constant<int, BATCH>(), m0);
-  static_assert(BATCH == 4, "the remainder cases below");
   switch (K - m0) {
     case 1: batch(std::integral_constant<int, 1>(), m0); break;
     case 2: batch(std::integral_constant<int, 2>(), m0); break;
@@ -452,20 +417,24 @@ int attrs(F kern, int threads, size_t bytes, int* out) {
   return allow_smem(kern);
 }
 
-template <typename T>
-int run_pkgz(const void* delp, const void* pt, const void* phis, void* out,
-             int K, int Y, int X, int threads, int blocks, double akap,
-             double ptop, double cp, cudaStream_t s) {
+// the column kernel of geopk (FULL) or pkgz on `blocks` blocks of
+// `threads` (ops/pg_col.py launch_plan)
+template <typename T, bool FULL>
+int run_geopk(const void* delp, const void* pt, const void* phis, void* pk,
+              void* gz, long long ts, void* pe, void* peln, void* pkz, int K,
+              int Y, int X, int threads, int blocks, double akap, double ptop,
+              double cp, cudaStream_t s) {
   static bool done[64] = {};
   if (K < 1 || threads < 32 || threads > PKGZ_THREADS || threads % 32 ||
       blocks < 1)
     return (int)cudaErrorInvalidValue;
-  int rc = allow_smem_once(k_pkgz<T>, done);
+  int rc = allow_smem_once(k_geopk<T, FULL>, done);
   if (rc) return rc;
-  k_pkgz<T><<<blocks, threads, pkgz_smem<T>(K, threads), s>>>(
+  k_geopk<T, FULL><<<blocks, threads, pkgz_smem<T>(K, threads), s>>>(
       static_cast<const T*>(delp), static_cast<const T*>(pt),
-      static_cast<const T*>(phis), static_cast<T*>(out), (long long)Y * X, K,
-      akap, ptop, cp);
+      static_cast<const T*>(phis), static_cast<T*>(pk), static_cast<T*>(gz),
+      ts, static_cast<T*>(pe), static_cast<T*>(peln), static_cast<T*>(pkz),
+      (long long)Y * X, K, akap, ptop, cp);
   return (int)cudaGetLastError();
 }
 
@@ -489,34 +458,43 @@ int run_pgradc(const void* const* in, void* uc_out, void* vc_out, int n,
 }  // namespace
 
 // Plain C entry points. Fields are contiguous [6, K, Y, X] (pe, peln, pk,
-// gz [6, K+1, Y, X]; pkz [6, K, Y, X]; phis [6, Y, X]); c or the scalars:
-// akap, ptop, cp_air (and dt2 for pgradc_fused). dtype 0 = float32, 1 =
+// gz [6, K+1, Y, X]; pkz [6, K, Y, X]; phis [6, Y, X]); the scalars akap,
+// ptop, cp_air (and dt2 for pgradc_fused). dtype 0 = float32, 1 =
 // float64. Each launches one kernel and returns cudaGetLastError after
-// it.
+// it. threads per block and blocks of geopk and pkgz: ops/pg_col.py
+// launch_plan.
 extern "C" int geopk(const void* delp, const void* pt, const void* phis,
                      void* pe, void* peln, void* pk, void* gz, void* pkz,
-                     int K, int Y, int X, const double* c, int dtype,
+                     int K, int Y, int X, int threads, int blocks,
+                     double akap, double ptop, double cp, int dtype,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long ts = (long long)(K + 1) * Y * X;
   if (dtype == 0)
-    return columns<float>(delp, pt, phis, pe, peln, pk, gz, pkz, K, Y, X, c,
-                          s);
-  return columns<double>(delp, pt, phis, pe, peln, pk, gz, pkz, K, Y, X, c,
-                         s);
+    return run_geopk<float, true>(delp, pt, phis, pk, gz, ts, pe, peln, pkz,
+                                  K, Y, X, threads, blocks, akap, ptop, cp,
+                                  s);
+  return run_geopk<double, true>(delp, pt, phis, pk, gz, ts, pe, peln, pkz,
+                                 K, Y, X, threads, blocks, akap, ptop, cp, s);
 }
 
-// out [6, 2(K+1), Y, X]: pk in levels 0..K of each tile, gz in K+1..2K+1;
-// threads per block and blocks from ops/pg_col.py launch_plan.
+// out [6, 2(K+1), Y, X]: pk in levels 0..K of each tile, gz in K+1..2K+1.
 extern "C" int pkgz(const void* delp, const void* pt, const void* phis,
                     void* out, int K, int Y, int X, int threads, int blocks,
                     double akap, double ptop, double cp, int dtype,
                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return run_pkgz<float>(delp, pt, phis, out, K, Y, X, threads, blocks,
-                           akap, ptop, cp, s);
-  return run_pkgz<double>(delp, pt, phis, out, K, Y, X, threads, blocks, akap,
-                          ptop, cp, s);
+  const long long half = (long long)(K + 1) * Y * X;
+  if (dtype == 0) {
+    float* pk = static_cast<float*>(out);
+    return run_geopk<float, false>(delp, pt, phis, pk, pk + half, 2 * half,
+                                   nullptr, nullptr, nullptr, K, Y, X,
+                                   threads, blocks, akap, ptop, cp, s);
+  }
+  double* pk = static_cast<double*>(out);
+  return run_geopk<double, false>(delp, pt, phis, pk, pk + half, 2 * half,
+                                  nullptr, nullptr, nullptr, K, Y, X, threads,
+                                  blocks, akap, ptop, cp, s);
 }
 
 // delpc, ptc [6,K,P,P], phis [6,P,P], uc [6,K,P,W], vc [6,K,W,P], rdxc
@@ -542,10 +520,20 @@ extern "C" int pgradc_fused(const void* delpc, const void* ptc,
 // registers per thread, [1] local (spill) bytes per thread, [2] static and
 // [3] dynamic shared memory per block, [4] resident blocks per SM, [5]
 // threads per block. Returns a cudaError_t code.
+extern "C" int geopk_attrs(int K, int threads, int dtype, int* out) {
+  if (dtype == 0)
+    return attrs(k_geopk<float, true>, threads,
+                 pkgz_smem<float>(K, threads), out);
+  return attrs(k_geopk<double, true>, threads,
+               pkgz_smem<double>(K, threads), out);
+}
+
 extern "C" int pkgz_attrs(int K, int threads, int dtype, int* out) {
   if (dtype == 0)
-    return attrs(k_pkgz<float>, threads, pkgz_smem<float>(K, threads), out);
-  return attrs(k_pkgz<double>, threads, pkgz_smem<double>(K, threads), out);
+    return attrs(k_geopk<float, false>, threads,
+                 pkgz_smem<float>(K, threads), out);
+  return attrs(k_geopk<double, false>, threads,
+               pkgz_smem<double>(K, threads), out);
 }
 
 extern "C" int pgradc_fused_attrs(int K, int rows, int dtype, int* out) {

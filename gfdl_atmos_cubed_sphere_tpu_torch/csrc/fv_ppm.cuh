@@ -5,12 +5,11 @@
 // A one-dimensional PPM flux is split in two: the per-cell edge values
 // (bl, br, and the linear family's smoothness flag; ppm_edges, xtp_cell)
 // and the upwind combination at a wall from its two cells (ppm_combine,
-// xtp_combine). xtp_flux evaluates both cells of one wall, as the
-// ke_section kernel does; the fused stage kernels evaluate each cell of a
-// line once into shared memory (ppm_cell, xtp_cell) and then combine per
-// wall; the tp sweep holds a line one cell per lane of a warp and takes
-// the neighbour cell's values by shuffles. All run the same expressions in
-// the same order, so they round alike.
+// xtp_combine). The fused stage kernels and the ke_section kernel evaluate
+// each cell of a line once into shared memory (ppm_cell, xtp_cell) and
+// then combine per wall; the tp sweep holds a line one cell per lane of a
+// warp and takes the neighbour cell's values by shuffles. All run the
+// same expressions in the same order, so they round alike.
 // Every branch is a select on values, never a multiply by a mask, so NaN
 // held in a cube-corner halo stays where the plain PyTorch versions put it.
 
@@ -404,18 +403,6 @@ __device__ __forceinline__ T xtp_combine(const Line<T>& L, int W, T c,
   }
   return cpos ? ul + (T(1) - cfl) * (cl.br - cfl * b0l)
               : ur + (T(1) + cfl) * (cr.bl + cfl * b0r);
-}
-
-// xtp_u flux at wall W of a line, Courant distance c
-template <typename T>
-__device__ T xtp_flux(const Line<T>& L, int W, T c, int npx, int iord,
-                      bool zrow) {
-  const int nc = L.nc;
-  PpmCell<T> cl = (W >= 1) ? xtp_cell(L, W - 1, npx, iord, zrow)
-                           : PpmCell<T>{T(0), T(0), false};
-  PpmCell<T> cr = (W < nc) ? xtp_cell(L, W, npx, iord, zrow)
-                           : PpmCell<T>{T(0), T(0), false};
-  return xtp_combine(L, W, c, cl, cr, iord);
 }
 
 }  // namespace fv

@@ -2,172 +2,261 @@
 //
 // Replaces the TPU kernel ke_section_pallas
 // (gfdl_atmos_cubed_sphere_tpu/ops/pallas_sw.py:34, body sw_core.ke_section
-// at ops/sw_core.py:997). Per corner point: the advective corner winds vb
-// and ub with their tile-edge forms, their PPM self-advection (ytp_v along
-// columns of v, xtp_u along rows of u, sw_core.F90:2154/2524), and the four
-// cube-corner KE fixes.
+// at ops/sw_core.py:997). At every corner point of the padded W x W frame:
+// the advective corner winds vb and ub with their tile-edge forms, their
+// PPM self-advection (ytp_v along columns of v, xtp_u along rows of u,
+// sw_core.F90:2154/2524) and the four cube-corner KE fixes.
 //
-// Bound on an H100: bytes. 6 wind planes and 6 metric planes in, one plane
-// out per level; ~200 flops per point. Design: one thread per output corner
-// point computes everything it needs from device memory; the neighbouring
-// reads (4 cells each way along a line) are shared through L1, so each
-// operand crosses device memory about once. The xtp_u device code is
-// fv_ppm.cuh's, shared with the d_sw winds kernel. The limiter branches and
-// the tile-edge zeroing are selects, never a multiply by a mask, so NaN held
-// in a cube-corner halo cannot leak. Built with --fmad=false so the arithmetic
-// rounds as the plain PyTorch version does.
+// Bound on an H100: 6 wind planes and 6 metric planes in, one plane out
+// per level (~0.19 GB of f32 at C768, ~0.056 ms at 3.35 TB/s); the PPM
+// edge values and the limiters make it an instruction stream of some
+// hundreds of operations a corner, so it is bound by its instructions and
+// their latency more than by its bytes.
+//
+// Design (the tp sweep's warp line, tp2d_sweep.cu). A warp owns a strip of
+// SPAN = 31 corner columns and ROWS = 2 corner rows of one (tile, level)
+// and walks it down, one corner row a step: lane l forms the edge values
+// of u cell I - 1 of the row (fv_ppm.cuh xtp_cell) and takes cell I's from
+// lane l + 1 by shuffles (lane 31 forms a cell only), and forms v cell J
+// of its column, carrying cell J - 1 from the step before (a strip forms
+// ROWS + 1 v cells for its ROWS corners), where one thread per corner
+// would form both cells of each line at every corner. Nothing goes
+// through shared memory or waits at a barrier. Each corner then combines
+// its two cells per line and forms vb, ub and the cube-corner fixes
+// (ke_corner). Every operand whose rows are contiguous is read where it
+// lies, from device memory through L1, through its tile and level
+// strides; out-of-frame reads (the zero padding of
+// sw_core._cl/_cr/_rl/_rr) are guarded selects. Alternatives not taken,
+// none of them measured by a build in this repository (so the choice is
+// untested here): d_sw winds' window staged in shared memory by cp.async
+// element copies, a block forming its box's cells in shared memory before
+// a barrier, strips of 1, 4 or 8 rows, 8-warp blocks. No value is ever
+// multiplied by a mask, so NaN held in a cube-corner halo stays where the
+// plain version puts it. Built with --fmad=false: bit-exact with the
+// plain version.
 
-#include "fv_ppm.cuh"
+#include "fv_tile.cuh"
 
 namespace {
 
-using fv::Line;
-using fv::xtp_flux;
+constexpr int WARPS = 4;    // warps a block
+constexpr int SPAN = 31;    // corner columns of a warp strip
+constexpr int ROWS = 2;     // corner rows of a warp strip
+// blocks an SM the build is held to: 64 registers a thread in f32 (more
+// registers, fewer resident warps: untested here), 128 in f64, where 64
+// spill
+template <typename T> constexpr int min_blocks() {
+  return sizeof(T) == 4 ? 8 : 4;
+}
+constexpr int N_OPS = 12;
+// the wrapper's operands
+enum Op { U, V, UC, VC, UT, VT, COSA, RSINA, DX, RDX, DY, RDY };
 
-constexpr int H = 3;
-constexpr int BX = 32, BY = 8;
+// the fields ke_corner reads through its accessor: u, vc, vt on y-walls
+// [W, P], v, uc, ut on x-walls [P, W]
+enum KeField { KE_U, KE_V, KE_UC, KE_VC, KE_UT, KE_VT };
 
-__host__ __device__ constexpr int f(int i) { return i - 1 + H; }
+// ke at corner (J, I) (sw_core.F90:1063-1228, in the plain version's
+// operation order). at(f, j, i): field f at padded (j, i), 0 outside
+// its frame (sw_core._cl/_cr/_rl/_rr's zero padding). cs, rs: cosa and
+// rsina at the corner. lv: the ytp_v line of v column I, lu: the xtp_u line
+// of u row J; vL, vR: the edge values of v cells J - 1 and J of lv, uL, uR:
+// of u cells I - 1 and I of lu (zero outside the line). dt6: dt / 6 rounded
+// once from double, as the plain version does.
+template <typename T, typename A>
+__device__ __forceinline__ T ke_corner(const A& at, int J, int I, int npx,
+                                       int iord, T cs, T rs, T dt, T dt6,
+                                       const fv::Line<T>& lv,
+                                       const fv::Line<T>& lu,
+                                       const fv::PpmCell<T>& vL,
+                                       const fv::PpmCell<T>& vR,
+                                       const fv::PpmCell<T>& uL,
+                                       const fv::PpmCell<T>& uR) {
+  const T dt5 = T(0.5) * dt, dt4 = T(0.25) * dt;
+  const bool edgeJ = J == fv::xf(1) || J == fv::xf(npx);
+  const bool edgeI = I == fv::xf(1) || I == fv::xf(npx);
+  const bool midJ = J >= fv::xf(2) && J <= fv::xf(npx - 1);
+  const bool midI = I >= fv::xf(2) && I <= fv::xf(npx - 1);
+  // vb: the tile-edge rows, then the tile-edge columns (the stencil of
+  // cells f(-1)..f(2) at I = f(1) and f(npx-2)..f(npx+1) at I = f(npx) is
+  // I - 2 .. I + 1 at both), then the rest; ub the same across. Branches,
+  // so that a corner reads only its own form's operands
+  T vb, ub;
+  if (edgeJ)
+    vb = dt5 * (at(KE_VT, J, I - 1) + at(KE_VT, J, I));
+  else if (edgeI && midJ)
+    vb = dt4 * (-at(KE_VT, J, I - 2)
+                + T(3) * (at(KE_VT, J, I - 1) + at(KE_VT, J, I))
+                - at(KE_VT, J, I + 1));
+  else
+    vb = dt5 * (at(KE_VC, J, I - 1) + at(KE_VC, J, I)
+                - (at(KE_UC, J - 1, I) + at(KE_UC, J, I)) * cs) * rs;
+  if (edgeI)
+    ub = dt5 * (at(KE_UT, J - 1, I) + at(KE_UT, J, I));
+  else if (edgeJ && midI)
+    ub = dt4 * (-at(KE_UT, J - 2, I)
+                + T(3) * (at(KE_UT, J - 1, I) + at(KE_UT, J, I))
+                - at(KE_UT, J + 1, I));
+  else
+    ub = dt5 * (at(KE_UC, J - 1, I) + at(KE_UC, J, I)
+                - (at(KE_VC, J, I - 1) + at(KE_VC, J, I)) * cs) * rs;
+  const T kev = vb * fv::xtp_combine(lv, J, vb, vL, vR, iord);
+  const T ke = T(0.5) * (kev + ub * fv::xtp_combine(lu, I, ub, uL, uR, iord));
+  // the cube-corner fixes (sw_core.F90:1203-1228) in one form: at (f(1),
+  // f(1)), (f(1), f(npx)), (f(npx), f(npx)), (f(npx), f(1)) the offsets a
+  // and b are (0, 0), (-1, 0), (-1, -1), (0, -1), and the last vt enters
+  // with + where a == b and with - elsewhere (x + (-y) rounds as x - y)
+  if (!(edgeJ && edgeI)) return ke;
+  const int a = I == fv::xf(1) ? 0 : -1, b = J == fv::xf(1) ? 0 : -1;
+  const T w = at(KE_VT, J, I + a);
+  return dt6 * ((at(KE_UT, J, I) + at(KE_UT, J - 1, I)) * at(KE_U, J, I + a)
+                + (at(KE_VT, J, I) + at(KE_VT, J, I - 1)) * at(KE_V, J + b, I)
+                + (at(KE_UT, J + b, I) + (a == b ? w : -w))
+                      * at(KE_U, J, I - 1 - a));
+}
 
 template <typename T> struct KeArgs {
-  // u v uc vc ut vt (per level), cosa rsina dx rdx dy rdy (per tile)
-  const T *u, *v, *uc, *vc, *ut, *vt, *cosa, *rsina, *dx, *rdx, *dy, *rdy;
-  T* ke;
+  const T* in[N_OPS];
+  long long st[N_OPS][2];   // tile and level strides in elements
+  T* ke;                    // contiguous [6, K, W, W]
   int n, K, iord;
-  T dt, dt6;   // dt6 = dt / 6 rounded once from double, as the plain version
+  T dt, dt6;                // dt6 = dt / 6 rounded once from double
+};
+
+// the six KE fields of one (tile, level) at padded (j, i), 0 outside their
+// frames (sw_core._cl/_cr/_rl/_rr's zero padding): u, vc, vt on y-walls
+// [NW, NC], v, uc, ut on x-walls [NC, NW], rows contiguous
+template <typename T> struct KeFields {
+  const T *u, *v, *uc, *vc, *ut, *vt;
+  int NC, NW;
+  __device__ __forceinline__ T operator()(int f, int j, int i) const {
+    const bool yw = f == KE_U || f == KE_VC || f == KE_VT;
+    const T* p = f == KE_U ? u : f == KE_V ? v : f == KE_UC ? uc
+               : f == KE_VC ? vc : f == KE_UT ? ut : vt;
+    const bool in = yw ? (j >= 0 && j < NW && i >= 0 && i < NC)
+                       : (j >= 0 && j < NC && i >= 0 && i < NW);
+    return in ? p[j * (yw ? NC : NW) + i] : T(0);
+  }
 };
 
 template <typename T>
-__global__ void __launch_bounds__(BX * BY) ke_section_kernel(KeArgs<T> a) {
-  const int n = a.n, NC = n + 2 * H, NW = n + 1 + 2 * H, npx = n + 1;
-  const int I = blockIdx.x * BX + threadIdx.x;
-  const int J = blockIdx.y * BY + threadIdx.y;
-  if (I >= NW || J >= NW) return;
-  const int tk = blockIdx.z, t = tk / a.K;
-  const long long yw = (long long)NW * NC;   // y-wall [NW, NC] plane
-  const long long xw = (long long)NC * NW;   // x-wall [NC, NW] plane
-  const T* u = a.u + tk * yw;
-  const T* v = a.v + tk * xw;
-  const T* uc = a.uc + tk * xw;
-  const T* vc = a.vc + tk * yw;
-  const T* ut = a.ut + tk * xw;
-  const T* vt = a.vt + tk * yw;
-  const T* cosa = a.cosa + (long long)t * NW * NW;
-  const T* rsina = a.rsina + (long long)t * NW * NW;
-  const T* dx = a.dx + t * yw;
-  const T* rdx = a.rdx + t * yw;
-  const T* dy = a.dy + t * xw;
-  const T* rdy = a.rdy + t * xw;
-  const T dt5 = T(0.5) * a.dt, dt4 = T(0.25) * a.dt;
+__device__ __forceinline__ fv::PpmCell<T> shfl_down(const fv::PpmCell<T>& c) {
+  fv::PpmCell<T> o;
+  o.bl = __shfl_down_sync(0xffffffffu, c.bl, 1);
+  o.br = __shfl_down_sync(0xffffffffu, c.br, 1);
+  o.smt = __shfl_down_sync(0xffffffffu, (int)c.smt, 1) != 0;
+  return o;
+}
 
-  // y-wall [NW, NC] and x-wall [NC, NW] reads with the zero padding of
-  // sw_core._cl/_cr/_rl/_rr
-  auto YW = [&](const T* p, int j, int i) -> T {
-    return (j >= 0 && j < NW && i >= 0 && i < NC) ? p[(long long)j * NC + i]
-                                                  : T(0);
-  };
-  auto XW = [&](const T* p, int j, int i) -> T {
-    return (j >= 0 && j < NC && i >= 0 && i < NW) ? p[(long long)j * NW + i]
-                                                  : T(0);
-  };
-  const T cs = cosa[(long long)J * NW + I], rs = rsina[(long long)J * NW + I];
-  const bool midJ = J >= f(2) && J <= f(npx - 1);
-  const bool midI = I >= f(2) && I <= f(npx - 1);
-
-  T vb;
-  if (J == f(1) || J == f(npx)) {
-    vb = dt5 * (YW(vt, J, I - 1) + YW(vt, J, I));
-  } else if (I == f(1) && midJ) {
-    vb = dt4 * (-YW(vt, J, f(-1)) + T(3) * (YW(vt, J, f(0)) + YW(vt, J, f(1)))
-                - YW(vt, J, f(2)));
-  } else if (I == f(npx) && midJ) {
-    vb = dt4 * (-YW(vt, J, f(npx - 2))
-                + T(3) * (YW(vt, J, f(npx - 1)) + YW(vt, J, f(npx)))
-                - YW(vt, J, f(npx + 1)));
-  } else {
-    vb = dt5 * (YW(vc, J, I - 1) + YW(vc, J, I)
-                - (XW(uc, J - 1, I) + XW(uc, J, I)) * cs) * rs;
-  }
-  T ub;
-  if (I == f(1) || I == f(npx)) {
-    ub = dt5 * (XW(ut, J - 1, I) + XW(ut, J, I));
-  } else if (J == f(1) && midI) {
-    ub = dt4 * (-XW(ut, f(-1), I) + T(3) * (XW(ut, f(0), I) + XW(ut, f(1), I))
-                - XW(ut, f(2), I));
-  } else if (J == f(npx) && midI) {
-    ub = dt4 * (-XW(ut, f(npx - 2), I)
-                + T(3) * (XW(ut, f(npx - 1), I) + XW(ut, f(npx), I))
-                - XW(ut, f(npx + 1), I));
-  } else {
-    ub = dt5 * (XW(uc, J - 1, I) + XW(uc, J, I)
-                - (YW(vc, J, I - 1) + YW(vc, J, I)) * cs) * rs;
-  }
-
-  // ytp_v along column I of v (x-wall array), xtp_u along row J of u
-  Line<T> lv{v + I, dy + I, rdy + I, NW, NC, 0};
-  Line<T> lu{u + (long long)J * NC, dx + (long long)J * NC,
-             rdx + (long long)J * NC, 1, NC, 0};
-  const bool zcol = I == f(1) || I == f(npx);
-  const bool zrow = J == f(1) || J == f(npx);
-  T kev = vb * xtp_flux(lv, J, vb, npx, a.iord, zcol);
-  T ke = T(0.5) * (kev + ub * xtp_flux(lu, I, ub, npx, a.iord, zrow));
-
-  // corner KE fixes (sw_core.F90:1203-1228); P(a, j, i) = a[f(j), f(i)]
-  if ((J == f(1) || J == f(npx)) && (I == f(1) || I == f(npx))) {
-    const T dt6 = a.dt6;
-    auto pu = [&](int j, int i) { return YW(u, f(j), f(i)); };
-    auto pv = [&](int j, int i) { return XW(v, f(j), f(i)); };
-    auto put = [&](int j, int i) { return XW(ut, f(j), f(i)); };
-    auto pvt = [&](int j, int i) { return YW(vt, f(j), f(i)); };
-    const int m = npx;
-    if (J == f(1) && I == f(1))
-      ke = dt6 * ((put(1, 1) + put(0, 1)) * pu(1, 1)
-                  + (pvt(1, 1) + pvt(1, 0)) * pv(1, 1)
-                  + (put(1, 1) + pvt(1, 1)) * pu(1, 0));
-    else if (J == f(1))
-      ke = dt6 * ((put(1, m) + put(0, m)) * pu(1, m - 1)
-                  + (pvt(1, m) + pvt(1, m - 1)) * pv(1, m)
-                  + (put(1, m) - pvt(1, m - 1)) * pu(1, m));
-    else if (I == f(npx))
-      ke = dt6 * ((put(m, m) + put(m - 1, m)) * pu(m, m - 1)
-                  + (pvt(m, m) + pvt(m, m - 1)) * pv(m - 1, m)
-                  + (put(m - 1, m) + pvt(m, m - 1)) * pu(m, m));
-    else
-      ke = dt6 * ((put(m, 1) + put(m - 1, 1)) * pu(m, 1)
-                  + (pvt(m, 1) + pvt(m, 0)) * pv(m - 1, 1)
-                  + (put(m - 1, 1) - pvt(m, 1)) * pu(m, 0));
-  }
-  a.ke[(long long)tk * NW * NW + (long long)J * NW + I] = ke;
+// c where ok, else the zero cell of a wall outside the line, by value (a
+// select between two cells held in variables would select their addresses
+// and keep them in local memory)
+template <typename T>
+__device__ __forceinline__ fv::PpmCell<T> cell_if(bool ok,
+                                                  const fv::PpmCell<T>& c) {
+  return fv::PpmCell<T>{ok ? c.bl : T(0), ok ? c.br : T(0), ok && c.smt};
 }
 
 template <typename T>
-int launch(const void* const* in, void* ke, int n, int K, int iord, double dt,
-           cudaStream_t s) {
+__global__ void __launch_bounds__(32 * WARPS, min_blocks<T>())
+    ke_section_kernel(KeArgs<T> a) {
+  const int n = a.n, NC = n + 6, NW = n + 7, npx = n + 1, iord = a.iord;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int t = blockIdx.z / a.K, k = blockIdx.z % a.K;
+  // this lane's corner column; the warp's corner rows [J0, J1)
+  const int I = blockIdx.x * SPAN + lane;
+  const int J0 = (blockIdx.y * WARPS + warp) * ROWS;
+  if (J0 >= NW) return;                  // a whole warp; no barrier here
+  const int J1 = min(J0 + ROWS, NW);
+  const bool own = lane < SPAN && I < NW;
+  // operand o of this (tile, level)
+  const T* p[N_OPS];
+#pragma unroll
+  for (int o = 0; o < N_OPS; ++o)
+    p[o] = a.in[o] + t * a.st[o][0] + k * a.st[o][1];
+  const KeFields<T> at{p[U], p[V], p[UC], p[VC], p[UT], p[VT], NC, NW};
+  // the ytp_v line of v column I (a column past the frame reads the last
+  // one; its corners are not written)
+  const int Ic = min(I, NW - 1);
+  const fv::Line<T> lv{p[V] + Ic, p[DY] + Ic, p[RDY] + Ic, NW, NC, 0};
+  const bool zcol = I == fv::xf(1) || I == fv::xf(npx);
+  const T* cosa = p[COSA] + Ic;
+  const T* rsina = p[RSINA] + Ic;
+  T* out = a.ke + ((long long)t * a.K + k) * NW * NW + Ic;
+  // step J: v cell J of the lane's column, then (from J0 on) u cell I - 1
+  // of row J and the corner (J, I); the step before J0 forms v cell J0 - 1
+  // only
+  fv::PpmCell<T> vL{T(0), T(0), false};
+#pragma unroll
+  for (int J = J0 - 1; J < J0 + ROWS; ++J) {
+    if (J >= J1) break;                  // the last strip of the frame
+    const int Ju = max(J, 0);
+    const fv::Line<T> lu{p[U] + Ju * NC, p[DX] + Ju * NC, p[RDX] + Ju * NC,
+                         1, NC, 0};
+    const bool zrow = J == fv::xf(1) || J == fv::xf(npx);
+    const fv::PpmCell<T> vR = fv::xtp_cell(lv, J, npx, iord, zcol);
+    if (J >= J0) {
+      const fv::PpmCell<T> uL = fv::xtp_cell(lu, I - 1, npx, iord, zrow);
+      const fv::PpmCell<T> uR = shfl_down(uL);
+      if (own)
+        out[J * NW] = ke_corner(
+            at, J, I, npx, iord, cosa[J * NW], rsina[J * NW], a.dt, a.dt6,
+            lv, lu, cell_if(J >= 1, vL), cell_if(J < NC, vR),
+            cell_if(I >= 1, uL), cell_if(I < NC, uR));
+    }
+    vL = vR;
+  }
+}
+
+template <typename T>
+int run(const void* const* in, const long long* strides, void* ke,
+        const int* iv, double dt, cudaStream_t s) {
+  // iv: n, K, iord, corner rows of a warp strip (ROWS), blocks along x
+  // and y
   KeArgs<T> a;
-  const T** p[12] = {&a.u,    &a.v,     &a.uc, &a.vc,  &a.ut, &a.vt,
-                     &a.cosa, &a.rsina, &a.dx, &a.rdx, &a.dy, &a.rdy};
-  for (int b = 0; b < 12; ++b) *p[b] = static_cast<const T*>(in[b]);
+  for (int b = 0; b < N_OPS; ++b) {
+    a.in[b] = static_cast<const T*>(in[b]);
+    for (int d = 0; d < 2; ++d) a.st[b][d] = strides[b * 2 + d];
+  }
   a.ke = static_cast<T*>(ke);
-  a.n = n;
-  a.K = K;
-  a.iord = iord;
+  a.n = iv[0];
+  a.K = iv[1];
+  a.iord = iv[2];
   a.dt = T(dt);
   a.dt6 = T(dt / 6.0);
-  const int NW = n + 1 + 2 * H;
-  dim3 block(BX, BY);
-  dim3 grid((NW + BX - 1) / BX, (NW + BY - 1) / BY, 6 * K);
-  ke_section_kernel<T><<<grid, block, 0, s>>>(a);
+  const int NW = a.n + 7;
+  if (a.K < 1 || iv[3] != ROWS || iv[4] * SPAN < NW ||
+      (long long)iv[5] * WARPS * ROWS < NW)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(iv[4], iv[5], 6 * a.K);
+  ke_section_kernel<T><<<grid, 32 * WARPS, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point. in: 12 device pointers u v uc vc ut vt ([6, K, ...])
-// cosa rsina dx rdx dy rdy ([6, 1, ...]); ke [6, K, NW, NW]. dtype 0 =
-// float32, 1 = float64. Returns cudaGetLastError.
-extern "C" int ke_section(const void* const* in, void* ke, int n, int K,
-                          int iord, double dt, int dtype, void* stream) {
+// cosa rsina dx rdx dy rdy ([6, 1, ...]; u, vc, vt, dx, rdx [., W, P], v,
+// uc, ut, dy, rdy [., P, W], cosa, rsina [., W, W]), each read where it
+// lies, its rows contiguous; strides: the tile and level strides of each
+// operand in elements (0 along the level axis of a metric); ke: contiguous
+// [6, K, W, W]. iv: n, K, iord,
+// corner rows of a warp strip, blocks along x (strips of SPAN columns) and
+// y (WARPS strips of rows) (ops/ke.py launch_plan). dtype 0 = float32, 1 =
+// float64. Returns a cudaError_t code.
+extern "C" int ke_section(const void* const* in, const long long* strides,
+                          void* ke, const int* iv, double dt, int dtype,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(in, ke, n, K, iord, dt, s);
-  return launch<double>(in, ke, n, K, iord, dt, s);
+  if (dtype == 0) return run<float>(in, strides, ke, iv, dt, s);
+  return run<double>(in, strides, ke, iv, dt, s);
+}
+
+// The kernel's resources (fv_tile.cuh kernel_attrs): registers, local
+// (spill) bytes, static and dynamic shared memory, resident blocks per SM
+// and threads per block into out[0..5]. Returns a cudaError_t code.
+extern "C" int ke_section_attrs(int dtype, int* out) {
+  if (dtype == 0)
+    return fv::kernel_attrs(ke_section_kernel<float>, 32 * WARPS, 0, out);
+  return fv::kernel_attrs(ke_section_kernel<double>, 32 * WARPS, 0, out);
 }

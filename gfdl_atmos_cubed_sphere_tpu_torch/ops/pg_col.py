@@ -7,15 +7,16 @@ C grid fused with p_grad_c's uc, vc update). One source, csrc/col_pressure.cu,
 holds the three entry points, each one launch per call; every column walk
 keeps the plain version's order (the pe prefix sum top-down, the gz suffix
 sum bottom-up), so the kernels equal the plain versions bit for bit.
-geopk: one thread per (tile, j, i) column. pkgz: one thread per column,
-the gz increments kept in shared memory; pk and gz are the two halves of
-one [6, 2(K+1), Y, X] tensor, which one_grad_p's a2b takes whole.
+geopk and pkgz share one column kernel: one thread per column, the gz
+increments kept in shared memory, delp and pt streamed ahead by cp.async;
+geopk also writes pe, peln and pkz, pkgz writes pk and gz as the two
+halves of one [6, 2(K+1), Y, X] tensor, which one_grad_p's a2b takes
+whole. Each wrapper allocates its outputs and nothing else.
 pgradc_fused: a block walks the columns of a 32 x rows window of cells,
-keeps pk in shared memory and writes each wall point's uc and vc once; the
-wrapper allocates only uc_out and vc_out. `launch_plan` gives both their
-block shapes from K and the element size. Bound by device-memory bytes at
-C192L79 f32: geopk ~525 MB (~0.157 ms at 3.35 TB/s), pkgz ~300 MB
-(~0.090 ms), pgradc_fused ~449 MB (~0.134 ms).
+keeps pk in shared memory and writes each wall point's uc and vc once.
+`launch_plan` gives the block shapes from K and the element size. Bound
+by device-memory bytes at C192L79 f32: geopk ~525 MB (~0.157 ms at 3.35
+TB/s), pkgz ~300 MB (~0.090 ms), pgradc_fused ~449 MB (~0.134 ms).
 
 `geopk`, `pkgz` and `pgradc_fused` launch their kernels for a CUDA tensor
 and take the plain versions (`geopk_ref`, `pkgz_ref`, `pgradc_fused_ref`)
@@ -35,15 +36,15 @@ from .sw_core import _cl, _cr, _rl, _rr
 
 H = 3
 #: csrc/col_pressure.cu's constants: levels a pass loads ahead of its walk;
-#: pgradc_fused's levels per barrier, window columns (a warp), most window
-#: rows, gz planes and fields its bottom-up pass streams; pkgz's most
-#: threads a block
+#: pgradc_fused's levels per barrier (geopk's per run of divisions), window
+#: columns (a warp), most window rows, gz planes and fields its bottom-up
+#: pass streams; geopk's and pkgz's most threads a block
 RING, BATCH, WIN_X, MAX_ROWS, GZ_SLOTS, UP_FIELDS = 8, 4, 32, 8, 9, 3
 PKGZ_THREADS = 128
 #: the block shapes the plans try, largest first, and the shared memory a
 #: block may take: pgradc_fused leaves room for two blocks an SM (233472
-#: bytes an SM, 1 KiB of it reserved per block), pkgz for four; SMEM_MAX:
-#: the most one block can take.
+#: bytes an SM, 1 KiB of it reserved per block), geopk and pkgz for four;
+#: SMEM_MAX: the most one block can take.
 PGC_ROWS = (8, 4, 2)
 PKGZ_BLOCKS = (128, 64, 32)
 PGC_BUDGET, PKGZ_BUDGET, SMEM_MAX = 115712, 49152, 232448
@@ -121,15 +122,13 @@ def geopk(delp_p, pt_p, phis_p, akap, ptop):
     version for a CPU tensor."""
     if not delp_p.is_cuda:
         return geopk_ref(delp_p, pt_p, phis_p, akap, ptop)
-    ins, (K, Y, X) = _cells("geopk", delp_p, pt_p, phis_p)
-    pe, peln, pk, gz = (_new(delp_p, K + 1, Y, X) for _ in range(4))
-    pkz = _new(delp_p, K, Y, X)
-    rc = _lib().geopk(*(a.data_ptr() for a in ins + [pe, peln, pk, gz, pkz]),
-                      K, Y, X, _consts(akap, ptop), _build.dtype_code(delp_p),
-                      _build.stream_ptr(delp_p))
+    a = geopk_args(delp_p, pt_p, phis_p)
+    rc = _lib().geopk(*(t.data_ptr() for t in a.ins + list(a.outs)), *a.iv,
+                      float(akap), float(ptop), con.CP_AIR,
+                      _build.dtype_code(delp_p), _build.stream_ptr(delp_p))
     _build.check(rc, "geopk")
     launches["geopk"] += 1
-    return pe, peln, pk, gz, pkz
+    return a.outs
 
 
 def pkgz(delp_p, pt_p, phis_p, akap, ptop):
@@ -175,23 +174,23 @@ def pgradc_smem(K, rows, itemsize):
 
 
 def pkgz_smem(K, threads, itemsize):
-    """Shared memory of a pkgz block (csrc/col_pressure.cu pkgz_smem): the
-    K gz increments and a ring of RING levels of delp and pt for each of
-    its columns."""
+    """Shared memory of a geopk or pkgz block (csrc/col_pressure.cu
+    pkgz_smem): the K gz increments and a ring of RING levels of delp and
+    pt for each of its columns."""
     return (K + 2 * RING) * threads * itemsize
 
 
 @functools.lru_cache(maxsize=64)
 def launch_plan(kernel, K, Y, X, itemsize):
-    """The launch of kernel "pgradc_fused" or "pkgz" for [6, K, Y, X]
-    cells: `threads` per block, `grid` (blocks along x, y, z; the kernels
-    are launched with it), `smem` bytes of shared memory a block, and
-    `rows` (pgradc_fused's window rows, a block owning 31 x (rows - 1)
-    wall points of the W x W frame, W = X + 1; None for pkgz, one thread
-    per column). The block is the largest the
-    kernel's budget holds (PGC_BUDGET, PKGZ_BUDGET), else the smallest if
-    it fits SMEM_MAX; ValueError when none does. Cached: the plan is
-    looked up on every wrapper call."""
+    """The launch of kernel "pgradc_fused", "pkgz" or "geopk" for
+    [6, K, Y, X] cells: `threads` per block, `grid` (blocks along x, y, z;
+    the kernels are launched with it), `smem` bytes of shared memory a
+    block, and `rows` (pgradc_fused's window rows, a block owning 31 x
+    (rows - 1) wall points of the W x W frame, W = X + 1; None for pkgz
+    and geopk, one thread per column, one kernel). The block is the
+    largest the kernel's budget holds (PGC_BUDGET, PKGZ_BUDGET), else the
+    smallest if it fits SMEM_MAX; ValueError when none does. Cached: the
+    plan is looked up on every wrapper call."""
     if K < 1:
         raise ValueError(f"{kernel} kernel: {K} levels")
     if kernel == "pgradc_fused":
@@ -199,7 +198,7 @@ def launch_plan(kernel, K, Y, X, itemsize):
 
         def smem(rows):
             return pgradc_smem(K, rows, itemsize)
-    elif kernel == "pkgz":
+    elif kernel in ("pkgz", "geopk"):
         shapes, budget = PKGZ_BLOCKS, PKGZ_BUDGET
 
         def smem(threads):
@@ -211,7 +210,7 @@ def launch_plan(kernel, K, Y, X, itemsize):
         raise ValueError(f"{kernel} kernel: {K} levels of {itemsize}-byte "
                          f"values need {smem(shape)} B of shared memory a "
                          f"block, over {SMEM_MAX}")
-    if kernel == "pkgz":
+    if kernel != "pgradc_fused":
         return SimpleNamespace(threads=shape, grid=(-(-6 * Y * X // shape),
                                                     1, 1),
                                smem=smem(shape), rows=None)
@@ -260,6 +259,20 @@ def pkgz_args(delp_p, pt_p, phis_p):
                            plan=plan)
 
 
+def geopk_args(delp_p, pt_p, phis_p):
+    """The kernel's arguments, on any device: `ins` (delp, pt, phis
+    [6, Y, X], contiguous), `outs` (pe, peln, pk, gz [6, K+1, Y, X] and pkz
+    [6, K, Y, X], the only tensors allocated) and `iv` (K, Y, X, threads
+    per block, blocks). ValueError for what the kernel does not take."""
+    ins, (K, Y, X) = _cells("geopk", delp_p, pt_p, phis_p)
+    plan = launch_plan("geopk", K, Y, X, delp_p.element_size())
+    outs = tuple(_new(delp_p, K + 1, Y, X) for _ in range(4)) + (
+        _new(delp_p, K, Y, X),)
+    return SimpleNamespace(ins=ins, outs=outs,
+                           iv=(K, Y, X, plan.threads, plan.grid[0]),
+                           plan=plan)
+
+
 def pgradc_args(delpc, ptc, phis_p, uc, vc, g, npx):
     """The kernel's arguments, on any device: `ins` (delpc, ptc, phis
     [6, P, P], uc, vc, rdxc, rdyc, each contiguous), `outs` (uc_out,
@@ -298,9 +311,8 @@ def _lib():
     if not _bound:
         lib = _build.library("col_pressure")
         vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        dp = ctypes.POINTER(d)
         for fn, args in (
-                (lib.geopk, [vp] * 8 + [i] * 3 + [dp, i, vp]),
+                (lib.geopk, [vp] * 8 + [i] * 5 + [d] * 3 + [i, vp]),
                 (lib.pkgz, [vp] * 4 + [i] * 5 + [d] * 3 + [i, vp]),
                 (lib.pgradc_fused, [vp] * 9 + [i] * 5 + [d] * 4 + [i, vp])):
             fn.restype = ctypes.c_int
@@ -338,8 +350,3 @@ def _cells(name, delp, pt, phis):
 
 def _new(like, K, Y, X):
     return torch.empty((6, K, Y, X), dtype=like.dtype, device=like.device)
-
-
-def _consts(akap, ptop):
-    """geopk's constants: akap, ptop, cp_air."""
-    return (ctypes.c_double * 3)(float(akap), float(ptop), con.CP_AIR)

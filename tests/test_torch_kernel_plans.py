@@ -1,12 +1,12 @@
-"""The launch plans of the port's tp sweep, c_sw and column-pressure
-kernels (ops/tiles.py, ops/tp_sweep.py, ops/csw.py and ops/pg_col.py
-launch_plan), on the CPU: the boxes and tiles cover every output frame
-exactly once, a block's shared memory fits the card, the Python constants
-are the kernels' own (csrc/tp2d_sweep.cu, csrc/c_sw.cu,
-csrc/col_pressure.cu), the tp sweep reads each operand where it lies, c_sw,
-pgradc_fused and pkgz allocate only their outputs (pkgz one tensor that
-holds pk and gz), and each raises ValueError for what its kernel does not
-take. The
+"""The launch plans of the port's tp sweep, c_sw, column-pressure and
+ke_section kernels (ops/tiles.py, ops/tp_sweep.py, ops/csw.py,
+ops/pg_col.py and ops/ke.py launch_plan), on the CPU: the boxes and tiles
+cover every output frame exactly once, a block's shared memory fits the
+card, the Python constants are the kernels' own (csrc/tp2d_sweep.cu,
+csrc/c_sw.cu, csrc/col_pressure.cu, csrc/ke_section.cu), the tp sweep and
+ke_section read each operand where it lies, c_sw, pgradc_fused, pkgz and
+geopk allocate only their outputs (pkgz one tensor that holds pk and gz),
+and each raises ValueError for what its kernel does not take. The
 kernels themselves run only on the card (chip_smoke.py phase 2 holds them
 against their plain versions)."""
 
@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from gfdl_atmos_cubed_sphere_tpu_torch.model.grid_ops import build_grid_ops
-from gfdl_atmos_cubed_sphere_tpu_torch.ops import csw, pg_col, tiles, tp_sweep
+from gfdl_atmos_cubed_sphere_tpu_torch.ops import (csw, ke, pg_col, tiles,
+                                                   tp_sweep)
 
 pytestmark = pytest.mark.fast
 
@@ -395,3 +396,151 @@ def test_col_pressure_raises_on_what_it_does_not_take(grid):
                                     **b))
     with pytest.raises(ValueError):
         pg_col.pkgz_args(delp.int(), pt.int(), phis.int())
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("K", [10, 79, 125])
+def test_geopk_takes_the_pkgz_column_kernel(K, itemsize):
+    """geopk launches pkgz's column kernel (the FULL form of k_geopk; PR
+    4's k_columns is gone) on pkgz's plan: the same threads, grid and
+    shared memory, which fit the 232448 bytes a Hopper block can take, four
+    blocks an SM at c192_hydro's K = 79 in float32."""
+    src = _source("col_pressure")
+    assert "k_columns" not in src and "ColArgs" not in src
+    assert "run_geopk<float, true>" in src and "run_geopk<float, false>" in src
+    gp = pg_col.launch_plan("geopk", K, P, P, itemsize)
+    pk = pg_col.launch_plan("pkgz", K, P, P, itemsize)
+    assert vars(gp) == vars(pk)
+    assert gp.smem == pg_col.pkgz_smem(K, gp.threads, itemsize) <= SMEM_LIMIT
+    assert gp.threads in pg_col.PKGZ_BLOCKS and gp.rows is None
+    assert gp.grid[0] * gp.threads >= 6 * P * P
+    if (K, itemsize) == (79, 4):
+        assert gp.threads == 128 and 4 * (gp.smem + 1024) <= 233472
+
+
+def test_geopk_allocates_only_its_outputs(monkeypatch):
+    """geopk's arguments: the caller's tensors where they lie (no copy of a
+    contiguous operand, phis as a view), pe, peln, pk, gz and pkz the only
+    tensors allocated (no workspace, no joined buffer), the plan's threads
+    and grid passed to the launch."""
+    K = 5
+    delp, pt, phis, _ = _col_cells(K)
+    made = []
+    empty = torch.empty
+
+    def counting(*a, **kw):
+        made.append(a)
+        return empty(*a, **kw)
+
+    monkeypatch.setattr(torch, "empty", counting)
+    a = pg_col.geopk_args(delp, pt, phis)
+    assert len(made) == 5 and len(a.outs) == 5
+    assert [tuple(o.shape) for o in a.outs] == [(6, K + 1, P, P)] * 4 + [
+        (6, K, P, P)]
+    assert len({o.data_ptr() for o in a.outs}) == 5
+    assert [x.data_ptr() for x in a.ins] == [
+        x.data_ptr() for x in (delp, pt, phis)]
+    assert a.iv == (K, P, P, a.plan.threads, a.plan.grid[0])
+    assert a.plan.grid[1:] == (1, 1)
+    for b in (dict(pt_p=pt.float()), dict(phis_p=phis[..., 1:]),
+              dict(delp_p=delp[0])):
+        with pytest.raises(ValueError):
+            pg_col.geopk_args(**dict(dict(delp_p=delp, pt_p=pt,
+                                          phis_p=phis), **b))
+    assert pg_col.launches["geopk"] == 0
+
+
+@pytest.mark.parametrize("rows", [1, 8, ke.ROWS, 40])
+@pytest.mark.parametrize("n", [12, 768])
+def test_ke_strips_cover_the_corner_frame_once(n, rows):
+    """ke_section's warp strips of SPAN corner columns and `rows` corner
+    rows, on the grid the kernel is launched with (WARPS strips of rows a
+    block), clipped to the frame, cover the W x W corner frame exactly
+    once; the kernel's constants are the wrapper's."""
+    Wn = n + 7
+    gx, gy = ke.grid(n, rows)
+    strips = ke.owned_corners(n, rows)
+    assert len(strips) == gx * gy * ke.WARPS
+    hits = np.zeros((Wn, Wn), int)
+    for j0, j1, i0, i1 in strips:
+        assert (j1 - j0, i1 - i0) == (rows, ke.SPAN)
+        hits[j0:min(j1, Wn), i0:min(i1, Wn)] += 1
+    assert (hits == 1).all()
+    # no block is launched whose strips all lie past the frame
+    assert (gx - 1) * ke.SPAN < Wn and (gy - 1) * ke.WARPS * rows < Wn
+    src = _source("ke_section")
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert {k: int(consts[k]) for k in ("WARPS", "SPAN", "ROWS")} == {
+        "WARPS": ke.WARPS, "SPAN": ke.SPAN, "ROWS": ke.ROWS}
+    assert ke.SPAN < 32
+
+
+def _ke_operands(K, dtype=torch.float64, seed=41):
+    rng = np.random.default_rng(seed)
+    NC, NW = N + 6, N + 7
+
+    def f(k, *s):
+        return torch.as_tensor(rng.standard_normal((6, k) + s), dtype=dtype)
+
+    yw, xw = (NW, NC), (NC, NW)
+    return dict(u=f(K, *yw), v=f(K, *xw), uc=f(K, *xw), vc=f(K, *yw),
+                ut=f(K, *xw), vt=f(K, *yw), cosa=f(1, NW, NW),
+                rsina=f(1, NW, NW), dx=f(1, *yw), rdx=f(1, *yw),
+                dy=f(1, *xw), rdy=f(1, *xw))
+
+
+def test_ke_section_reads_operands_where_they_lie():
+    """The packing passes each operand's own storage (a field sliced along
+    its levels included: no contiguous copy) with its tile and level
+    strides, 0 along a metric's level axis, and allocates only ke; only an
+    operand whose rows are not contiguous (here a transposed dy and a uc
+    cut from wider rows) is copied."""
+    K = 3
+    ops = _ke_operands(K)
+    NC, NW = N + 6, N + 7
+    rng = np.random.default_rng(42)
+    ops["v"] = torch.as_tensor(rng.standard_normal((6, K + 2, NC, NW)))[
+        :, 1:-1]
+    ops["uc"] = torch.as_tensor(rng.standard_normal((6, K, NC, NW + 4)))[
+        ..., 2:-2]
+    ops["dy"] = torch.as_tensor(rng.standard_normal((6, 1, NW, NC))
+                                ).transpose(-1, -2)
+    assert not any(ops[k].is_contiguous() for k in ("v", "uc", "dy"))
+    plan = ke.launch_plan(**ops, hord_mt=6, npx=NPX)
+    for b, name in enumerate(ke.OPERANDS):
+        given, packed = ops[name], plan.ops[b]
+        if name in ("dy", "uc"):
+            assert packed.is_contiguous() and torch.equal(packed, given)
+        else:
+            assert packed is given
+        want = [packed.stride(0), K * 0 if packed.shape[1] == 1
+                else packed.stride(1)]
+        assert plan.strides[2 * b:2 * b + 2] == want
+    assert plan.strides[2:4] == [(K + 2) * NC * NW, NC * NW]
+    assert plan.strides[12:16] == [NW * NW, 0, NW * NW, 0]
+    assert tuple(plan.ke.shape) == (6, K, NW, NW)
+    assert plan.iv == (N, K, 6, ke.ROWS) + ke.grid(N, ke.ROWS)
+    assert ke.launches == 0
+
+
+def test_ke_section_raises_on_what_it_does_not_take():
+    ops = _ke_operands(2)
+    for hord in (7, 11):
+        with pytest.raises(ValueError, match="hord"):
+            ke.launch_plan(**ops, hord_mt=hord, npx=NPX)
+    with pytest.raises(ValueError, match="shape"):
+        ke.launch_plan(**dict(ops, ut=ops["ut"][..., 1:]), hord_mt=6,
+                       npx=NPX)
+    with pytest.raises(ValueError, match="shape"):
+        ke.launch_plan(**ops, hord_mt=6, npx=NPX + 1)
+    with pytest.raises(ValueError, match="dtype"):
+        ke.launch_plan(**dict(ops, vc=ops["vc"].float()), hord_mt=6,
+                       npx=NPX)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        ke.launch_plan(**{k: v.int() for k, v in ops.items()}, hord_mt=6,
+                       npx=NPX)
+    with pytest.raises(ValueError, match="u \\[6, K"):
+        ke.launch_plan(**dict(ops, u=ops["u"][0]), hord_mt=6, npx=NPX)
+    with pytest.raises(ValueError, match="6 cells"):
+        ke.launch_plan(**{k: v[..., :10, :10] for k, v in ops.items()},
+                       hord_mt=6, npx=6)
