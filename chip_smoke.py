@@ -14,7 +14,8 @@ the moist hydrostatic c192_hydro step fv_dynamics_hydro (bench.py:34-35:
 the hydrostatic forms of c_sw and d_sw, the column kernels pgradc_fused,
 pkgz and geopk, one_grad_p's batched a2b, the same tracers and physics).
 Phase 8 drives the solo driver (driver/solo.py: its Atmosphere and its
-CLI), as users start the system, through the same kernels.
+CLI), as users start the system, and phase 9 the SHiELD and GFDL facades
+over it, through the same kernels.
 
 1. build: the seconds nvcc took for the eight sources;
 2. each kernel against its plain PyTorch version on the card, on the inputs
@@ -145,7 +146,28 @@ CLI), as users start the system, through the same kernels.
    (d) the CLI, main() with the README's quick-start options at C48L32 for
    3 steps with an audit every 2 and a restart written, then a second
    main() from that restart. Files go to build/torch_smoke/ and are
-   removed.
+   removed;
+9. the SHiELD and GFDL facades (driver/shield.py, driver/gfdl.py): (a) at
+   C24L10 in float64, nonhydrostatic, resumed from a checkpoint of the
+   moist wave with seeded condensates, the sequence atmosphere_dynamics(1),
+   atmos_phys_driver_statein, atmosphere_state_update with seeded
+   tendencies, atmosphere_nggps_diag (fv_diag), fv_cmip_diag and the GFDL
+   physics and radiation input blocks on the card against the CPU: every
+   output against its own maximum with phase 3's limits (w and the outputs
+   formed from it under the NH w limit), NaN at the same points, the
+   threshold fields (hurricane categories and frequencies, 40 dBz height,
+   -10 C reflectivity) picking the same points (THRESHOLD_FIELDS), their
+   values within 1e-10; (b) at C192L79 in float32 with c192_nh's splits,
+   resumed from a checkpoint of phase 6's moist initial state: 1 warm-up
+   and 2 timed atmosphere_dynamics steps (s/step, pts*lev/s, launches per
+   step, which must be phase 8b's solo_nh's), then atmos_phys_driver_statein,
+   atmosphere_state_update (1 K/day heating, small wind and sphum
+   tendencies), atmosphere_nggps_diag split into the device work and the
+   host copies of send (at least 150 fields registered; finite fields but
+   for the pressure-level and isentropic ones, whose NaN must sit where the
+   level is outside the column), fv_cmip_diag and
+   atmos_physics_driver_inputs, each timed synchronised, write_netcdf of a
+   diag_table selection (seconds, bytes) and the peak device memory.
 
 Before the last line it prints the card's name and power limit and one JSON
 line with each kernel's launches (those of its path's timed phase: 6 for
@@ -156,7 +178,8 @@ bound_ms and kernel_ms are means per launch weighted by the calls at each
 shape, and "shapes" lists each shape's own numbers ("depths": the column
 kernels' checks at COLUMN_DEPTHS); "solo_hydro" and
 "solo_nh" give its launches per big step on phase 8b's two forms (with the
-fixers on). The last line is
+fixers on), "shield" per atmosphere_dynamics step of phase 9b. The last
+line is
 {"ok": true, "device": {...}}. It needs one CUDA card; without one it exits
 with code 2 and prints no result.
 """
@@ -277,6 +300,44 @@ SOLO_HYDRO = dict(k_split=1, n_split=6)
 SOLO_NH = dict(k_split=2, n_split=6, dddmp=0.2, d_con=1.0, do_vort_damp=True)
 SOLO_C24 = dict(k_split=1, n_split=2, rf_cutoff=8.0e4)
 SOLO_DIR = "build/torch_smoke"
+# phase 9, the SHiELD and GFDL facades: C24L10 f64 card vs CPU with the
+# splits of phase 3's NH check, c192_nh's at full width (SOLO_NH)
+FACADE_C24 = dict(k_split=1, n_split=2)
+# the facade outputs that are NH w or formed from it (products, heights
+# and pressure levels of w; the plev omega estimate -delp/dz w)
+W_FIELDS = ("w", "w1km", "w2500m", "w5km", "wmaxup", "wmaxdn", "uh03",
+            "uh25", "uw", "vw", "ww", "wt", "wq", "uw_vi", "vw_vi", "ww_vi",
+            "wt_vi", "wq_vi", "w_plev", "omg_plev")
+# the fields of the facade sequence that a threshold on other fields picks
+# (a storm category and its frequency, the height of 40 dBz, the
+# reflectivity of the first level warmer than -10 C), with the value each
+# holds where nothing is picked: card vs CPU, the picked points must be
+# the same (the frequencies equal, the unpicked points at the same places)
+# and the picked values within 1e-10 of the maximum, which a level picked
+# otherwise would pass by orders of magnitude
+THRESHOLD_FIELDS = {"cat15": 0.0, "cat25": 0.0, "cat35": 0.0, "cat45": 0.0,
+                    "f15": 0.0, "f25": 0.0, "f35": 0.0, "f45": 0.0,
+                    "40dBz_height": -1.0, "m10C_reflectivity": 0.0}
+# a history file as users select one: the 2-D set of the nggps-style
+# 6-hourly file and the model-level winds, temperature, humidity and delp
+# (the whole C192L79 sweep, ~3.8 GB of records, exceeds the 2 GiB that
+# NetCDF3 classic offsets address)
+SHIELD_TABLE = """C192L79 shield_nh history
+2020 1 1 0 0 0
+"atmos_4xdaily", 6, "hours", 1, "days", "time"
+"atmos_3d", 6, "hours", 1, "days", "time"
+""" + "".join(
+    f'"dynamics", "{f}", "{f}", "atmos_4xdaily", "all", .false., "none", 2\n'
+    for f in ("ps", "slp", "tm", "cape", "cin", "BRN", "intqv", "intql",
+              "intqi", "intqr", "intqs", "intqg", "lw", "iw", "tq", "ctt",
+              "ctp", "ctz", "max_reflectivity", "base_reflectivity",
+              "echo_top", "u850", "v850", "t850", "z500", "rh850", "q850",
+              "w500", "vort850", "u200", "v200", "s200", "us", "vs",
+              "u100m", "v100m", "shear06", "srh01", "srh03", "srh25", "ustm",
+              "vstm", "uh25", "uh03", "wmaxup", "wmaxdn", "pv350K", "tb",
+              "pmask", "zsurf", "cat15", "f15")) + "".join(
+    f'"dynamics", "{f}", "{f}", "atmos_3d", "all", .false., "none", 2\n'
+    for f in ("ucomp", "vcomp", "temp", "sphum", "delp", "w"))
 
 
 def log(msg):
@@ -1401,6 +1462,285 @@ def solo_cli(card):
         shutil.rmtree(SOLO_DIR, ignore_errors=True)
 
 
+# ---- phase 9: the SHiELD and GFDL facades ---------------------------------
+
+def moist_checkpoint(path, ic, ak, bk, dtype):
+    """Write the moist state ic (the prognostic fields and the six tracers
+    of ic["q"]) as a checkpoint in dtype, the file a facade resumes from;
+    returns its bytes."""
+    import os
+    import numpy as np
+    from gfdl_atmos_cubed_sphere_tpu_torch.io.restart import save_state
+    st = {k: np.asarray(ic[k], dtype) for k in ("delp", "pt", "u", "v",
+                                                "w", "delz", "phis")}
+    q = {nm: np.asarray(ic["q"][nm], dtype) for nm in TRACERS}
+    save_state(path, st, ak=ak, bk=bk, tracers=q)
+    return os.path.getsize(path)
+
+
+def facade_c24_state(geom):
+    """Phase 9a's moist state at C24L10: the perturbed moist
+    Jablonowski-Williamson wave, sphum from it, and the five condensates
+    seeded (rain and snow up to 3e-3 kg/kg, so that the reflectivity
+    passes its thresholds somewhere). Returns (ic, ak, bk)."""
+    import numpy as np
+    from gfdl_atmos_cubed_sphere_tpu_torch.grid.fv_eta import set_eta
+    from gfdl_atmos_cubed_sphere_tpu_torch.init.baroclinic import (
+        jw_baroclinic)
+    _, ptop, ak, bk = set_eta(10)
+    ic = jw_baroclinic(geom, 10, ak, bk, ptop, perturb=True, moist=True)
+    rng = np.random.default_rng(9)
+    cell = ic["sphum"].shape
+    q = {"sphum": ic["sphum"]}
+    for nm, top in (("liq_wat", 3e-4), ("rainwat", 3e-3), ("ice_wat", 2e-4),
+                    ("snowwat", 3e-3), ("graupel", 1e-3)):
+        q[nm] = rng.uniform(0.0, top, cell)
+    return dict(ic, q=q), ak, bk
+
+
+def _flat(prefix, d, out):
+    for k, v in d.items():
+        if isinstance(v, dict):
+            _flat(f"{prefix}{k}/", v, out)
+        elif v is not None:
+            out[prefix + k] = v
+
+
+def facade_sequence(atm):
+    """The facade sequence of phase 9a on a GFDLAtmosphere: one dynamics
+    step, the physics state-in bundle, a state update with seeded wind,
+    temperature (1 K/day and noise) and sphum tendencies, the fv_diag
+    sweep, the CMIP set and the GFDL physics and radiation input blocks.
+    Returns every output by name ("statein/", "state/", "diag/", "cmip/",
+    "inputs/", "radiation/"), tensors on the Atmosphere's device."""
+    import numpy as np
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.io.cmip_diag import fv_cmip_diag
+    from gfdl_atmos_cubed_sphere_tpu_torch.io.diagnostics import DiagManager
+    out = {}
+    atm.atmosphere_dynamics(1)
+    _flat("statein/", atm.atmos_phys_driver_statein(), out)
+    rng = np.random.default_rng(12)
+    cell = tuple(atm.state["pt"].shape)
+
+    def tend(a):
+        return torch.as_tensor(a, dtype=atm.dtype, device=atm.device)
+
+    atm.atmosphere_state_update(
+        tend(rng.normal(0.0, 1e-4, cell)), tend(rng.normal(0.0, 1e-4, cell)),
+        tend(1.0 / 86400.0 + rng.normal(0.0, 1e-6, cell)),
+        {"sphum": tend(rng.normal(0.0, 1e-9, cell))})
+    _flat("state/", atm.state, out)
+    _flat("state/q/", atm.tracers, out)
+    _flat("diag/", atm.atmosphere_nggps_diag()[1], out)
+    _flat("cmip/", fv_cmip_diag(DiagManager(), dict(atm.state), atm.tracers,
+                                atm.g, atm.ak, atm.bk, atm.ptop,
+                                hydrostatic=atm.cfg.hydrostatic), out)
+    _flat("inputs/", atm.atmos_physics_driver_inputs(), out)
+    _flat("radiation/", atm.atmos_radiation_driver_inputs(), out)
+    return out
+
+
+def facade_limit(name):
+    """Phase 9a's limit, x the field's own maximum, of a facade output:
+    phase 3's 1e-10, and the NH w limit for w and the outputs formed from
+    it (devtools/nh_w_conditioning.py --facade measures their spread)."""
+    leaf = name.rsplit("/", 1)[-1]
+    if leaf in W_FIELDS or leaf.rstrip("0123456789") in ("w", "omg"):
+        return CARD_TOL["NH"]["w"]
+    return 1e-10
+
+
+def facade_card_vs_cpu(geom):
+    """Phase 9a: the facade sequence (facade_sequence) on a GFDLAtmosphere
+    at C24L10 in float64, nonhydrostatic, resumed from a checkpoint of
+    facade_c24_state, on the card against the CPU: every output against
+    its own maximum (facade_limit), NaN at the same points, the threshold
+    fields equal."""
+    import os
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.driver.gfdl import GFDLAtmosphere
+    os.makedirs(SOLO_DIR, exist_ok=True)
+    path = os.path.join(SOLO_DIR, "facade_c24.npz")
+    ic, ak, bk = facade_c24_state(geom)
+    moist_checkpoint(path, ic, ak, bk, "float64")
+    kw = dict(dtype="f64", hydrostatic=False, cfg_overrides=FACADE_C24,
+              restart=path, geom=geom)
+    got = facade_sequence(GFDLAtmosphere(25, 10, 900.0, device="cuda", **kw))
+    want = facade_sequence(GFDLAtmosphere(25, 10, 900.0, device="cpu", **kw))
+    os.remove(path)
+    require(list(got) == list(want), "9a: the card and the CPU give other "
+                                     "outputs")
+    bad, worst, nans, picks = [], {}, 0, {}
+    for name, b in want.items():
+        a = got[name].cpu()
+        nb = torch.isnan(b)
+        nans += int(nb.sum())
+        if not torch.equal(torch.isnan(a), nb):
+            bad.append(f"{name} (NaN positions)")
+            continue
+        leaf = name.rsplit("/", 1)[-1]
+        if leaf in THRESHOLD_FIELDS:
+            picked = b != THRESHOLD_FIELDS[leaf]
+            if not (torch.equal(a != THRESHOLD_FIELDS[leaf], picked) and (
+                    not leaf.startswith("f") or torch.equal(a, b))):
+                bad.append(f"{name} (other points picked)")
+                continue
+            picks[leaf] = int(picked.sum())
+        if nb.all():
+            continue
+        top = float(b[~nb].abs().max())
+        r = float((a[~nb] - b[~nb]).abs().max()) / (top if top > 0 else 1.0)
+        worst[name] = r
+        if r > facade_limit(name):
+            bad.append(f"{name} ({r:.3e})")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+    over = [k for k, r in worst.items() if r > 1e-10]
+    log(f"phase 9a facades C24L10 f64 card vs CPU: {len(want)} outputs "
+        f"({nans} NaN points, at the same places); the threshold fields "
+        f"pick the same points (" + ", ".join(
+            f"{k} {v}" for k, v in picks.items()) + "), their values within "
+        + ", ".join(f"{k} {worst.get('diag/' + k, 0.0):.1e}"
+                    for k in ("40dBz_height", "m10C_reflectivity"))
+        + "; worst " + ", ".join(f"{k} {r:.3e}" for k, r in top)
+        + f"; over 1e-10 (under the NH w limit "
+        f"{CARD_TOL['NH']['w']:g}): {over or 'none'}")
+    require(not bad, f"9a: the card disagrees with the CPU in {bad}")
+
+
+def plev_outside(delp, ptop, plevs):
+    """Where each target pressure lies outside the column's layer-mean
+    pressures ([6, L, n, n] bool): the NaN of a pressure-level field."""
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.io.derived import layer_pressures
+    _, _, pm = layer_pressures(delp, ptop)
+    pl = torch.as_tensor(plevs, dtype=delp.dtype, device=delp.device)
+    lo, hi = torch.log(pm[:, :1]), torch.log(pm[:, -1:])
+    x = torch.log(pl)[None, :, None, None]
+    return (x < lo) | (x > hi)
+
+
+def facade_full_width(geom, ic, ak, bk, card, solo_nh):
+    """Phase 9b: the SHiELD facade at C192L79 in float32 with c192_nh's
+    splits, resumed from a checkpoint of phase 6's moist initial state:
+    1 warm-up and 2 timed atmosphere_dynamics steps (launches per step
+    against solo_nh's), then the physics interface, the diagnostics and
+    the history file, each timed synchronised. Returns the launches per
+    step."""
+    import os
+    import re
+    import shutil
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.driver.gfdl import GFDLAtmosphere
+    from gfdl_atmos_cubed_sphere_tpu_torch.io.cmip_diag import fv_cmip_diag
+    from gfdl_atmos_cubed_sphere_tpu_torch.io.diagnostics import (
+        STD_PLEVS, DiagManager, parse_diag_table)
+    os.makedirs(SOLO_DIR, exist_ok=True)
+    try:
+        path = os.path.join(SOLO_DIR, "moist_c192.npz")
+        t0 = time.perf_counter()
+        nbytes_ckpt = moist_checkpoint(path, ic, ak, bk, "float32")
+        t1 = time.perf_counter()
+        atm = GFDLAtmosphere(193, 79, 450.0, hydrostatic=False,
+                             cfg_overrides=dict(SOLO_NH), restart=path,
+                             geom=geom, device="cuda")
+        log(f"phase 9b: moist checkpoint written in {t1 - t0:.2f} s "
+            f"({nbytes_ckpt / 2 ** 20:.1f} MiB) and resumed into a "
+            f"GFDLAtmosphere (a ShieldAtmosphere) in "
+            f"{time.perf_counter() - t1:.2f} s; tracers "
+            f"{sorted(atm.tracers)}")
+        torch.cuda.reset_peak_memory_stats()
+        atm.atmosphere_dynamics(1)                       # warm-up
+        torch.cuda.synchronize()
+        nsteps = 2
+        reset_counts()
+        t0 = time.perf_counter()
+        atm.atmosphere_dynamics(nsteps)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / nsteps
+        launches = counts()
+        per_step = {k: v // nsteps for k, v in launches.items()}
+        npts = 6 * 192 ** 2 * 79
+        for name, v in launches.items():
+            require(v == solo_nh[name] * nsteps,
+                    f"9b: {name} launched {v} times in {nsteps} facade "
+                    f"steps, the solo driver {solo_nh[name]} a step")
+
+        def wall_ms(fn, reps=3):
+            walls = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+            return statistics.median(walls), r
+
+        statein_ms, _ = wall_ms(atm.atmos_phys_driver_statein)
+        cell = atm.state["pt"].shape
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        u_dt = 1e-4 * torch.randn(cell, generator=gen, device="cuda")
+        v_dt = 1e-4 * torch.randn(cell, generator=gen, device="cuda")
+        t_dt = torch.full(cell, 1.0 / 86400.0, device="cuda")
+        q_dt = {"sphum": 1e-9 * torch.randn(cell, generator=gen,
+                                            device="cuda")}
+        update_ms, _ = wall_ms(lambda: atm.atmosphere_state_update(
+            u_dt, v_dt, t_dt, q_dt))
+        # the sweep's device work alone (a manager that selects nothing),
+        # then with every field registered and copied to the host
+        device_ms, _ = wall_ms(lambda: atm.atmosphere_nggps_diag(
+            DiagManager(selection=set())))
+        diag_ms, (dm, out) = wall_ms(atm.atmosphere_nggps_diag, reps=1)
+        held = sum(r.nbytes for rows in dm._store.values() for r in rows)
+        nfields = len(dm._fields)
+        require(nfields >= 150, f"9b: fv_diag registered {nfields} fields")
+        may_nan = re.compile(r"(.*_plev|.*_cmip|pv350K|pv550K|x850|"
+                             r"(u|v|t|vort|rh|thetae|q|omg|theta|dp|"
+                             r"theta_e|w|ql|qi|qr|qs|qg|cf|qn|z)\d+)$")
+        bad = [k for k, v in out.items() if not may_nan.match(k)
+               and not bool(torch.isfinite(v).all())]
+        require(not bad, f"9b: non-finite diagnostics {bad}")
+        outside = plev_outside(atm.state["delp"], atm.ptop,
+                               [p * 100.0 for p in STD_PLEVS])
+        bad = [k for k, v in out.items() if k.endswith("_plev")
+               and not torch.equal(torch.isnan(v), outside)]
+        require(not bad, f"9b: NaN of {bad} not where the level is outside "
+                         f"the column")
+        nan_share = float(outside.double().mean())
+        cmip_ms, _ = wall_ms(lambda: fv_cmip_diag(
+            DiagManager(), dict(atm.state), atm.tracers, atm.g, atm.ak,
+            atm.bk, atm.ptop, hydrostatic=False))
+        inputs_ms, _ = wall_ms(atm.atmos_physics_driver_inputs)
+        del dm, out
+        sel = DiagManager(selection=parse_diag_table(SHIELD_TABLE)[
+            "selected"])
+        atm.atmosphere_nggps_diag(sel)
+        nc = os.path.join(SOLO_DIR, "shield_c192.nc")
+        t0 = time.perf_counter()
+        sel.write_netcdf(nc)
+        nc_sec = time.perf_counter() - t0
+        nc_bytes = os.path.getsize(nc)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"phase 9b shield_nh C192L79 f32 on {card}: atmosphere_dynamics "
+            f"{sec:.4f} s/step, {npts / sec:.4e} pts*lev/s; launches per "
+            f"step as solo_nh's: " + ", ".join(
+                f"{k} {v}" for k, v in per_step.items() if v))
+        log(f"  atmos_phys_driver_statein {statein_ms:.3f} ms; "
+            f"atmosphere_state_update {update_ms:.3f} ms; "
+            f"atmosphere_nggps_diag {diag_ms:.1f} ms = device work "
+            f"{device_ms:.1f} + host copies of send {diag_ms - device_ms:.1f}"
+            f" ({nfields} fields, {held / 2 ** 30:.2f} GiB of host "
+            f"records); fv_cmip_diag {cmip_ms:.1f} ms; "
+            f"atmos_physics_driver_inputs {inputs_ms:.3f} ms; "
+            f"write_netcdf of {len(sel._fields)} selected fields "
+            f"{nc_sec:.2f} s, {nc_bytes / 2 ** 20:.1f} MiB; peak device "
+            f"memory {peak / 2 ** 30:.2f} GiB; pressure levels outside the "
+            f"column {nan_share:.3f} of the plev points (NaN)")
+        return per_step
+    finally:
+        shutil.rmtree(SOLO_DIR, ignore_errors=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1461,6 +1801,8 @@ def main():
     nhm = BigStep(193, 79, 450.0, 2, 6, torch.float32, "cuda", geom=nh.geom,
                   moist=True)
     log(f"c192_nh moist baroclinic state: host set-up {nhm.t_setup:.1f} s")
+    # phase 9's facade resumes from a checkpoint of this initial state
+    moist_ic = (nhm.ic, nhm.ak, nhm.bk)
     nhm_mass0 = mass(nhm.g, nhm.state[0])
     tracer_2d.reset_nsplt()
     with Capture() as cap192m:
@@ -1599,6 +1941,12 @@ def main():
     solo_hy_launches, solo_nh_launches = solo_full_width(geom192, card)
     solo_cli(card)
 
+    # ---- 9. the SHiELD and GFDL facades --------------------------------------
+    facade_card_vs_cpu(geom24)
+    shield_launches = facade_full_width(geom192, *moist_ic, card,
+                                        solo_nh_launches)
+    del moist_ic
+
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "kernel_ms")
     paths = (("c192_nh moist", NH_KERNELS, recs_nh, shapes_nh, m_launches),
@@ -1628,6 +1976,9 @@ def main():
         # launches per big step of the solo driver at C192L79 (phase 8b)
         entry["solo_hydro"] = {"launches": solo_hy_launches[name]}
         entry["solo_nh"] = {"launches": solo_nh_launches[name]}
+        # launches per atmosphere_dynamics step of the SHiELD facade at
+        # C192L79 (phase 9b)
+        entry["shield"] = {"launches": shield_launches[name]}
         for other, _, orecs, oshapes, olaunches in paths:
             if other != path and name in orecs:
                 entry[other.split()[0]] = {

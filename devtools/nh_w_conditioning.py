@@ -1,6 +1,7 @@
 """How far last-bit differences in exp/log move the big step's fields.
 
     python devtools/nh_w_conditioning.py [--moist] [--hydro]
+    python devtools/nh_w_conditioning.py --facade
 
 Runs the port's fv_dynamics_nh (or, with --hydro, fv_dynamics_hydro) on the
 CPU in float64 at chip_smoke's phase 3 setting (C24L10, dt = 900 s,
@@ -13,6 +14,13 @@ Prints each field's and tracer's max |difference| over its own maximum.
 The card's and the CPU's math libraries may round exp and log differently
 in the last bit, so this is the spread a sound card-vs-CPU comparison can
 show; chip_smoke.py's limits sit above it.
+
+With --facade it runs chip_smoke's phase 9a instead: the facade sequence
+(one nonhydrostatic atmosphere_dynamics step of a GFDLAtmosphere at C24L10
+f64 from the moist state of facade_c24_state, the physics state-in, a
+state update, fv_diag, fv_cmip_diag and the GFDL input blocks), and prints
+the outputs whose spread passes 1e-10 of their maximum, with chip_smoke's
+limit for each.
 """
 
 import argparse
@@ -56,13 +64,70 @@ def run(case, steps=2):
     return st
 
 
+def facade(cs):
+    """The spread of phase 9a's outputs under the exp/log nudges."""
+    import os
+    from gfdl_atmos_cubed_sphere_tpu_torch.driver.gfdl import GFDLAtmosphere
+    from gfdl_atmos_cubed_sphere_tpu_torch.grid.metrics import (
+        build_grid_geometry)
+    geom = build_grid_geometry(25, ng=3)
+    os.makedirs(cs.SOLO_DIR, exist_ok=True)
+    path = os.path.join(cs.SOLO_DIR, "facade_conditioning.npz")
+    ic, ak, bk = cs.facade_c24_state(geom)
+    cs.moist_checkpoint(path, ic, ak, bk, "float64")
+
+    def run_facade():
+        return cs.facade_sequence(GFDLAtmosphere(
+            25, 10, 900.0, dtype="f64", hydrostatic=False,
+            cfg_overrides=cs.FACADE_C24, restart=path, geom=geom,
+            device="cpu"))
+
+    t0 = time.perf_counter()
+    base = run_facade()
+    print(f"C24L10 f64 facade sequence on the CPU: "
+          f"{time.perf_counter() - t0:.1f} s, {len(base)} outputs")
+    worst = {}
+    for share in (0.01, 1.0):
+        for seed in (1, 2, 3, 4):
+            with NudgeExpLog(share, seed):
+                got = run_facade()
+            over = {}
+            for nm, b in base.items():
+                ok = ~torch.isnan(b)
+                top = float(b[ok].abs().max()) if bool(ok.any()) else 0.0
+                if top == 0.0:
+                    continue
+                r = float((got[nm][ok] - b[ok]).abs().max()) / top
+                worst[nm] = max(worst.get(nm, 0.0), r)
+                if r > 1e-10:
+                    over[nm] = r
+            print(f"exp/log 1 ulp on {share:g} of elements, seed {seed}: "
+                  f"{len(over)} outputs over 1e-10: " + ", ".join(
+                      f"{nm} {r:.2e}" for nm, r in sorted(
+                          over.items(), key=lambda kv: -kv[1])), flush=True)
+    os.remove(path)
+    over = sorted((nm for nm, r in worst.items() if r > 1e-10),
+                  key=lambda nm: -worst[nm])
+    print("largest spread of each output over 1e-10 (chip_smoke's limit): "
+          + ", ".join(f"{nm} {worst[nm]:.2e} ({cs.facade_limit(nm):g})"
+                      for nm in over))
+    print("largest spread of the outputs held to 1e-10: " + ", ".join(
+        f"{nm} {worst[nm]:.2e}" for nm in sorted(
+            (n for n in worst if cs.facade_limit(n) <= 1e-10),
+            key=lambda n: -worst[n])[:5]))
+
+
 def main():
     import chip_smoke as cs
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--moist", action="store_true")
     ap.add_argument("--hydro", action="store_true")
+    ap.add_argument("--facade", action="store_true")
     opt = ap.parse_args()
     torch.set_num_threads(4)
+    if opt.facade:
+        facade(cs)
+        return
     case = cs.BigStep(25, 10, 900.0, 1, 2, torch.float64, "cpu",
                       moist=opt.moist, hydro=opt.hydro)
     t0 = time.perf_counter()

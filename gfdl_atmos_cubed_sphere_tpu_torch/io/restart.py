@@ -182,8 +182,8 @@ def add_thermal_noise(pt, amplitude, seed=0):
 
 def _needs(what):
     raise NotImplementedError(
-        f"{what} needs fv_mapz's kord-4 remap (map1_ppm_ext) or the coarse-"
-        "graining module, which are not ported yet")
+        f"{what} needs fv_mapz's kord-4 remap (map1_ppm_ext), which is not "
+        "ported yet")
 
 
 def remap_restart(state, tracers, ak_r, bk_r, ak, bk, g, kord=4,
@@ -202,6 +202,12 @@ def reset_eta(state, tracers, ak_old, bk_old, g, npz=None, npz_type=None,
 
 def save_coarse_state(path, state, q, g, factor, ak=None, bk=None,
                       strategy="model_level_area_weighted", **kw):
-    """Coarse-grained restart (coarse_grained_restart_files.F90:48): not
-    ported yet (needs utils/coarse_graining)."""
-    _needs("save_coarse_state")
+    """Write a coarse-grained restart beside the native one
+    (coarse_grained_restart_files.F90:48): coarsen the prognostic state
+    (dicts of tensors) by `factor` with the chosen strategy, then save it
+    through the checkpoint writer (save_state's keywords). Returns the
+    coarse (state, tracers)."""
+    from ..utils.coarse_graining import coarse_grain_restart
+    cs, cq = coarse_grain_restart(state, q, g, factor, strategy=strategy)
+    save_state(path, cs, ak=ak, bk=bk, tracers=cq, **kw)
+    return cs, cq

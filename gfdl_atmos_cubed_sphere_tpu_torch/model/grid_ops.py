@@ -104,13 +104,27 @@ def _pack(arrays, npx, dtype, device, topology):
 
 
 def build_grid_ops(npx, dtype=torch.float32, device="cuda",
-                   geom: GridGeometry = None, coriolis_alpha=0.0):
+                   geom: GridGeometry = None, coriolis_alpha=0.0,
+                   radius=None, omega=None, stretch_fac=None, target_lon=0.0,
+                   target_lat=0.0, do_cube_transform=False):
     """Build the metric namespace `g` + halo exchanger for a cube of npx
     corners on `device` (the CUDA card unless the caller asks for the CPU;
-    raises RuntimeError when CUDA is asked for and absent)."""
+    raises RuntimeError when CUDA is asked for and absent). radius, omega:
+    the planet's (the Earth's when None); stretch_fac et al.: Schmidt
+    refinement (see grid.metrics.build_grid_geometry, angles in radians),
+    as utils.config.grid_kwargs_from_namelist gives them."""
     resolve_device(device)
+    kw = {}
+    if radius is not None:
+        kw["radius"] = radius
+    if omega is not None:
+        kw["omega"] = omega
+    if stretch_fac is not None:
+        kw.update(stretch_fac=stretch_fac, target_lon=target_lon,
+                  target_lat=target_lat, do_cube_transform=do_cube_transform)
     if geom is None:
-        geom = build_grid_geometry(npx, ng=H, coriolis_alpha=coriolis_alpha)
+        geom = build_grid_geometry(npx, ng=H, coriolis_alpha=coriolis_alpha,
+                                   **kw)
     a = geom.arrays
     arrays = {}
     for name in METRIC_NAMES:

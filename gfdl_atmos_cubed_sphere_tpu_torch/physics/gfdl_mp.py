@@ -14,10 +14,10 @@ folded the same way here. The JAX package's lax.scans down the column
 the same carried state.
 
 Not ported, raising NotImplementedError where a configuration asks for
-them: explicit_fall (sedflag 2), prog_ccn, consv_checker and
-use_subgrid_proc (subgrid_z_proc). Not ported and not reachable: sedi_uv
-(the driver takes no horizontal winds) and the fast-physics chain
-(fast_sat_adj, mp_fast).
+them: explicit_fall (sedflag 2), prog_ccn, consv_checker,
+use_subgrid_proc (subgrid_z_proc), sedi_uv (do_sedi_uv) and the
+fast-physics chain (fast_sat_adj, mp_fast): gfdl_mp_driver refuses a
+setting of UNPORTED_SETTINGS other than its default.
 """
 
 import math
@@ -54,14 +54,19 @@ NAMES = ("sphum", "liq_wat", "rainwat", "ice_wat", "snowwat", "graupel")
 
 @dataclass(frozen=True)
 class MPConfig:
-    """gfdl_mp_nml subset (defaults from gfdl_mp.F90:320-460): the fields
-    of the JAX package's MPConfig that the ported processes read, with the
-    same defaults. The fast-physics (mp_fast) options come with that
-    chain."""
+    """gfdl_mp_nml (defaults from gfdl_mp.F90:320-460): the JAX
+    package's MPConfig, field for field, with the same defaults and
+    order, so any of its namelists parses. The settings that only
+    unported processes read (the mp_fast chain, sedi_uv, subgrid_z_proc)
+    are stored; gfdl_mp_driver refuses a value other than the default
+    (UNPORTED_SETTINGS), where the process would run."""
     ntimes: int = 1
     tau_v2l: float = 150.0     # condensation timescale (s)
     tau_l2v: float = 300.0     # evaporation
     tau_i2s: float = 1000.0    # ice -> snow autoconversion
+    tau_g2r: float = 600.0
+    tau_smlt: float = 900.0    # snow melt
+    tau_gmlt: float = 600.0
     tau_revp: float = 150.0    # rain evaporation
     ql0_max: float = 2.0e-3    # max cloud water before autoconversion
     qi0_crt: float = 1.0e-4    # ice -> snow threshold (kg/m^3)
@@ -70,7 +75,7 @@ class MPConfig:
     c_pracw: float = 0.8       # rain accretion efficiency
     c_psaci: float = 0.05      # snow-ice accretion efficiency
     c_pgacw: float = 1.0
-    c_psacw: float = 1.0       # snow-cloud water accretion
+    c_psacw: float = 1.0       # snow-cloud water accretion (gfdl_mp.F90)
     c_pgaci: float = 0.05      # graupel-ice accretion efficiency
     c_pgacr: float = 1.0       # graupel-rain accretion (freezing)
     c_praci: float = 1.0       # cloud ice to rain accretion efficiency
@@ -80,6 +85,8 @@ class MPConfig:
     fi2s_fac: float = 1.0      # max sink fraction: cloud ice -> snow
     fs2g_fac: float = 1.0      # max sink fraction: snow -> graupel
     qs_mlt: float = 1.0e-6     # max cloud water from melted snow (kg/kg)
+    rh_inc: float = 0.25
+    rh_inr: float = 0.25       # rain evap rh threshold increment
     t_min: float = 178.0
     t_sub: float = 184.0
     vr_fac: float = 1.0
@@ -92,14 +99,19 @@ class MPConfig:
     vg_max: float = 12.0
     do_sedi_heat: bool = True
     do_warm_rain_mp: bool = False
+    # sedimentation variants + momentum transport (gfdl_mp.F90:276-305)
     sedflag: int = 1           # 1: implicit_fall (:5250); 2: explicit_fall
+                               # (:5311, sub-stepped upstream)
     do_sedi_w: bool = True     # transport w by falling condensate (:5653)
+    do_sedi_uv: bool = False   # transport horizontal momentum (:5622)
+    # CCN / aerosol coupling (prog_ccn = Yi Ming's method, mpdrv:1377;
+    # fixed land/ocean blend otherwise, :1388)
     prog_ccn: bool = False
     ccn_l: float = 270.0       # CCN over land (1/cm^3)
     ccn_o: float = 90.0        # CCN over ocean (1/cm^3)
     rthresh: float = 10.0e-6   # critical drop radius for autoconversion (m)
-    use_ccn_praut: bool = True  # ccn-aware praut (:3086) vs the ql0_max
-                                # threshold scheme
+    use_ccn_praut: bool = True  # reference praut:3086 (ccn-aware) vs the
+                                # simple ql0_max threshold scheme
     consv_checker: bool = False  # mpdrv:1365 mtetw energy/water audits
     # PSD parameters (gfdl_mp_nml:339-377 defaults)
     n0w_sig: float = 1.1
@@ -132,7 +144,39 @@ class MPConfig:
     rhor: float = 1.0e3
     rhos: float = 1.0e2
     rhog: float = 4.0e2
-    use_subgrid_proc: bool = False  # subgrid_z_proc (not ported)
+    # ---- fast-physics (mp_fast) process options, gfdl_mp.F90 namelist
+    # defaults at the cited lines --------------------------------------
+    use_mp_fast: bool = True   # fast_sat_adj dispatches to the mp_fast
+                               # process chain (:1995) vs the condensed
+                               # sat_adjust
+    use_subgrid_proc: bool = False  # mp_full's saturation stage runs the
+                               # per-process subgrid_z_proc (:3989)
+                               # instead of the condensed sat_adjust
+    rh_adj: float = 0.0        # pinst instant-evap RH threshold
+    fast_fr_mlt: bool = True   # freezing/melting in fast MP (:332)
+    fast_dep_sub: bool = True  # deposition/sublimation in fast MP (:333)
+    delay_cond_evap: bool = False  # cond/evap only on last step (:328)
+    nconds: int = 1            # condensation subcycles (:191)
+    do_evap_timescale: bool = True   # (:306)
+    do_cond_timescale: bool = False  # (:307)
+    rh_fac_evap: float = 10.0  # (:436)
+    rh_fac_cond: float = 10.0  # (:437)
+    use_rhc_cevap: bool = False  # (:289)
+    rhc_cevap: float = 0.85    # (:461)
+    do_wbf: bool = False       # Wegener-Bergeron-Findeisen (:315)
+    tau_imlt: float = 1200.0   # cloud ice melting timescale (:394)
+    tau_wbf: float = 300.0     # WBF timescale (:397)
+    tau_r2g: float = 900.0     # rain freezing to graupel (:388)
+    tau_l2r: float = 900.0     # cloud water -> rain autoconv (:390)
+    ql_mlt: float = 2.0e-3     # max cloud water from melted ice (:411)
+    qi0_max: float = 1.0e-4    # max cloud ice before autoconv (:415)
+    qi_lim: float = 1.0        # ice generation limiter (:409)
+    is_fac: float = 0.2        # ice sublimation temperature factor (:432)
+    ss_fac: float = 0.2        # snow sublimation factor (:433)
+    gs_fac: float = 0.2        # graupel sublimation factor (:434)
+    inflag: int = 1            # ice nucleation scheme (:209)
+    igflag: int = 3            # ice generation scheme (:216)
+    tice_mlt: float = 273.16   # ice melting temperature (:380)
 
     @property
     def t_wfr(self):
@@ -151,6 +195,20 @@ class MPConfig:
 
 
 _COEFF_CACHE = {}
+
+#: settings read only by processes the port lacks: the fast-physics chain
+#: (fast_sat_adj, mp_fast and pinst, gfdl_mp.F90:1995, :4113), the
+#: per-process subgrid_z_proc (:3989) and the momentum sedimentation
+#: sedi_uv (:5622). gfdl_mp_driver raises on a value other than the
+#: default. tau_g2r, tau_gmlt, rh_inc and rh_inr have no reader in the JAX
+#: package either and are only stored.
+UNPORTED_SETTINGS = (
+    "do_sedi_uv", "use_mp_fast", "rh_adj",
+    "fast_fr_mlt", "fast_dep_sub", "delay_cond_evap", "nconds",
+    "do_evap_timescale", "do_cond_timescale", "rh_fac_evap", "rh_fac_cond",
+    "use_rhc_cevap", "rhc_cevap", "do_wbf", "tau_imlt", "tau_wbf",
+    "tau_r2g", "tau_l2r", "tau_smlt", "ql_mlt", "qi0_max", "qi_lim",
+    "is_fac", "ss_fac", "gs_fac", "inflag", "igflag", "tice_mlt")
 
 
 def _not_ported(what):
@@ -764,6 +822,11 @@ def gfdl_mp_driver(pt, delp, delz, q, dt, ptop, cfg: MPConfig = MPConfig(),
     accumulations rain/ice/snow/graupel [kg/m^2])."""
     if cfg.consv_checker:
         _not_ported("consv_checker")
+    default = MPConfig()
+    for name in UNPORTED_SETTINGS:
+        if getattr(cfg, name) != getattr(default, name):
+            _not_ported(f"the process that {name} = {getattr(cfg, name)!r} "
+                        "asks for")
     z = torch.zeros_like(pt)
     qv, ql, qr, qi, qs, qg = (q.get(k, z) for k in NAMES)
     t = pt
