@@ -65,7 +65,11 @@ over it, through the same kernels.
    thread, static and dynamic shared memory per block, resident blocks per
    SM; "resources" in the kernels line). The
    tp sweep and ke_section kernels are also checked at every other hord
-   they take (tp_sweep.KERNEL_HORDS, ke.KERNEL_HORDS) on the SW inputs;
+   they take (tp_sweep.KERNEL_HORDS, ke.KERNEL_HORDS) on the SW inputs,
+   and the sim1 kernel's off-centred form (alpha = 0.75) on the NH path's
+   captured calls and their casts, K = 79 and 10 in float32 and float64
+   under the same limits, with its kernel alone at alpha 0.75 and 1 in the
+   same call;
 3. the SW step (case 2, C48, float64, n_split=2, 4 steps) and the NH big
    step (C24L10, float64, dt = 900 s, k_split = 1, n_split = 2, 2 steps)
    on the card with the kernels against the same port on the CPU with the
@@ -167,7 +171,24 @@ over it, through the same kernels.
    for the pressure-level and isentropic ones, whose NaN must sit where the
    level is outside the column), fv_cmip_diag and
    atmos_physics_driver_inputs, each timed synchronised, write_netcdf of a
-   diag_table selection (seconds, bytes) and the peak device memory.
+   diag_table selection (seconds, bytes) and the peak device memory;
+10. the acoustic-loop options and Riemann solvers (BUNDLES, as the JAX
+   package's tests run them): (a) one dry C24L10 float64 big step of each
+   bundle on the card against the CPU with phase 3's limits and float32
+   control (the NH off-centred SIM with beta, fill_dp, rf_fast, use_logp,
+   d2bg_zq and kord 10; SIM3; SIM3p0; RIM_2D with m_split = 2 at dt = 60 s;
+   the hydrostatic beta, d_ext, fill_dp and rf_fast with kord 10 and with
+   kord 11, whose winds are held to BUNDLE_TOL), and remap_restart of that
+   state onto set_eta(24)'s higher top, card against CPU at 1e-10; (b) at
+   C192L79 float32 the moist c192_nh step with the off-centred bundle and
+   the moist c192_hydro step with the hydrostatic one (kord 11), each as
+   phases 6 and 7, beside their headlines of this run, with sim1's
+   launches by form (12 at alpha 1 and 12 at alpha 0.75 a big step) and
+   every other kernel's launches those of phases 6 and 7; riem_solver3
+   alone for SIM3, SIM3p0 and RIM_2D (1 + |dt_acoustic| substeps), plain
+   PyTorch on the card (ms and device kernels a call); and reset_eta of
+   the moist initial state from L79 to L91 in float64 (seconds, the
+   column mass kept).
 
 Before the last line it prints the card's name and power limit and one JSON
 line with each kernel's launches (those of its path's timed phase: 6 for
@@ -178,7 +199,9 @@ bound_ms and kernel_ms are means per launch weighted by the calls at each
 shape, and "shapes" lists each shape's own numbers ("depths": the column
 kernels' checks at COLUMN_DEPTHS); "solo_hydro" and
 "solo_nh" give its launches per big step on phase 8b's two forms (with the
-fixers on), "shield" per atmosphere_dynamics step of phase 9b. The last
+fixers on), "shield" per atmosphere_dynamics step of phase 9b,
+"c192_nh_offc" and "c192_hydro_opts" in phase 10b's 5 big steps (sim1's
+split by form, and its "offcentred" records of phase 2). The last
 line is
 {"ok": true, "device": {...}}. It needs one CUDA card; without one it exits
 with code 2 and prints no result.
@@ -300,6 +323,42 @@ SOLO_HYDRO = dict(k_split=1, n_split=6)
 SOLO_NH = dict(k_split=2, n_split=6, dddmp=0.2, d_con=1.0, do_vort_damp=True)
 SOLO_C24 = dict(k_split=1, n_split=2, rf_cutoff=8.0e4)
 SOLO_DIR = "build/torch_smoke"
+# phase 10, the acoustic-loop options and Riemann solvers, as the JAX
+# package's tests run them (tests/test_thermo_diag2.py:76,
+# tests/test_nh_core.py:170-273, tests/test_hydro_core.py:124-125,
+# tests/test_mix_ray.py:107-128): the inline Rayleigh damping under a cutoff
+# below the 500 hPa top of set_eta(10); the NH off-centred bundle (c192_nh
+# at full width) and the hydrostatic one (c192_hydro) with kord 10 and 11
+RF_FAST = dict(rf_fast=True, tau=5.0, rf_cutoff=600.e2)
+NH_OFFC = dict(a_imp=0.75, beta=0.45, fill_dp=True, use_logp=True,
+               d2bg_zq=0.01, kord_mt=10, kord_tr=10, kord_wz=10,
+               kord_tm=-10, **RF_FAST)
+HYDRO_OPTS = dict(beta=0.45, d_ext=0.02, fill_dp=True, kord_mt=11,
+                  kord_tr=11, kord_tm=-11, **RF_FAST)
+HYDRO_OPTS_K10 = dict(HYDRO_OPTS, kord_mt=10, kord_tr=10, kord_tm=-10)
+#: phase 10a's bundles, dry: name -> (hydrostatic, dt, settings). RIM_2D
+#: runs at dt = 60 s (a 30 s acoustic step, as JAX's
+#: tests/test_nh_core.py:273 runs it): at phase 3's 900 s its explicit
+#: substeps blow up in both packages unless m_split nears the default
+#: 1 + |dt_acoustic|
+BUNDLES = {
+    "off-centred": (False, 900.0, NH_OFFC),
+    "SIM3": (False, 900.0, dict(a_imp=-0.75, d2bg_zq=0.01)),
+    "SIM3p0": (False, 900.0, dict(a_imp=-1.0, d2bg_zq=0.01)),
+    "RIM_2D": (False, 60.0, dict(a_imp=0.4, m_split=2)),
+    "options kord 10": (True, 900.0, HYDRO_OPTS_K10),
+    "options kord 11": (True, 900.0, HYDRO_OPTS),
+}
+#: card vs CPU limits of the bundles beside phase 3's: kord 11's extremum
+#: test |2 a1 - (al + ar)| > |al - ar| ties exactly where the limits clamp
+#: an interface to the layer's mean, so 1-ulp changes of exp and log move
+#: the remapped winds by up to 1.3e-7 of their maxima (`python
+#: devtools/nh_w_conditioning.py --bundle "options kord 11"`); the float32
+#: control reads them at ~7e-6
+BUNDLE_TOL = {"options kord 11": {"u": 1e-6, "v": 1e-6}}
+#: the solvers phase 10b times alone on the moist c192_nh state: a_imp of
+#: riem_solver3 (RIM_2D at its default m_split, 1 + |dt_acoustic| substeps)
+SOLVER_A_IMP = {"SIM3": -0.75, "SIM3p0": -1.0, "RIM_2D": 0.4}
 # phase 9, the SHiELD and GFDL facades: C24L10 f64 card vs CPU with the
 # splits of phase 3's NH check, c192_nh's at full width (SOLO_NH)
 FACADE_C24 = dict(k_split=1, n_split=2)
@@ -881,6 +940,63 @@ def check_column_depths(cap):
     return recs
 
 
+def check_sim1_offcentred(cap_f32, cap_f64):
+    """The sim1 kernel's off-centred form (alpha = 0.75) against its plain
+    version on the captured calls of the NH paths (C192L79 float32, C24L10
+    float64) and on each cast to the other dtype: K = 79 and 10, f32 and
+    f64, under phase 2's limits, with the device kernels a call issues (1
+    of the port's own). At C192L79 float32 the kernel alone at alpha 0.75
+    and at alpha 1 in the same call, the wrapper's and the plain version's
+    ms and the bound (the same bytes as at alpha 1). Returns the
+    records."""
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.ops import sim1
+    recs = []
+    for cap, n in ((cap_f32, 192), (cap_f64, 24)):
+        (args, kw), = cap.args["sim1"].values()
+        for dt in (torch.float32, torch.float64):
+            new = [x.to(dt) if torch.is_tensor(x) else x for x in args]
+            tol = 1e-4 if dt == torch.float32 else 1e-12
+            dname = str(dt).split(".")[-1]
+            K = new[1].shape[1]
+            label = f"sim1 alpha 0.75 K = {K} {dname}"
+            before = sim1.launches_offc
+            err, got = compare(label, "sim1", new, dict(alpha=0.75), n, tol)
+            require(sim1.launches_offc == before + 1,
+                    f"{label}: the off-centred form did not launch")
+            rec = {"K": K, "dtype": dname, "alpha": 0.75,
+                   "max_abs_err": err,
+                   "device_kernels_per_call": count_device_kernels(
+                       label, "sim1",
+                       lambda: sim1.sim1(*new, alpha=0.75))}
+            if n == 192 and dt == torch.float32:
+                plan = {a: sim1.launch_plan(
+                    new[1].numel() // K, K, new[1].element_size(),
+                    a != 1.0) for a in (0.75, 1.0)}
+                own = {a: own_kernel_launches(
+                    lambda a=a: sim1.sim1(*new, alpha=a)) for a in
+                    (0.75, 1.0)}
+                kms = {a: sum(v[0] for v in own[a].values())
+                       for a in own}
+                bound, by = kernel_bound_ms("sim1", new, {}, got,
+                                            points_of("sim1", new, n),
+                                            dname)
+                rec.update(
+                    ms=time_ms(lambda: sim1.sim1(*new, alpha=0.75)),
+                    plain_ms=time_ms(lambda: sim1.sim1_solver(
+                        *new, alpha=0.75), reps=5, warm=1),
+                    kernel_ms=kms[0.75], kernel_ms_alpha_1=kms[1.0],
+                    bound_ms=bound, bound_by=by,
+                    plan={str(a): list(p) for a, p in plan.items()})
+                log(f"    sim1 C192L79 f32 kernel alone: alpha 0.75 "
+                    f"{kms[0.75]:.4f} ms (plan {plan[0.75]}), alpha 1 "
+                    f"{kms[1.0]:.4f} ms (plan {plan[1.0]}); bound "
+                    f"{bound:.4f} ms ({by}); wrapper {rec['ms']:.4f} ms, "
+                    f"plain {rec['plain_ms']:.4f} ms at alpha 0.75")
+            recs.append(rec)
+    return recs
+
+
 def per_launch(shapes):
     """One kernel's numbers over the main path's calls: ms, plain_ms,
     bound_ms and kernel_ms as means per launch, weighted by the calls at
@@ -961,10 +1077,13 @@ class BigStep:
     Moist (bench.py:64-80, 88): the moist wave, adiabatic = False, sphum
     from it and the other five GFDL-MP tracers at 1e-6, MPConfig(). The
     state is the list of fields (delp, pt, u, v, and w, delz on the
-    nonhydrostatic path), then the tracers of TRACERS when moist."""
+    nonhydrostatic path), then the tracers of TRACERS when moist. over:
+    DynConfig settings on top of the path's (a bundle of phase 10, named
+    bundle)."""
 
     def __init__(self, npx, npz, dt, k_split, n_split, dtype, device,
-                 geom=None, ic=None, moist=False, hydro=False):
+                 geom=None, ic=None, moist=False, hydro=False, over=None,
+                 bundle=None):
         from gfdl_atmos_cubed_sphere_tpu_torch.grid.fv_eta import set_eta
         from gfdl_atmos_cubed_sphere_tpu_torch.grid.metrics import (
             build_grid_geometry)
@@ -982,6 +1101,8 @@ class BigStep:
         t0 = time.perf_counter()
         self.moist = moist
         self.hydro = hydro
+        self.over = over
+        self.bundle = bundle
         self.fields = ("delp", "pt", "u", "v") + (() if hydro
                                                   else ("w", "delz"))
         self.geom = geom or build_grid_geometry(npx, ng=H)
@@ -1003,7 +1124,7 @@ class BigStep:
         self.cfg = DynConfig(npx=npx, npz=npz, dt=dt, k_split=k_split,
                              n_split=n_split,
                              **dict(HYDRO_CFG if hydro else NH_CFG,
-                                    adiabatic=not moist))
+                                    adiabatic=not moist, **(over or {})))
         st = state_from_arrays(self.ic, dtype=dtype, device=device)
         self.state = [st[k] for k in self.fields] + [
             st["q"][k] for k in self.names[len(self.fields):]]
@@ -1026,22 +1147,28 @@ class BigStep:
     @property
     def label(self):
         return (("hydro " if self.hydro else "NH ")
-                + ("moist" if self.moist else "dry"))
+                + ("moist" if self.moist else "dry")
+                + (f" {self.bundle}" if self.bundle else ""))
 
 
-def card_vs_cpu(card_case):
-    """Two C24L10 float64 big steps of `card_case` on the card against the
+def card_vs_cpu(card_case, steps=2, phase="3", tols=None):
+    """C24L10 float64 big steps of `card_case` on the card against the
     same steps of the port on the CPU, each field (and tracer) against its
-    own maximum; the same steps on the card in float32 are the control and
-    must read over every limit."""
+    own maximum (CARD_TOL's limits, or tols'); the same steps on the card
+    in float32 are the control and must read over every limit."""
     import torch
     kw = dict(geom=card_case.geom, ic=card_case.ic, moist=card_case.moist,
-              hydro=card_case.hydro)
-    cpu = BigStep(25, 10, 900.0, 1, 2, torch.float64, "cpu", **kw)
-    f32 = BigStep(25, 10, 900.0, 1, 2, torch.float32, "cuda", **kw)
+              hydro=card_case.hydro, over=card_case.over,
+              bundle=card_case.bundle)
+    c = card_case.cfg
+    cpu = BigStep(25, 10, c.dt, c.k_split, c.n_split, torch.float64, "cpu",
+                  **kw)
+    f32 = BigStep(25, 10, c.dt, c.k_split, c.n_split, torch.float32, "cuda",
+                  **kw)
     label = card_case.label
+    tols = tols if tols is not None else CARD_TOL[label.split()[0]]
     scard, sc, sf = list(card_case.state), list(cpu.state), list(f32.state)
-    for _ in range(2):
+    for _ in range(steps):
         scard = card_case.step(scard)
         sc = cpu.step(sc)
         sf = f32.step(sf)
@@ -1053,15 +1180,15 @@ def card_vs_cpu(card_case):
         top = float(b.abs().max())
         r = float((a.cpu() - b).abs().max()) / top
         ctl = float((f.cpu().double() - b).abs().max()) / top
-        tol = CARD_TOL[label.split()[0]].get(nm, 1e-10)
-        log(f"  C24L10 f64 {label} 2 big steps {nm}: card vs CPU {r:.3e} x "
-            f"its max (tol {tol:g}); control, the card in float32: "
-            f"{ctl:.3e}")
+        tol = tols.get(nm, 1e-10)
+        log(f"  C24L10 f64 {label} {steps} big steps {nm}: card vs CPU "
+            f"{r:.3e} x its max (tol {tol:g}); control, the card in "
+            f"float32: {ctl:.3e}")
         if r > tol:
             bad.append(nm)
         require(ctl > tol, f"the control reads {nm} within its limit "
                            f"{tol:g}: the check could not tell a fault")
-    log(f"phase 3 {label} big step card vs CPU: over the limit "
+    log(f"phase {phase} {label} big step card vs CPU: over the limit "
         f"{bad or 'none'}")
     require(not bad, f"{label} step on the card disagrees with the CPU "
                      f"in {bad}")
@@ -1076,10 +1203,11 @@ def step_phase(label, case, state, mass0, card, shapes, per_step, kernels):
     over 1e-5 or a launch count other than per_step's (the rank-5 tp
     sweep: one launch per tracer_2d subcycle on top). shapes: the path's
     kernel records by call shape (device ms by kernel). Returns the launch
-    counts."""
+    counts, with the sim1 launches of its off-centred form under
+    "sim1_offcentred" and the s/step under "s_per_step"."""
     import torch
     from gfdl_atmos_cubed_sphere_tpu_torch.model import tracer_2d
-    from gfdl_atmos_cubed_sphere_tpu_torch.ops import tp_sweep
+    from gfdl_atmos_cubed_sphere_tpu_torch.ops import sim1, tp_sweep
     state = case.step(state)                              # warm-up
     float(torch.sum(state[0]))
     nsteps = 5
@@ -1089,6 +1217,7 @@ def step_phase(label, case, state, mass0, card, shapes, per_step, kernels):
     tracer_2d.reset_nsplt()
     sec, state = timed_steps(case.step, state, nsteps)
     launches = counts()
+    launches["sim1_offcentred"] = sim1.launches_offc
     rank5 = tp_sweep.launches_rank5
     nsplt = list(tracer_2d.nsplt_calls)
     peak = torch.cuda.max_memory_allocated()
@@ -1136,6 +1265,7 @@ def step_phase(label, case, state, mass0, card, shapes, per_step, kernels):
                                           key=lambda kv: -kv[1])[:10]))
     log("  wall ms per big step by layer (synchronised): " + ", ".join(
         f"{k} {v:.1f}" for k, v in layer_ms(case, state).items()))
+    launches["s_per_step"] = sec
     return launches
 
 
@@ -1741,6 +1871,197 @@ def facade_full_width(geom, ic, ak, bk, card, solo_nh):
         shutil.rmtree(SOLO_DIR, ignore_errors=True)
 
 
+# ---- phase 10: the acoustic-loop options and Riemann solvers --------------
+
+def options_card_vs_cpu(geom):
+    """Phase 10a: one dry C24L10 float64 big step of each of BUNDLES on
+    the card against the CPU (phase 3's limits and its float32 control,
+    BUNDLE_TOL beside them), then remap_restart of the off-centred
+    bundle's state with a w and a sphum tracer onto set_eta(24)'s higher
+    top (as JAX's tests/test_remap_restart.py:36-50), nonhydrostatic, card
+    against CPU at 1e-10 of each output's maximum."""
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.grid.fv_eta import set_eta
+    from gfdl_atmos_cubed_sphere_tpu_torch.io.restart import remap_restart
+    ic = None
+    for name, (hydro, dt, over) in BUNDLES.items():
+        t0 = time.perf_counter()
+        case = BigStep(25, 10, dt, 1, 2, torch.float64, "cuda", geom=geom,
+                       ic=ic, hydro=hydro, over=over, bundle=name)
+        ic = case.ic
+        card_vs_cpu(case, steps=1, phase="10a",
+                    tols=dict(CARD_TOL["hydro" if hydro else "NH"],
+                              **BUNDLE_TOL.get(name, {})))
+        log(f"  ({name}: {time.perf_counter() - t0:.1f} s, dt {dt:g} s, "
+            f"{over})")
+        if name == "off-centred":
+            nh_case = case
+    _, _, ak24, bk24 = set_eta(24)
+    require(ak24[0] < nh_case.ak[0], "set_eta(24) must top above L10")
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        cpu = BigStep(25, 10, 900.0, 1, 2, torch.float64, "cpu", geom=geom,
+                      ic=ic, over=NH_OFFC) if dev == "cpu" else nh_case
+        st = dict(zip(cpu.fields, cpu.state))
+        # the wave's w is 0: a w and a tracer from the state's own fields
+        st["w"] = 0.01 * (st["pt"] - st["pt"].mean())
+        q = {"sphum": 0.005 * st["delp"] / st["delp"].max()}
+        out, q2 = remap_restart(st, q, cpu.ak, cpu.bk, ak24, bk24, cpu.g,
+                                hydrostatic=False)
+        outs[dev] = dict(out, sphum=q2["sphum"])
+    worst = 0.0
+    for nm, b in outs["cpu"].items():
+        a = outs["cuda"][nm].cpu()
+        require(bool(torch.equal(torch.isnan(a), torch.isnan(b))),
+                f"phase 10a remap_restart {nm}: NaN positions differ")
+        require(bool(torch.isfinite(b).all()),
+                f"phase 10a remap_restart {nm}: not finite")
+        require(tuple(b.shape[:2]) == (6, 24), f"remap_restart {nm} shape")
+        r = float((a - b).abs().max() / b.abs().max())
+        worst = max(worst, r)
+        log(f"  remap_restart L10 -> set_eta(24) {nm}: card vs CPU {r:.3e}"
+            f" x its max")
+    log(f"phase 10a remap_restart C24L10 -> L24 f64 card vs CPU: worst "
+        f"{worst:.3e} (tol 1e-10)")
+    require(worst <= 1e-10, "remap_restart on the card disagrees with the "
+                            "CPU")
+
+
+class RiemCall:
+    """Records the arguments of the first nh_core.riem_solver3 call made
+    while it is entered (cloned)."""
+
+    def __enter__(self):
+        from gfdl_atmos_cubed_sphere_tpu_torch.ops import nh_core
+        self.args = None
+        self._orig = nh_core.riem_solver3
+
+        def rec(*a, **kw):
+            if self.args is None:
+                self.args = ([x.clone() if hasattr(x, "clone") else x
+                              for x in a], dict(kw))
+            return self._orig(*a, **kw)
+
+        nh_core.riem_solver3 = rec
+        return self
+
+    def __exit__(self, *exc):
+        from gfdl_atmos_cubed_sphere_tpu_torch.ops import nh_core
+        nh_core.riem_solver3 = self._orig
+        return False
+
+
+def solver_costs(case, state):
+    """Phase 10b: riem_solver3 alone at SOLVER_A_IMP on the D-stage inputs
+    of the first acoustic iteration of one step of case (the moist
+    c192_nh state), RIM_2D at its default substeps: ms a call (CUDA events,
+    median of 3, RIM_2D's one call) and the device kernels a call (plain
+    PyTorch on the card)."""
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.ops import nh_core
+    with RiemCall() as rc:
+        case.step(state)
+    args, kw = rc.args
+    ms_rim = 1 + int(abs(args[0]))
+    for name, a_imp in SOLVER_A_IMP.items():
+        kw2 = dict(kw, a_imp=a_imp, use_logp=False, d2bg_zq=0.0,
+                   ms=ms_rim)
+
+        def call():
+            return nh_core.riem_solver3(*args, **kw2)
+
+        # RIM_2D takes seconds a call: its one timed call is the one
+        # checked
+        ms = time_ms(call, reps=1 if name == "RIM_2D" else 3,
+                     warm=0 if name == "RIM_2D" else 1)
+        for k, v in vars(call()).items():
+            require(bool(torch.isfinite(v[..., H:-H, H:-H]).all()),
+                    f"phase 10b riem_solver3 {name}: {k} not finite in "
+                    f"the compute domain")
+        every = own_kernel_launches(call, reps=1, own=False)
+        nk = sum(c for _, c in every.values())
+        dev_ms = sum(v for v, _ in every.values())
+        log(f"phase 10b riem_solver3 {name} (a_imp {a_imp:g}"
+            + (f", {ms_rim} substeps" if name == "RIM_2D" else "")
+            + f") at C192L79 f32: {ms:.2f} ms a call, {nk:g} device "
+              f"kernels a call, {dev_ms:.2f} ms of device time")
+
+
+def options_full_width(geom, ic, ak, bk, card, shapes_nh, shapes_hy,
+                       m_launches, h_launches):
+    """Phase 10b at C192L79 float32 on phase 5's geometry: the moist
+    c192_nh step with NH_OFFC and the moist c192_hydro step with
+    HYDRO_OPTS, each as phases 6 and 7 (step_phase: s/step, busy, peak
+    memory, layers), beside their headlines from this run; the sim1
+    launches split by form (12 of each a big step); every other kernel's
+    launches those of phases 6 and 7; riem_solver3 alone for SIM3, SIM3p0
+    and RIM_2D; reset_eta of the moist initial state from L79 to L91 in
+    float64 (seconds, the column mass kept to 1e-12). Returns the launches
+    of both paths."""
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.grid.fv_eta import set_eta
+    from gfdl_atmos_cubed_sphere_tpu_torch.io.restart import reset_eta
+    nho = BigStep(193, 79, 450.0, 2, 6, torch.float32, "cuda", geom=geom,
+                  ic=ic, moist=True, over=NH_OFFC, bundle="off-centred")
+    la = step_phase("10b c192_nh_offc moist f32", nho, nho.state,
+                    mass(nho.g, nho.state[0]), card, shapes_nh, NH_PER_STEP,
+                    NH_KERNELS)
+    log(f"phase 10b c192_nh_offc: {la['s_per_step']:.4f} s/step, "
+        f"{6 * 192 ** 2 * 79 / la['s_per_step']:.4e} pts*lev/s; phase 6's "
+        f"headline in this run {m_launches['s_per_step']:.4f} s/step; sim1 "
+        f"per big step {la['sim1'] / 5:g}, of which alpha 0.75 "
+        f"{la['sim1_offcentred'] / 5:g}")
+    require(la["sim1_offcentred"] == 12 * 5,
+            f"c192_nh_offc: {la['sim1_offcentred']} off-centred sim1 "
+            f"launches in 5 big steps, expected 60")
+    for name in REPLACES:
+        require(la[name] == m_launches[name],
+                f"c192_nh_offc: {name} launched {la[name]} times, phase 6 "
+                f"{m_launches[name]}")
+    solver_costs(nho, nho.state)
+    del nho
+    hyo = BigStep(193, 79, 450.0, 1, 6, torch.float32, "cuda", geom=geom,
+                  ic=ic, moist=True, hydro=True, over=HYDRO_OPTS,
+                  bundle="options")
+    lh = step_phase("10b c192_hydro_opts moist f32", hyo, hyo.state,
+                    mass(hyo.g, hyo.state[0]), card, shapes_hy,
+                    HYDRO_PER_STEP, HYDRO_KERNELS)
+    log(f"phase 10b c192_hydro_opts: {lh['s_per_step']:.4f} s/step; phase "
+        f"7's in this run {h_launches['s_per_step']:.4f} s/step")
+    for name in REPLACES:
+        require(lh[name] == h_launches[name],
+                f"c192_hydro_opts: {name} launched {lh[name]} times, phase "
+                f"7 {h_launches[name]}")
+    g = hyo.g
+    del hyo
+    # reset_eta of the moist initial state, float64 on the card
+    st = {k: torch.as_tensor(ic[k], dtype=torch.float64, device="cuda")
+          for k in ("delp", "pt", "u", "v", "w", "delz")}
+    q = {k: torch.as_tensor(v, dtype=torch.float64, device="cuda")
+         for k, v in ic["q"].items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st2, q2, ak2, bk2, _ = reset_eta(st, q, ak, bk, g, npz=91,
+                                     hydrostatic=False)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ps_r = ak[0] + st["delp"].sum(1)
+    err = float(((st2["delp"].sum(1) - (ps_r - ak2[0])).abs()
+                 / (ps_r - ak2[0])).max())
+    require(tuple(st2["delp"].shape) == (6, 91, 192, 192),
+            "reset_eta: not 91 levels")
+    for k, v in list(st2.items()) + list(q2.items()):
+        require(bool(torch.isfinite(v).all()), f"reset_eta: {k} not finite")
+    require(bool((st2["delz"] < 0).all()), "reset_eta: delz not negative")
+    require(err <= 1e-12, f"reset_eta: column mass off by {err:.3e}")
+    _, _, ak91, _ = set_eta(91)
+    require(ak2[0] == ak91[0], "reset_eta: not set_eta(91)'s coordinate")
+    log(f"phase 10b reset_eta moist C192L79 -> L91 f64 on the card: "
+        f"{sec:.2f} s; column mass against ps - ptop {err:.3e} (tol "
+        f"1e-12)")
+    return la, lh
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1843,6 +2164,7 @@ def main():
     shapes_nh = check_kernels(cap192, NH_KERNELS, 192, 1e-4, "c192_nh f32",
                               measure=True)
     check_kernels(cap24, NH_KERNELS, 24, 1e-12, "C24L10 f64", measure=False)
+    sim1_offc = check_sim1_offcentred(cap192, cap24)
     captured_calls("c192_nh", cap192, NH_PER_STEP, [])
     del cap192, cap24
     moist = check_kernels(
@@ -1893,6 +2215,11 @@ def main():
         card_vs_cpu(case)
     geom24 = nh24.geom
     del nh24, nh24m, hy24
+
+    # ---- 10a. the options and solvers, card vs CPU -------------------------
+    t0 = time.perf_counter()
+    options_card_vs_cpu(geom24)
+    log(f"phase 10a: {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. full width sw_c768 ----------------------------------------------
     state = list(step(state))                            # warm-up
@@ -1945,6 +2272,13 @@ def main():
     facade_card_vs_cpu(geom24)
     shield_launches = facade_full_width(geom192, *moist_ic, card,
                                         solo_nh_launches)
+
+    # ---- 10b. the options and solvers at full width -------------------------
+    t0 = time.perf_counter()
+    offc_launches, opts_launches = options_full_width(
+        geom192, *moist_ic, card, shapes_nh, shapes_hy, m_launches,
+        h_launches)
+    log(f"phase 10b: {time.perf_counter() - t0:.1f} s")
     del moist_ic
 
     kernels = []
@@ -1979,6 +2313,15 @@ def main():
         # launches per atmosphere_dynamics step of the SHiELD facade at
         # C192L79 (phase 9b)
         entry["shield"] = {"launches": shield_launches[name]}
+        # launches in phase 10b's 5 big steps with the option bundles
+        entry["c192_nh_offc"] = {"launches": offc_launches[name]}
+        entry["c192_hydro_opts"] = {"launches": opts_launches[name]}
+        if name == "sim1":
+            entry["c192_nh_offc"].update(
+                launches_alpha_1=offc_launches["sim1"]
+                - offc_launches["sim1_offcentred"],
+                launches_alpha_0_75=offc_launches["sim1_offcentred"])
+            entry["offcentred"] = sim1_offc
         for other, _, orecs, oshapes, olaunches in paths:
             if other != path and name in orecs:
                 entry[other.split()[0]] = {

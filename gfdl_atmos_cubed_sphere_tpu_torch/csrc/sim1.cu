@@ -1,11 +1,19 @@
 // SIM1 fully implicit Riemann / vertical sound-wave solver (FV3
-// model/nh_utils.F90 SIM1_solver:1277, alpha = 1) for Hopper.
+// model/nh_utils.F90 SIM1_solver:1277, alpha = 1) and the off-centred SIM
+// (SIM_solver:1396, 0.5 < alpha < 1) for Hopper.
 //
 // Replaces the TPU kernel sim1_pallas
-// (gfdl_atmos_cubed_sphere_tpu/ops/pallas_nh.py:158, body _sim1_kernel :41).
-// Per column: the gas-law pressure perturbation, a Thomas sweep for the
-// interface pressure pp, a Thomas sweep for w, the pe accumulation and dz
-// from the blended pressure (bottom-up recurrence).
+// (gfdl_atmos_cubed_sphere_tpu/ops/pallas_nh.py:158, body _sim1_kernel :41),
+// which takes alpha = 1 only. Per column: the gas-law pressure
+// perturbation, a Thomas sweep for the interface pressure pp, a Thomas
+// sweep for w, the pe accumulation and dz from the blended pressure
+// (bottom-up recurrence). The template flag OFFC compiles the off-centred
+// form: the w sweep adds the explicit shear wk(k) = t2 aa(k) (w1(k-1) -
+// w1(k)), formed from the old w of the level above, which the sweep
+// carries in a register, and the bottom blend; pe recovers the old
+// pressure force and pe2 blends toward pp, so pp stays in shared memory to
+// the end and the forward and final w get a third array of their own.
+// The alpha = 1 form is the code it was before OFFC existed.
 //
 // Bound on an H100: bytes. A column reads dm, pm, w, dz, pt (K levels), pem
 // (K+1) and ws, and writes pe2 (K+1), w2 and dz2, with a few tens of flops
@@ -38,8 +46,13 @@ template <typename T> struct Sim1Args {
   const T *dm, *pm, *pem, *w1, *dz, *pt, *ws;
   T *pe2, *w2, *dz2;
   int T_, K, Y, X;
-  double dt, rgas, gama, akap, p_fac;
+  double dt, rgas, gama, akap, p_fac, alpha;
 };
+
+// the arrays of K + 1 values a column keeps in shared memory
+__host__ __device__ constexpr int n_arrays(bool offc) {
+  return offc ? 3 : 2;
+}
 
 // keep the compiler from moving shared-memory accesses across a ring wait
 // or refill
@@ -77,7 +90,8 @@ __device__ void stream(T* ring, int nt, const T* const* src,
   order();
 }
 
-template <typename T> __global__ void sim1_kernel(Sim1Args<T> a) {
+template <typename T, bool OFFC>
+__global__ void sim1_kernel(Sim1Args<T> a) {
   const int nt = blockDim.x, tid = threadIdx.x;
   const long long plane = (long long)a.Y * a.X;
   const long long ncol = (long long)a.T_ * plane;
@@ -87,17 +101,26 @@ template <typename T> __global__ void sim1_kernel(Sim1Args<T> a) {
   const long long t = c / plane, yx = c % plane;
   const long long f0 = t * K * plane + yx, e0 = t * (K + 1) * plane + yx;
   // shared memory, element (k, thread) at [k * nt + tid]: gam (K + 1
-  // levels; then pe2), pp (K + 1; then w), the ring (D slots of NF fields)
+  // levels; then pe2), pp (K + 1; then w, or kept in the OFFC form), the
+  // OFFC form's w (K + 1), the ring (D slots of NF fields)
   T* sm = reinterpret_cast<T*>(fv_smem) + tid;
   T* gam = sm;
   T* pp = sm + (K + 1) * nt;
-  T* ring = sm + 2 * (K + 1) * nt;
+  T* wv = OFFC ? sm + 2 * (K + 1) * nt : pp;
+  T* ring = sm + n_arrays(OFFC) * (K + 1) * nt;
   auto G = [&](int k) -> T& { return gam[k * nt]; };
   auto PP = [&](int k) -> T& { return pp[k * nt]; };
+  auto W = [&](int k) -> T& { return wv[k * nt]; };
 
+  // t1g = 2 (alpha dt)^2, 2 dt dt at alpha = 1 (nh_core.sim1_solver)
+  const double t1g = OFFC ? 2.0 * ((a.alpha * a.dt) * (a.alpha * a.dt))
+                          : 2.0 * a.dt * a.dt;
   const T dt = T(a.dt), rgas = T(a.rgas), gm2 = T(a.gama);
-  const T c_aa = T(2.0 * a.dt * a.dt * 0.5 * (a.gama + a.gama));
-  const T c_p1 = T(2.0 * a.dt * a.dt * a.gama);
+  const T c_aa = T(t1g * 0.5 * (a.gama + a.gama));
+  const T c_p1 = T(t1g * a.gama);
+  // off-centring: beta = 1 - alpha, ra = 1 / alpha, t2 = beta / alpha
+  const T beta = T(1.0 - a.alpha), ra = T(1.0 / a.alpha);
+  const T t2 = T((1.0 - a.alpha) / a.alpha);
   const T rdt = T(1.0 / a.dt);
   const T capa1 = T(a.akap - 1.0);
   const T p_fac = T(a.p_fac);
@@ -136,8 +159,10 @@ template <typename T> __global__ void sim1_kernel(Sim1Args<T> a) {
   // backward pp sweep
   for (int k = K - 1; k >= 1; --k) PP(k) = PP(k) - G(k) * PP(k + 1);
 
-  // ---- the forward w sweep: aa from dz and pem; w(k) replaces pp(k) ----
+  // ---- the forward w sweep: aa from dz and pem; w(k) replaces pp(k)
+  // (in W of its own in the OFFC form), wk from the old w above ---------
   T dz_p = T(0), w1_p = T(0), aa_p = T(0), w_p = T(0), pp_k = T(0);
+  T wk_p = T(0);
   {
     const T* src[4] = {a.dm + f0, a.w1 + f0, a.dz + f0, a.pem + e0};
     stream<T, 4>(ring, nt, src, plane, K, false, [&](int j, const T* v) {
@@ -145,7 +170,21 @@ template <typename T> __global__ void sim1_kernel(Sim1Args<T> a) {
         const T aa = (T(1) / (dz_p + v[2])) * c_aa * v[3];
         const int k = j - 1;
         const T pp1 = PP(k + 1);
-        if (k == 0) {
+        if (OFFC) {
+          // wk at interface j, between levels j - 1 and j
+          const T wk = t2 * aa * (w1_p - v[1]);
+          if (k == 0) {
+            bet = dm_p - aa;
+            w_p = (dm_p * w1_p + dt * pp1 + wk) / bet;
+          } else {
+            const T g = aa_p / bet;
+            G(k) = g;
+            bet = dm_p - (aa_p + aa + aa_p * g);
+            w_p = (dm_p * w1_p + dt * (pp1 - pp_k) + (wk - wk_p)
+                   - aa_p * w_p) / bet;
+          }
+          wk_p = wk;
+        } else if (k == 0) {
           bet = dm_p - aa;
           w_p = (dm_p * w1_p + dt * pp1) / bet;
         } else {
@@ -154,7 +193,7 @@ template <typename T> __global__ void sim1_kernel(Sim1Args<T> a) {
           bet = dm_p - (aa_p + aa + aa_p * g);
           w_p = (dm_p * w1_p + dt * (pp1 - pp_k) - aa_p * w_p) / bet;
         }
-        PP(k) = w_p;
+        W(k) = w_p;
         pp_k = pp1;
         aa_p = aa;
       }
@@ -168,28 +207,40 @@ template <typename T> __global__ void sim1_kernel(Sim1Args<T> a) {
     const T gK = aa_p / bet;
     G(K - 1) = gK;
     const T betK = dm_p - (aa_p + p1w + aa_p * gK);
-    w_p = (dm_p * w1_p + dt * (PP(K) - pp_k) - p1w * a.ws[c]
-           - aa_p * w_p) / betK;
-    PP(K - 1) = w_p;
+    if (OFFC)
+      w_p = (dm_p * w1_p + dt * (PP(K) - pp_k)
+             + (p1w * (t2 * w1_p - ra * a.ws[c]) - wk_p) - aa_p * w_p)
+            / betK;
+    else
+      w_p = (dm_p * w1_p + dt * (PP(K) - pp_k) - p1w * a.ws[c]
+             - aa_p * w_p) / betK;
+    W(K - 1) = w_p;
   }
   // backward w sweep; w2 out
   a.w2[f0 + (long long)(K - 1) * plane] = w_p;
   for (int k = K - 2; k >= 0; --k) {
-    w_p = PP(k) - G(k + 1) * w_p;
-    PP(k) = w_p;
+    w_p = W(k) - G(k + 1) * w_p;
+    W(k) = w_p;
     a.w2[f0 + (long long)k * plane] = w_p;
   }
 
-  // ---- the new nonhydrostatic pressure pe2 (kept in gam) ---------------
+  // ---- the new nonhydrostatic pressure (kept in gam); pe2 out, blended
+  // toward pp in the OFFC form (SIM_solver:1511-1516, :1533-1535) --------
   {
     T pe = T(0);
     G(0) = pe;
-    a.pe2[e0] = pe;
+    a.pe2[e0] = OFFC ? pe + beta * (PP(0) - pe) : pe;
     const T* src[2] = {a.dm + f0, a.w1 + f0};
     stream<T, 2>(ring, nt, src, plane, K, false, [&](int k, const T* v) {
-      pe = pe + v[0] * (PP(k) - v[1]) * rdt;
+      if (OFFC) {
+        const T dpe = v[0] * (W(k) - v[1]) * rdt;
+        pe = pe + (dpe - beta * (PP(k + 1) - PP(k))) * ra;
+      } else {
+        pe = pe + v[0] * (W(k) - v[1]) * rdt;
+      }
       G(k + 1) = pe;
-      a.pe2[e0 + (long long)(k + 1) * plane] = pe;
+      a.pe2[e0 + (long long)(k + 1) * plane] =
+          OFFC ? pe + beta * (PP(k + 1) - pe) : pe;
     });
   }
 
@@ -213,7 +264,7 @@ template <typename T> __global__ void sim1_kernel(Sim1Args<T> a) {
   }
 }
 
-template <typename T>
+template <typename T, bool OFFC>
 int launch(const void* const* in, void* const* out, const int* iv,
            const double* s, cudaStream_t stream) {
   Sim1Args<T> a;
@@ -237,17 +288,22 @@ int launch(const void* const* in, void* const* out, const int* iv,
   a.gama = s[2];
   a.akap = s[3];
   a.p_fac = s[4];
+  a.alpha = s[5];
   // the wrapper's plan (ops/sim1.py launch_plan) must be this kernel's
   if (a.K < 3 || nt < 32 || nt > 1024 || nt % 32
-      || smem != (2 * (a.K + 1) + D * NF) * nt * (int)sizeof(T))
+      || smem != (n_arrays(OFFC) * (a.K + 1) + D * NF) * nt
+                     * (int)sizeof(T)
+      || (OFFC ? !(a.alpha > 0.5 && a.alpha < 1.0) : a.alpha != 1.0))
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sim1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        sim1_kernel<T, OFFC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return (int)e;
   }
   const long long ncol = (long long)a.T_ * a.Y * a.X;
-  sim1_kernel<T><<<(unsigned)((ncol + nt - 1) / nt), nt, smem, stream>>>(a);
+  sim1_kernel<T, OFFC>
+      <<<(unsigned)((ncol + nt - 1) / nt), nt, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -256,11 +312,16 @@ int launch(const void* const* in, void* const* out, const int* iv,
 // Plain C entry point. in: dm, pm, pem, w, dz, pt, ws (device pointers;
 // pem has K+1 levels, ws is [T, Y, X]); out: pe2 (K+1 levels), w2, dz2.
 // iv: T, K, Y, X, threads per block, shared-memory bytes (ops/sim1.py
-// launch_plan). s: dt, rgas, gama, akap, p_fac. dtype 0 = float32,
-// 1 = float64. Returns a cudaError_t.
+// launch_plan), 1 for the off-centred form. s: dt, rgas, gama, akap,
+// p_fac, alpha (1 in the alpha = 1 form). dtype 0 = float32, 1 = float64.
+// Returns a cudaError_t.
 extern "C" int sim1(const void* const* in, void* const* out, const int* iv,
                     const double* s, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(in, out, iv, s, st);
-  return launch<double>(in, out, iv, s, st);
+  if (iv[6]) {
+    if (dtype == 0) return launch<float, true>(in, out, iv, s, st);
+    return launch<double, true>(in, out, iv, s, st);
+  }
+  if (dtype == 0) return launch<float, false>(in, out, iv, s, st);
+  return launch<double, false>(in, out, iv, s, st);
 }

@@ -180,24 +180,109 @@ def add_thermal_noise(pt, amplitude, seed=0):
     return pt + pert * amplitude, float(rms)
 
 
-def _needs(what):
-    raise NotImplementedError(
-        f"{what} needs fv_mapz's kord-4 remap (map1_ppm_ext), which is not "
-        "ported yet")
-
-
 def remap_restart(state, tracers, ak_r, bk_r, ak, bk, g, kord=4,
                   hydrostatic=True):
-    """Vertical remap of a restart onto another coordinate (fv_io.F90
-    remap_restart:624): not ported yet (needs the kord-4 remap)."""
-    _needs("remap_restart")
+    """Vertical remap of a restart state from the file's (ak_r, bk_r)
+    coordinate (npz_rst levels) onto the run's (ak, bk) coordinate
+    (fv_io.F90 remap_restart:624 / rst_remap:860, the npz_rst namelist
+    flag, fv_restart.F90:277).
+
+    state: dict with the interior tensors delp, pt, u, v [, w, delz]
+    [6, K_r, ...] on one device; tracers: dict of [6, K_r, n, n] (or None);
+    the coordinates as host arrays or tensors. pt is TEMPERATURE. Returns
+    (state, tracers) on the run coordinate, on the state's device, by the
+    reference recipe: ps from the restart column mass; the tracers on p
+    (iv = 0), the winds on wall-averaged p (iv = -1), the virtual
+    temperature on log p (iv = 1, geopotential-conserving), delz as
+    specific volume (iv = 1), all with the monotone kord 4 and
+    map1_ppm_ext's extrapolation past the source column."""
+    from ..ops import fv_mapz
+    from ..ops.sw_core import _rl, _cl
+    from ..ops.fill_corners import fi
+
+    delp_r = state["delp"]
+    dt, dev = delp_r.dtype, delp_r.device
+    n = delp_r.shape[-1]
+    H = 3
+    ctr = slice(H, H + n)
+    wsl = slice(fi(1), fi(n + 1) + 1)
+
+    def kl(a):                       # k-minor for the remap operators
+        return torch.movedim(torch.as_tensor(a, dtype=dt, device=dev), 1, -1)
+
+    def kf(a):
+        return torch.movedim(a, -1, 1)
+
+    def e1(v):
+        return torch.as_tensor(to_host(v), dtype=dt,
+                               device=dev).reshape(1, 1, 1, -1)
+
+    ps = e1(ak_r)[..., 0] + torch.sum(delp_r, dim=1)
+    pe1 = e1(ak_r) + e1(bk_r) * ps[..., None]     # [6, y, x, K_r+1]
+    pe2 = e1(ak) + e1(bk) * ps[..., None]
+    delp_new = kf(pe2[..., 1:] - pe2[..., :-1])
+
+    q_r = tracers or {}
+    tv = state["pt"]
+    if "sphum" in q_r:
+        tv = tv * (1.0 + con.ZVIR * q_r["sphum"])
+
+    new_q = None
+    if q_r:
+        names = list(q_r.keys())
+        qk = fv_mapz.map1_ppm_ext(
+            torch.stack([kl(q_r[k]) for k in names], 1), pe1[:, None],
+            pe2[:, None], iv=0, kord=kord)
+        new_q = {nm: kf(qk[:, i]) for i, nm in enumerate(names)}
+
+    out = {"delp": delp_new}
+    if not hydrostatic and state.get("w") is not None:
+        out["w"] = kf(fv_mapz.map1_ppm_ext(kl(state["w"]), pe1, pe2, iv=-1,
+                                           kord=kord))
+        if state.get("delz") is not None:
+            # remap -delz/delp ("specific volume"), then scale back
+            spv = -kl(state["delz"]) / kl(delp_r)
+            spv2 = fv_mapz.map1_ppm_ext(spv, pe1, pe2, iv=1, kord=kord)
+            out["delz"] = -kf(spv2) * delp_new
+
+    # geopotential-conserving virtual-temperature remap on log p
+    pt_new = kf(fv_mapz.map1_ppm_ext(kl(tv), torch.log(pe1),
+                                     torch.log(pe2), iv=1, kord=kord))
+    if "sphum" in q_r:
+        pt_new = pt_new / (1.0 + con.ZVIR * new_q["sphum"])
+    out["pt"] = pt_new
+
+    # the winds on edge pressures from wall-averaged ps (rst_remap:984-999,
+    # :1117)
+    ps_pad = g.halo.pad_cell(ps[:, None])
+    ps_u = 0.5 * (ps_pad[..., wsl, ctr] + _rl(ps_pad)[..., wsl, ctr])[:, 0]
+    out["u"] = kf(fv_mapz.map1_ppm_ext(
+        kl(state["u"]), e1(ak_r) + e1(bk_r) * ps_u[..., None],
+        e1(ak) + e1(bk) * ps_u[..., None], iv=-1, kord=kord))
+    ps_v = 0.5 * (ps_pad[..., ctr, wsl] + _cl(ps_pad)[..., ctr, wsl])[:, 0]
+    out["v"] = kf(fv_mapz.map1_ppm_ext(
+        kl(state["v"]), e1(ak_r) + e1(bk_r) * ps_v[..., None],
+        e1(ak) + e1(bk) * ps_v[..., None], iv=-1, kord=kord))
+
+    for k2 in ("phis", "ps"):
+        if k2 in state:
+            out[k2] = state[k2]
+    return out, new_q
 
 
 def reset_eta(state, tracers, ak_old, bk_old, g, npz=None, npz_type=None,
               kord=4, hydrostatic=True):
-    """reset_eta startup option: not ported yet (remaps through
-    remap_restart)."""
-    _needs("reset_eta")
+    """reset_eta startup option (fv_arrays.F90 reset_eta): rebuild (ak, bk)
+    from set_eta for the requested (or the current) npz and remap the
+    restart state onto them through remap_restart. Returns (state,
+    tracers, ak, bk, ptop), ak and bk as float64 host arrays."""
+    from ..grid.fv_eta import set_eta
+    K = state["delp"].shape[1] if npz is None else int(npz)
+    kw = {} if npz_type is None else dict(npz_type=npz_type)
+    _, ptop, ak, bk = set_eta(K, **kw)
+    st2, tr2 = remap_restart(state, tracers, ak_old, bk_old, ak, bk, g,
+                             kord=kord, hydrostatic=hydrostatic)
+    return st2, tr2, ak, bk, ptop
 
 
 def save_coarse_state(path, state, q, g, factor, ak=None, bk=None,

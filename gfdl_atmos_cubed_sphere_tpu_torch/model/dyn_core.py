@@ -8,19 +8,23 @@ one_grad_p:1909). Per acoustic iteration, nonhydrostatic:
 hydrostatic:
   c_sw -> geopk(C) + p_grad_c (pgradc_fused) -> d_sw -> geopk(D) (pkgz)
   -> one_grad_p.
-c_sw, d_sw, the SIM1 column solve and the hydrostatic column pressures run
-through their kernel wrappers (ops/csw.py, ops/dsw.py, ops/sim1.py,
-ops/pg_col.py): the hand-written CUDA kernels for CUDA tensors, the plain
-versions for CPU tensors.
+c_sw, d_sw, the SIM1 / SIM column solve and the hydrostatic column
+pressures run through their kernel wrappers (ops/csw.py, ops/dsw.py,
+ops/sim1.py, ops/pg_col.py): the hand-written CUDA kernels for CUDA
+tensors, the plain versions for CPU tensors. The acoustic-loop options run
+as plain PyTorch, as in the JAX package: the off-centred pressure
+gradients split_p_grad / grad1_p_update (beta > 0, dyn_core.F90:1795,
+:2033), the external-mode damping external_mode_divg2 (d_ext > 0,
+hydrostatic), mix_dp (fill_dp, :2119) and the inline Rayleigh damping
+ray_fast (rf_fast, :2485), with every Riemann solver of ops/nh_core.py.
 
-Not ported (NotImplementedError): the off-centred pressure gradients
-split_p_grad / grad1_p_update (beta > 0), the external-mode damping
-external_mode_divg2 (d_ext > 0), mix_dp (fill_dp), ray_fast (rf_fast), the
-inline fast_phys hook, and the non-SIM1 Riemann solvers (a_imp <= 0.999).
+Not ported (NotImplementedError): the inline fast_phys hook (do_fast_phys),
+which needs the microphysics' fast_sat_adj.
 
 Fields are [6, npz, y, x]; level-interface fields [6, npz+1, y, x].
 """
 
+import math
 from dataclasses import dataclass
 from types import SimpleNamespace
 
@@ -28,8 +32,9 @@ import numpy as np
 import torch
 
 from .. import constants as con
+from ..io.restart import to_host
 from ..ops import pg_col
-from ..ops.a2b_edge import a2b_ord4
+from ..ops.a2b_edge import a2b_ord2, a2b_ord4
 from ..ops.fill_corners import fi
 from ..ops.pg_col import p_grad_c
 
@@ -286,17 +291,12 @@ def _sponge_level_params(cfg):
         nord_w=nv_base, nord_w2=0)
 
 
-def nh_p_grad(u_acc, v_acc, pp, pk3, gz, delp_p, g, dt, npx, ptk):
-    """Nonhydrostatic dual pressure gradient (dyn_core.F90 nh_p_grad:1696).
-
-    pp: nonhydro pressure perturbation at interfaces [6,K+1,Y,X] padded;
-    pk3: hydrostatic pe**kappa interfaces; gz: geopotential interfaces;
-    delp_p: padded layer thickness. u_acc/v_acc are the d_sw outputs in
-    circulation form. One batched a2b_ord4 call corner-interpolates all
-    four operands. Returns the final interior D winds."""
+def _nh_grad_terms(pp, pk3, gz, delp_p, g, dt, npx, ptk):
+    """B-grid setup of the nonhydrostatic dual pressure gradient: one
+    batched a2b_ord4 of (pp, pk3, gz, delp) [6, 3(K+1)+K, P, P], pp's top
+    interface set to 0 and pk3's to ptk, and the dt-scaled increments of
+    the hydrostatic (du1, dv1) and the perturbation part (du2, dv2)."""
     f = fi
-    n = g.n
-    ctr = slice(H, H + n)
     wsl = slice(f(1), f(npx) + 1)
     Kp1 = pp.shape[1]
     allB = a2b_ord4(torch.cat([pp, pk3, gz, delp_p], dim=1), g)
@@ -322,13 +322,42 @@ def nh_p_grad(u_acc, v_acc, pp, pk3, gz, delp_p, g, dt, npx, ptk):
 
     ua_, ub_ = (Ellipsis, wsl, cl_), (Ellipsis, wsl, cr_)
     va_, vb_ = (Ellipsis, cl_, wsl), (Ellipsis, cr_, wsl)
-    du1 = grad(ua_, ub_, wk, pk1, pk2)
-    du2 = grad(ua_, ub_, dpB, pp1, pp2)
-    dv1 = grad(va_, vb_, wk, pk1, pk2)
-    dv2 = grad(va_, vb_, dpB, pp1, pp2)
+    return (grad(ua_, ub_, wk, pk1, pk2), grad(ua_, ub_, dpB, pp1, pp2),
+            grad(va_, vb_, wk, pk1, pk2), grad(va_, vb_, dpB, pp1, pp2))
+
+
+def nh_p_grad(u_acc, v_acc, pp, pk3, gz, delp_p, g, dt, npx, ptk):
+    """Nonhydrostatic dual pressure gradient (dyn_core.F90 nh_p_grad:1696).
+
+    pp: nonhydro pressure perturbation at interfaces [6,K+1,Y,X] padded;
+    pk3: hydrostatic pe**kappa interfaces (log p under use_logp); gz:
+    geopotential interfaces; delp_p: padded layer thickness. u_acc/v_acc
+    are the d_sw outputs in circulation form. One batched a2b_ord4 call
+    corner-interpolates all four operands. Returns the final interior D
+    winds."""
+    ctr = slice(H, H + g.n)
+    wsl = slice(fi(1), fi(npx) + 1)
+    du1, du2, dv1, dv2 = _nh_grad_terms(pp, pk3, gz, delp_p, g, dt, npx, ptk)
     u_new = (u_acc + du1 + du2) * g.rdx[..., wsl, ctr]
     v_new = (v_acc + dv1 + dv2) * g.rdy[..., ctr, wsl]
     return u_new, v_new
+
+
+def split_p_grad(u_acc, v_acc, pp, pk3, gz, delp_p, g, dt, npx, ptk,
+                 du_old, dv_old, beta):
+    """Off-centred nonhydrostatic dual pressure gradient (dyn_core.F90
+    split_p_grad:1795, beta > 0): the hydrostatic part is time-split, beta
+    of the previous iteration's increment and 1 - beta of this one; the
+    perturbation part applies whole. Returns (u, v, du, dv) with the new
+    hydrostatic increments for the next acoustic iteration (beta = 0 on the
+    first, dyn_core.F90:398-406)."""
+    ctr = slice(H, H + g.n)
+    wsl = slice(fi(1), fi(npx) + 1)
+    du1, du2, dv1, dv2 = _nh_grad_terms(pp, pk3, gz, delp_p, g, dt, npx, ptk)
+    alpha = 1.0 - beta
+    u_new = (u_acc + beta * du_old + alpha * du1 + du2) * g.rdx[..., wsl, ctr]
+    v_new = (v_acc + beta * dv_old + alpha * dv1 + dv2) * g.rdy[..., ctr, wsl]
+    return u_new, v_new, du1, dv1
 
 
 def _pg_terms(pk, gz, g, npx, ptk):
@@ -364,39 +393,192 @@ def _pg_terms(pk, gz, g, npx, ptk):
     return du, dv
 
 
-def one_grad_p(u_acc, v_acc, pk, gz, g, dt, npx, ptk):
-    """Hydrostatic D-grid pressure gradient (dyn_core.F90 one_grad_p:1909)
-    without the external-mode term. pk, gz [6, K+1, Y, X] padded cell
-    interfaces; u_acc, v_acc: the d_sw winds in circulation form. Returns
-    the final interior D winds."""
+def _divg2_terms(divg2):
+    """The external-mode increments of one_grad_p (wk1 / wk2): the
+    column-mean potential's differences along the walls, the same on every
+    level. divg2 [6, n+1, n+1] interior corners, or None."""
+    if divg2 is None:
+        return 0.0, 0.0
+    return ((divg2[..., :, :-1] - divg2[..., :, 1:])[:, None],
+            (divg2[..., :-1, :] - divg2[..., 1:, :])[:, None])
+
+
+def one_grad_p(u_acc, v_acc, pk, gz, g, dt, npx, ptk, divg2=None):
+    """Hydrostatic D-grid pressure gradient (dyn_core.F90 one_grad_p:1909).
+    pk, gz [6, K+1, Y, X] padded cell interfaces; u_acc, v_acc: the d_sw
+    winds in circulation form; divg2: the external-mode damping potential
+    at the interior corners [6, n+1, n+1] (d_ext > 0), or None. Returns the
+    final interior D winds."""
     ctr = slice(H, H + g.n)
     wsl = slice(fi(1), fi(npx) + 1)
     du, dv = _pg_terms(pk, gz, g, npx, ptk)
-    u_new = g.rdx[..., wsl, ctr] * (u_acc + dt * du)
-    v_new = g.rdy[..., ctr, wsl] * (v_acc + dt * dv)
+    if divg2 is None:
+        u_new = g.rdx[..., wsl, ctr] * (u_acc + dt * du)
+        v_new = g.rdy[..., ctr, wsl] * (v_acc + dt * dv)
+    else:
+        d2u, d2v = _divg2_terms(divg2)
+        u_new = g.rdx[..., wsl, ctr] * (u_acc + d2u + dt * du)
+        v_new = g.rdy[..., ctr, wsl] * (v_acc + d2v + dt * dv)
     return u_new, v_new
 
 
+def grad1_p_update(u_acc, v_acc, pk, gz, g, dt, npx, ptk, du_old, dv_old,
+                   beta, divg2=None):
+    """Off-centred hydrostatic pressure gradient (dyn_core.F90
+    grad1_p_update:2033, beta > 0): the wind gets beta of the previous
+    acoustic iteration's increment and 1 - beta of this one's; the
+    increments carry across iterations (beta = 0 on the first,
+    dyn_core.F90:398-406). Returns (u, v, du, dv)."""
+    ctr = slice(H, H + g.n)
+    wsl = slice(fi(1), fi(npx) + 1)
+    du, dv = _pg_terms(pk, gz, g, npx, ptk)
+    du = dt * du
+    dv = dt * dv
+    d2u, d2v = _divg2_terms(divg2)
+    alpha = 1.0 - beta
+    u_new = g.rdx[..., wsl, ctr] * (u_acc + beta * du_old + d2u + alpha * du)
+    v_new = g.rdy[..., ctr, wsl] * (v_acc + beta * dv_old + d2v + alpha * dv)
+    return u_new, v_new, du, dv
+
+
+def external_mode_divg2(delp_p, divg_p, g, d_ext, npx):
+    """External (barotropic) mode damping potential (dyn_core.F90:828-846):
+    divg2 = d_ext da_min_c x the column mass-weighted mean of the B-grid
+    divergence. delp_p padded cells [6,K,Y,X]; divg_p padded corner
+    divergence [6,K,NW,NW]. Returns [6, n+1, n+1] at the interior
+    corners."""
+    wsl = slice(fi(1), fi(npx) + 1)
+    delp_b = a2b_ord2(delp_p, g)[..., wsl, wsl]
+    dv = divg_p[..., wsl, wsl]
+    wsum = torch.sum(delp_b, dim=1)
+    return (d_ext * g.da_min_c) * torch.sum(delp_b * dv, dim=1) / wsum
+
+
+def mix_dp(delp, pt, w, dpmin, hydrostatic=True):
+    """delp floor fixer (dyn_core.F90 mix_dp:2119): a layer thinner than 1 %
+    of its reference thickness borrows mass from the layer below (the
+    bottom layer from the one above), mixing pt (and w) by mass, so the
+    column stays conservative. Sequential in k, top down as the JAX
+    package's scan: level k's deficit thins level k+1 before k+1 is tested.
+    delp, pt, w [T, K, y, x]; dpmin [K] the static floors. Returns (delp,
+    pt, w)."""
+    K = delp.shape[1]
+    dpm = np.asarray(dpmin, np.float64)
+    nh = w is not None and not hydrostatic
+    w_ = w if nh else torch.zeros_like(delp)
+    floors = torch.as_tensor(dpm, dtype=delp.dtype, device=delp.device)
+    d_out, p_out, w_out = [], [], []
+    d_cur, p_cur, w_cur = delp[:, 0], pt[:, 0], w_[:, 0]
+    for k in range(K - 1):
+        d_nxt, p_nxt, w_nxt = delp[:, k + 1], pt[:, k + 1], w_[:, k + 1]
+        floor = floors[k]
+        bad = ~(d_cur >= floor)                 # catches NaN too
+        dp = floor - d_cur
+        p_out.append(torch.where(bad, (p_cur * d_cur + p_nxt * dp) / floor,
+                                 p_cur))
+        w_out.append(torch.where(bad, (w_cur * d_cur + w_nxt * dp) / floor,
+                                 w_cur))
+        d_out.append(torch.where(bad, floor, d_cur))
+        d_cur = torch.where(bad, d_nxt - dp, d_nxt)
+        p_cur, w_cur = p_nxt, w_nxt
+    # the bottom level borrows from the (fixed) level above
+    floor = floors[K - 1]
+    bad = ~(d_cur >= floor)
+    dp = floor - d_cur
+    p_out.append(torch.where(bad, (p_cur * d_cur + p_out[-1] * dp) / floor,
+                             p_cur))
+    w_out.append(torch.where(bad, (w_cur * d_cur + w_out[-1] * dp) / floor,
+                             w_cur))
+    d_out[-1] = torch.where(bad, d_out[-1] - dp, d_out[-1])
+    d_out.append(torch.where(bad, floor, d_cur))
+    return (torch.stack(d_out, 1), torch.stack(p_out, 1),
+            torch.stack(w_out, 1) if nh else w)
+
+
+def ray_fast_profile(ak, bk, dt, tau, rf_cutoff, ptop, p_ref=1.e5):
+    """Static per-level profile of the inline Rayleigh damping
+    (dyn_core.F90 Ray_fast:2485 setup block), on the host. Returns (rf[K],
+    dp_ref[K], dm, k_rf); rf == 1 below the cutoff."""
+    ak = np.asarray(ak, np.float64)
+    bk = np.asarray(bk, np.float64)
+    K = ak.size - 1
+    ph = np.maximum(ak + bk * p_ref, 1e-8)
+    pfull = (ph[1:] - ph[:-1]) / np.log(ph[1:] / ph[:-1])
+    dp_ref = np.diff(ak) + np.diff(bk) * 1.e5
+    rf = np.ones(K)
+    tau0 = tau * 86400.0
+    for k in range(K):
+        if pfull[k] < rf_cutoff:
+            rff = dt / tau0 * np.sin(
+                0.5 * np.pi * np.log(rf_cutoff / pfull[k])
+                / np.log(rf_cutoff / ptop)) ** 2
+            rf[k] = 1.0 / (1.0 + rff)
+        else:
+            break
+    ks = max(int(np.sum(bk == 0.0)) - 1, 0)   # pure-pressure levels
+    dm = 0.0
+    k_rf = 0
+    for k in range(ks):
+        if pfull[k] < rf_cutoff + min(100.0, 10.0 * ptop):
+            dm += dp_ref[k]
+            k_rf = k + 1
+        else:
+            break
+    return rf, dp_ref, dm, k_rf
+
+
+def ray_fast(u, v, w, rf, dp_ref, dm, k_rf, hydrostatic=True):
+    """Momentum-conserving inline Rayleigh damping (dyn_core.F90
+    Ray_fast:2551-2599): damp u, v (and w) above rf_cutoff and deposit the
+    removed mass-weighted momentum evenly into the top k_rf pressure
+    levels; the column sums run in the fields' dtype. Returns (u, v, w)."""
+    K = u.shape[1]
+    sh = (1, K, 1, 1)
+    rfb = torch.as_tensor(rf, dtype=u.dtype, device=u.device).reshape(sh)
+    dpb = torch.as_tensor(dp_ref, dtype=u.dtype, device=u.device).reshape(sh)
+    kmask = torch.as_tensor(np.arange(K) < k_rf, dtype=u.dtype,
+                            device=u.device).reshape(sh)
+    loss = (1.0 - rfb) * dpb
+    if dm > 0.0 and k_rf > 0:
+        dmu = torch.sum(loss * u, dim=1, keepdim=True) / dm
+        dmv = torch.sum(loss * v, dim=1, keepdim=True) / dm
+    else:
+        dmu = dmv = 0.0
+    u = u * rfb + kmask * dmu
+    v = v * rfb + kmask * dmv
+    if w is not None and not hydrostatic:
+        w = w * rfb
+    return u, v, w
+
+
+def _column_options(cfg, ak, bk, dt, ptop):
+    """The static inputs of the column options both loops take: mix_dp's
+    floors (fill_dp) and the ray_fast profile (rf_fast with tau > 0), each
+    None when off or when ak, bk are not given, as in the JAX package."""
+    dpmin = rfp = None
+    if ak is None:
+        return dpmin, rfp
+    ak, bk = to_host(ak).astype(np.float64), to_host(bk).astype(np.float64)
+    if cfg.fill_dp:
+        dpmin = 0.01 * (np.diff(ak) + np.diff(bk) * 1.e5)
+    if cfg.rf_fast and cfg.tau > 0.0:
+        rfp = ray_fast_profile(ak, bk, abs(dt), cfg.tau, cfg.rf_cutoff, ptop)
+    return dpmin, rfp
+
+
 def _check_nh_config(cfg):
-    unsupported = {
-        "beta > 0 (split_p_grad)": cfg.beta > 0.0,
-        "fill_dp (mix_dp)": cfg.fill_dp,
-        "rf_fast (ray_fast)": cfg.rf_fast and cfg.tau > 0.0,
-        "do_fast_phys": cfg.do_fast_phys,
-        "use_logp": cfg.use_logp,
-        "d2bg_zq > 0 (imp_diff_w)": cfg.d2bg_zq > 1.0e-4,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError("dyn_core_nh: not ported: " + ", ".join(bad))
+    if cfg.do_fast_phys:
+        raise NotImplementedError("dyn_core_nh: not ported: do_fast_phys")
 
 
 def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
-                n_split, dt_acoustic, dp0):
+                n_split, dt_acoustic, dp0, ak=None, bk=None):
     """Nonhydrostatic acoustic loop (dyn_core.F90, hydrostatic=.false.):
     per iteration c_sw -> update_dz_c -> Riem_Solver_C -> p_grad_c ->
-    d_sw -> update_dz_d -> Riem_Solver3 (SIM1) -> nh_p_grad, as a Python
-    loop over n_split.
+    d_sw [-> mix_dp] -> update_dz_d -> Riem_Solver3 -> nh_p_grad
+    (split_p_grad when beta > 0) [-> ray_fast], as a Python loop over
+    n_split. ak, bk [K+1] (host arrays or tensors) feed fill_dp's floors and
+    rf_fast's profile; without them both are off, as in the JAX package.
 
     delp, pt (theta_v), w, delz: [6, K, n, n] interior; u, v D winds.
     The loop carries PADDED (delp, pt, w, zh): the grouped cell exchange
@@ -417,13 +599,18 @@ def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
     wsl = slice(f(1), f(npx) + 1)
     dt = dt_acoustic
     dt2 = 0.5 * dt
-    ptk = ptop ** akap
+    # the top interface of the pk3 field the gradient differentiates:
+    # log(ptop) under use_logp, else ptop**kappa (dyn_core.F90 peln1/ptk)
+    ptk = math.log(ptop) if cfg.use_logp else ptop ** akap
     phis_p = g.phis_p
     phis2 = phis_p[:, 0] if phis_p.ndim == 4 else phis_p
     zs_p = phis2 / con.GRAV
     pl = _sponge_level_params(cfg)
     dp0 = np.asarray(dp0, np.float64)
     damp_zh = cfg.vtdm4 if cfg.do_vort_damp else 0.0
+    dpmin, rfp = _column_options(cfg, ak, bk, dt, ptop)
+    # RIM_2D's substeps (fv_control.F90:1037-1038)
+    ms = cfg.m_split if cfg.m_split > 0 else 1 + int(abs(dt))
 
     # initial height interfaces from delz
     incr = torch.flip(torch.cumsum(torch.flip(delz, [1]), dim=1), [1])
@@ -446,8 +633,9 @@ def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
         hord_dp=cfg.hord_dp, hord_tm=cfg.hord_tm,
         dddmp=cfg.dddmp, d4_bg=cfg.d4_bg, ke_bg=cfg.ke_bg,
         lim_fac=cfg.lim_fac, **pl)
+    dup = dvp = None
 
-    for _ in range(n_split):
+    for it in range(n_split):
         u, v = halo.reconcile_dgrid(u, v)
         u_p, v_p = halo.pad_dgrid(u, v)
         cs = c_sw(delp_p, pt_p, w_p, u_p, v_p, g, dt2, nord=cfg.nord)
@@ -455,7 +643,7 @@ def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
                                         dt2, npx)
         pkc, gzc = nh_core.riem_solver_c(dt2, cs.delpc, cs.ptc, cs.wc, gz_c,
                                          phis2, ws3, akap, ptop, cfg.p_fac,
-                                         a_imp=cfg.a_imp)
+                                         a_imp=cfg.a_imp, ms=ms)
         uc, vc = p_grad_c(cs.uc, cs.vc, cs.delpc, pkc, gzc, g, dt2, npx,
                           hydrostatic=False)
         uc_p, vc_p = halo.pad_cgrid(uc[..., ctr, wsl], vc[..., wsl, ctr])
@@ -465,9 +653,12 @@ def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
 
         ds = d_sw(delp_p, pt_p, w_p, u_p, v_p, uc_p, vc_p, cs.ua, cs.va,
                   divg_p, g, **dsw_kw)
+        delp, pt, w = ds.delp, ds.pt, ds.w
+        if dpmin is not None:
+            delp, pt, w = mix_dp(delp, pt, w, dpmin, hydrostatic=False)
         mfx, mfy = mfx + ds.fx, mfy + ds.fy
         cx, cy = cx + ds.crx, cy + ds.cry
-        delp_p, pt_p, w_p = halo.pad_cells((ds.delp, ds.pt, ds.w))
+        delp_p, pt_p, w_p = halo.pad_cells((delp, pt, w))
 
         # D-stage height advection on the pre-update zh
         zh_int, _ = nh_core.update_dz_d(g, zh_p, ds.crx, ds.cry, ds.xfx,
@@ -478,11 +669,26 @@ def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
         ws_full = (zs_p - zh_p2[:, -1]) * (1.0 / dt)
         rs = nh_core.riem_solver3(dt, delp_p, pt_p, w_p, zh_p2, zs_p,
                                   ws_full, akap, ptop, cfg.p_fac,
-                                  a_imp=cfg.a_imp)
+                                  use_logp=cfg.use_logp, a_imp=cfg.a_imp,
+                                  scale_m=cfg.scale_m, d2bg_zq=cfg.d2bg_zq,
+                                  ms=ms)
         w_p = rs.w
         zh_p = rs.zh
-        u, v = nh_p_grad(ds.u, ds.v, rs.ppe, rs.pk3, rs.zh * con.GRAV,
-                         delp_p, g, dt, npx, ptk)
+        gz_geo = rs.zh * con.GRAV
+        if cfg.beta > 0.0:
+            if dup is None:
+                dup, dvp = torch.zeros_like(u), torch.zeros_like(v)
+            # beta = 0 on the first iteration (dyn_core.F90:398-406)
+            u, v, dup, dvp = split_p_grad(
+                ds.u, ds.v, rs.ppe, rs.pk3, gz_geo, delp_p, g, dt, npx, ptk,
+                dup, dvp, 0.0 if it == 0 else cfg.beta)
+        else:
+            u, v = nh_p_grad(ds.u, ds.v, rs.ppe, rs.pk3, gz_geo, delp_p, g,
+                             dt, npx, ptk)
+        if rfp is not None:
+            # the w damping is columnar: on the PADDED w, so the carried
+            # halos stay valid
+            u, v, w_p = ray_fast(u, v, w_p, *rfp, hydrostatic=False)
         ws = ws_full[..., ctr, ctr]
 
     u, v = halo.reconcile_dgrid(u, v)
@@ -497,24 +703,14 @@ def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
                            pe=pe, peln=peln, pk=torch.exp(akap * peln))
 
 
-def _check_hydro_config(cfg):
-    unsupported = {
-        "beta > 0 (grad1_p_update)": cfg.beta > 0.0,
-        "d_ext > 0 (external_mode_divg2)": cfg.d_ext > 0.0 and cfg.nord > 0,
-        "fill_dp (mix_dp)": cfg.fill_dp,
-        "rf_fast (ray_fast)": cfg.rf_fast and cfg.tau > 0.0,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError("dyn_core_hydro: not ported: "
-                                  + ", ".join(bad))
-
-
 def dyn_core_hydro(delp, pt, u, v, g, cfg: DynConfig, akap, ptop, n_split,
-                   dt_acoustic):
+                   dt_acoustic, ak=None, bk=None):
     """Hydrostatic acoustic loop (dyn_core.F90, hydrostatic=.true.): per
-    iteration c_sw -> geopk(C) + p_grad_c (pgradc_fused) -> d_sw ->
-    geopk(D) (pkgz) -> one_grad_p, as a Python loop over n_split.
+    iteration c_sw -> geopk(C) + p_grad_c (pgradc_fused) -> d_sw
+    [-> mix_dp] -> geopk(D) (pkgz) -> one_grad_p (grad1_p_update when beta
+    > 0; with the external-mode term when d_ext > 0) [-> ray_fast], as a
+    Python loop over n_split. ak, bk [K+1] feed fill_dp's floors and
+    rf_fast's profile; without them both are off, as in the JAX package.
 
     delp, pt (theta_v): [6, K, n, n] interior; u, v D winds. The loop
     carries PADDED (delp, pt): the one grouped cell exchange after d_sw
@@ -524,7 +720,6 @@ def dyn_core_hydro(delp, pt, u, v, g, cfg: DynConfig, akap, ptop, n_split,
     gz, pkz of the final state on the padded frame."""
     from ..ops.csw import c_sw
     from ..ops.dsw import d_sw
-    _check_hydro_config(cfg)
     halo = g.halo
     npx = g.npx
     n = g.n
@@ -535,6 +730,7 @@ def dyn_core_hydro(delp, pt, u, v, g, cfg: DynConfig, akap, ptop, n_split,
     ptk = ptop ** akap
     phis_p = g.phis_p
     pl = _sponge_level_params(cfg)
+    dpmin, rfp = _column_options(cfg, ak, bk, dt, ptop)
     dsw_kw = dict(
         dt=dt, hord_mt=cfg.hord_mt, hord_vt=cfg.hord_vt,
         hord_dp=cfg.hord_dp, hord_tm=cfg.hord_tm, dddmp=cfg.dddmp,
@@ -551,7 +747,8 @@ def dyn_core_hydro(delp, pt, u, v, g, cfg: DynConfig, akap, ptop, n_split,
     mfx, mfy = zeros(n, n + 1), zeros(n + 1, n)
     cx, cy = zeros(NC, NW), zeros(NW, NC)
     delp_p, pt_p = halo.pad_cells((delp, pt))
-    for _ in range(n_split):
+    dup = dvp = None
+    for it in range(n_split):
         u, v = halo.reconcile_dgrid(u, v)
         u_p, v_p = halo.pad_dgrid(u, v)
         cs = c_sw(delp_p, pt_p, None, u_p, v_p, g, dt2, nord=cfg.nord)
@@ -564,11 +761,28 @@ def dyn_core_hydro(delp, pt, u, v, g, cfg: DynConfig, akap, ptop, n_split,
 
         ds = d_sw(delp_p, pt_p, None, u_p, v_p, uc_p, vc_p, cs.ua, cs.va,
                   divg_p, g, **dsw_kw)
+        divg2 = None
+        if cfg.d_ext > 0.0 and divg_p is not None:
+            divg2 = external_mode_divg2(delp_p, divg_p, g, cfg.d_ext, npx)
+        delp, pt = ds.delp, ds.pt
+        if dpmin is not None:
+            delp, pt, _ = mix_dp(delp, pt, None, dpmin, hydrostatic=True)
         mfx, mfy = mfx + ds.fx, mfy + ds.fy
         cx, cy = cx + ds.crx, cy + ds.cry
-        delp_p, pt_p = halo.pad_cells((ds.delp, ds.pt))
+        delp_p, pt_p = halo.pad_cells((delp, pt))
         pk, gz = pg_col.pkgz(delp_p, pt_p, phis_p, akap, ptop)
-        u, v = one_grad_p(ds.u, ds.v, pk, gz, g, dt, npx, ptk)
+        if cfg.beta > 0.0:
+            if dup is None:
+                dup, dvp = torch.zeros_like(u), torch.zeros_like(v)
+            # beta = 0 on the first iteration (dyn_core.F90:398-406)
+            u, v, dup, dvp = grad1_p_update(
+                ds.u, ds.v, pk, gz, g, dt, npx, ptk, dup, dvp,
+                0.0 if it == 0 else cfg.beta, divg2=divg2)
+        else:
+            u, v = one_grad_p(ds.u, ds.v, pk, gz, g, dt, npx, ptk,
+                              divg2=divg2)
+        if rfp is not None:
+            u, v, _ = ray_fast(u, v, None, *rfp)
 
     u, v = halo.reconcile_dgrid(u, v)
     pe, peln, pk, gz, pkz = pg_col.geopk(delp_p, pt_p, phis_p, akap, ptop)

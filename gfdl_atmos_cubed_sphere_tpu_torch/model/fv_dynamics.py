@@ -8,10 +8,11 @@ the acoustic loop, the large-timestep tracer transport (tracer_2d), the
 vertical remap with the tracers (mapn_tracer), the negative-moisture
 adjustment (neg_adj3) and the GFDL microphysics (gfdl_mp_driver), with
 the ideal-case Rayleigh sponge (rayleigh_super) or the real-case Rayleigh
-friction (rayleigh_friction) when tau > 0, the global total-energy fixer
-(consv_te > 0) and the angular-momentum fixer (consv_am). The inline
-Rayleigh damping (rf_fast) and the inline fast physics (do_fast_phys) are
-not ported and raise NotImplementedError.
+friction (rayleigh_friction) when tau > 0 (unless the inline Rayleigh
+damping rf_fast takes its place in the acoustic loop), the global
+total-energy fixer (consv_te > 0) and the angular-momentum fixer
+(consv_am). The inline fast physics (do_fast_phys) is not ported and
+raises NotImplementedError.
 
 State carried between calls: u, v (D winds), delp, pt = TEMPERATURE, the
 tracer dict q, and on the nonhydrostatic path w (m/s) and delz (m,
@@ -163,19 +164,6 @@ def remap_hydro(delp, ptv, u, v, q, pe_pad, peln_pad, pkz, ak, bk, g, cfg,
                            ps=ps[..., 0])
 
 
-def _check_config(cfg, entry, also=None):
-    """Raise NotImplementedError naming entry if cfg asks for an option
-    neither big step ports, or one of the caller's own refusals in also
-    ({description: whether cfg asks for it})."""
-    unsupported = {
-        "rf_fast (inline Rayleigh damping)": cfg.rf_fast and cfg.tau > 0.0,
-        **(also or {}),
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"{entry}: not ported: " + ", ".join(bad))
-
-
 def _ref_pressure(ak, bk):
     """Layer reference pressures at ps = 1e5 Pa (fv_dynamics.F90:369)."""
     akn, bkn = to_host(ak), to_host(bk)
@@ -268,10 +256,11 @@ def _moist_physics(pt, delp, delz, q, w, cfg, ptop, mp_cfg, hydrostatic):
 
 def _sponge(u, v, w, pt, delz, u0, v0, ak, bk, cfg, ptop, g, hydrostatic):
     """The sponge at the top of a big step (fv_dynamics.F90:369-370): with
-    tau > 0, Rayleigh_Super toward u0, v0 when given, else the real-case
-    Rayleigh friction unless the case is ideal. pt is TEMPERATURE.
-    Returns (u, v, w, pt, delz, whether pt changed)."""
-    if not cfg.tau > 0.0:
+    tau > 0 and rf_fast off, Rayleigh_Super toward u0, v0 when given, else
+    the real-case Rayleigh friction unless the case is ideal (rf_fast damps
+    inside the acoustic loop instead). pt is TEMPERATURE. Returns (u, v,
+    w, pt, delz, whether pt changed)."""
+    if not (cfg.tau > 0.0 and not cfg.rf_fast):
         return u, v, w, pt, delz, False
     if u0 is not None:
         u, v, w = rayleigh_super(u, v, w, u0, v0, ak, bk, cfg, ptop)
@@ -298,8 +287,9 @@ def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
     Returns SimpleNamespace(delp, pt, u, v, w, delz, q, ps, mp_diag,
     omga)."""
     from .dyn_core import dyn_core_nh
-    _check_config(cfg, "fv_dynamics_nh", {
-        "do_fast_phys (inline fast physics)": cfg.do_fast_phys})
+    if cfg.do_fast_phys:
+        raise NotImplementedError(
+            "fv_dynamics_nh: not ported: do_fast_phys (inline fast physics)")
     akap = con.KAPPA
     rrg = -con.RDGAS / con.GRAV
     cv_air = con.CP_AIR - con.RDGAS
@@ -333,7 +323,8 @@ def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
         last = n_map == cfg.k_split - 1
         dp1 = delp
         res = dyn_core_nh(delp, ptv, u, v, w, delz, g, cfg, akap, ptop,
-                          cfg.n_split, mdt / cfg.n_split, dp0)
+                          cfg.n_split, mdt / cfg.n_split, dp0, ak=aknp,
+                          bk=bknp)
         conv = conv + _mass_convergence(res.mfx, res.mfy, g)
         if q:
             q, _ = tracer.tracer_2d(q, dp1, res.mfx, res.mfy, res.cx,
@@ -383,7 +374,6 @@ def fv_dynamics_hydro(delp, pt, u, v, q, g, cfg: DynConfig, ak, bk, ptop,
     cfg.consv_am the angular-momentum fixer. Returns
     SimpleNamespace(delp, pt, u, v, q, ps, mp_diag, omga)."""
     from .dyn_core import dyn_core_hydro
-    _check_config(cfg, "fv_dynamics_hydro")
     akap = con.KAPPA
     mdt = cfg.dt / cfg.k_split
     zvir = con.ZVIR if q and "sphum" in q and not cfg.adiabatic else 0.0
@@ -417,7 +407,8 @@ def fv_dynamics_hydro(delp, pt, u, v, q, g, cfg: DynConfig, ak, bk, ptop,
         last = n_map == cfg.k_split - 1
         dp1 = delp
         res = dyn_core_hydro(delp, ptv, u, v, g, cfg, akap, ptop,
-                             cfg.n_split, mdt / cfg.n_split)
+                             cfg.n_split, mdt / cfg.n_split, ak=aknp,
+                             bk=bknp)
         conv = conv + _mass_convergence(res.mfx, res.mfy, g)
         if q:
             q, _ = tracer.tracer_2d(q, dp1, res.mfx, res.mfy, res.cx,

@@ -3,10 +3,12 @@ PyTorch port.
 
 Counterpart of gfdl_atmos_cubed_sphere_tpu/ops/fv_mapz.py (FV3
 model/fv_operators.F90 cs_profile:919, cs_limiters:1303, map1_ppm:137,
-mapn_tracer:234; model/fv_fill.F90 fillz:34) for the kord/iv pairs the
-nonhydrostatic remap uses: kord 8 with iv = 1, iv = -1 and (the tracers)
-iv = 0, kord 9 with iv = -2. The level axis is LAST. No TPU kernel runs
-here; the tridiagonal sweeps are Python loops over levels.
+mapn_tracer:234; model/fv_fill.F90 fillz:34) for every kord the JAX
+package takes (<= 8, 9-15, 17, with the qmin forms of 9, 10 and 11) and
+every iv (0, 1, -1, 2, -2, -3), with map1_ppm_ext, the remap onto a column
+that reaches past the source's ends, and map_scalar_logp. The level axis
+is LAST. No TPU kernel runs here; the tridiagonal sweeps are Python loops
+over levels.
 
 The reconstruction produces per-layer PPM coefficients (al, ar, a6) with
 f(s) = al + s*[(ar-al) + a6*(1-s)], s in [0,1]; the remap integrates the
@@ -114,18 +116,25 @@ def _cs_limiter(a1, al, ar, a6, extm, iv):
 
 def cs_profile(a1, delp, qs=None, iv=1, kord=8, qmin=None):
     """PPM/cubic-spline reconstruction (cs_profile / scalar_profile) for
-    kord 8 and 9 with iv in (0, 1, -1, -2). a1: [..., km]; delp: [..., km],
-    or without a1's leading axes (the tracers of mapn_tracer share their
-    edges); qs: bottom BC [...] (iv = -2). Returns (al, ar, a6): [..., km]."""
+    kord <= 8, 9-15 and 17 with iv in (0, 1, -1, 2, -2, -3); qmin given
+    selects scalar_profile's qmin-aware forms of kord 9, 10 and 11. a1:
+    [..., km]; delp: [..., km], or without a1's leading axes (the tracers
+    of mapn_tracer share their edges); qs: bottom BC [...] (iv = -2).
+    Returns (al, ar, a6): [..., km]."""
     km = a1.shape[-1]
     akord = abs(kord)
-    if akord not in (8, 9) or iv not in (0, 1, -1, -2):
+    if not (akord <= 15 or akord == 17) or iv not in (0, 1, -1, 2, -2, -3):
         raise NotImplementedError(
-            f"cs_profile: kord {kord} with iv {iv} is not ported")
+            f"cs_profile: kord {kord} with iv {iv} is not a JAX form")
     if qs is None:
         qs = torch.zeros(a1.shape[:-1], dtype=a1.dtype, device=a1.device)
     q = _tridiag_interfaces(a1, delp, qs, iv)
     zero = torch.zeros((), dtype=a1.dtype, device=a1.device)
+
+    if akord == 17:
+        al = q[..., :-1]
+        ar = q[..., 1:]
+        return al, ar, 3.0 * (2.0 * a1 - (al + ar))
 
     # ---- large-scale constraints on interface values ---------------------
     dq = a1[..., 1:] - a1[..., :-1]
@@ -136,16 +145,19 @@ def cs_profile(a1, delp, qs=None, iv=1, kord=8, qmin=None):
     qmid = qi[..., 1:-1]
     lo_m = lo[..., 1:-1]
     hi_m = hi[..., 1:-1]
-    gkm1 = dq[..., :-2]
-    gkp1 = dq[..., 2:]
-    loc_max = gkm1 > 0.0
-    q_max = torch.maximum(qmid, lo_m)
-    q_min = torch.minimum(qmid, hi_m)
-    if iv == 0:
-        q_min = torch.clamp_min(q_min, 0.0)
-    qmid_n = torch.where(gkm1 * gkp1 > 0.0,
-                         torch.minimum(torch.maximum(qmid, lo_m), hi_m),
-                         torch.where(loc_max, q_max, q_min))
+    if akord >= 14:
+        qmid_n = torch.minimum(torch.maximum(qmid, lo_m), hi_m)
+    else:
+        gkm1 = dq[..., :-2]
+        gkp1 = dq[..., 2:]
+        loc_max = gkm1 > 0.0
+        q_max = torch.maximum(qmid, lo_m)
+        q_min = torch.minimum(qmid, hi_m)
+        if iv == 0:
+            q_min = torch.clamp_min(q_min, 0.0)
+        qmid_n = torch.where(gkm1 * gkp1 > 0.0,
+                             torch.minimum(torch.maximum(qmid, lo_m), hi_m),
+                             torch.where(loc_max, q_max, q_min))
     qi = torch.cat([clamped[..., :1], qmid_n, clamped[..., -1:]], -1)
     q = torch.cat([q[..., :1], qi, q[..., -1:]], -1)
 
@@ -156,6 +168,10 @@ def cs_profile(a1, delp, qs=None, iv=1, kord=8, qmin=None):
     ext_edge = (al - a1) * (ar - a1) > 0.0
     ext_int = dq[..., :-1] * dq[..., 1:] < 0.0
     extm = torch.cat([ext_edge[..., :1], ext_int, ext_edge[..., -1:]], -1)
+    x0 = 2.0 * a1 - (al + ar)
+    x1 = torch.abs(al - ar)
+    ext5 = torch.abs(x0) > x1
+    ext6 = torch.abs(3.0 * x0) > x1
 
     # ---- top boundary subgrid constraints --------------------------------
     if iv == 0:
@@ -163,6 +179,9 @@ def cs_profile(a1, delp, qs=None, iv=1, kord=8, qmin=None):
     elif iv == -1:
         al = torch.cat([torch.where(al[..., :1] * a1[..., :1] <= 0.0, zero,
                                     al[..., :1]), al[..., 1:]], -1)
+    elif iv == 2:
+        al = torch.cat([a1[..., :1], al[..., 1:]], -1)
+        ar = torch.cat([a1[..., :1], ar[..., 1:]], -1)
 
     # Huynh constraints; gam(k) = a1(k) - a1(k-1) (1-based)
     dqe = torch.nn.functional.pad(dq, (2, 2))
@@ -181,12 +200,16 @@ def cs_profile(a1, delp, qs=None, iv=1, kord=8, qmin=None):
         torch.maximum(ar, torch.minimum(torch.minimum(a1, pmp_2), lac_2)),
         torch.maximum(torch.maximum(a1, pmp_2), lac_2))
 
-    if akord == 8:
+    def neighbours(flag):
+        # flag of the layer above or below (False past the ends)
+        m = torch.nn.functional.pad(flag, (1, 1), value=False)
+        return m[..., 0:km] | m[..., 2:km + 2]
+
+    if akord <= 8:
         al_i, ar_i = al_h, ar_h
         a6_i = 3.0 * (2.0 * a1 - (al_i + ar_i))
-    else:
-        extm_m = torch.nn.functional.pad(extm, (1, 1), value=False)
-        noisy = extm & (extm_m[..., 0:km] | extm_m[..., 2:km + 2])
+    elif akord == 9:
+        noisy = extm & neighbours(extm)
         if qmin is not None:
             noisy = noisy | (extm & (a1 < qmin))
         a6_0 = 3.0 * (2.0 * a1 - (al + ar))
@@ -194,7 +217,39 @@ def cs_profile(a1, delp, qs=None, iv=1, kord=8, qmin=None):
         al_i = torch.where(noisy, a1, torch.where(nonmono, al_h, al))
         ar_i = torch.where(noisy, a1, torch.where(nonmono, ar_h, ar))
         a6_i = torch.where(noisy, zero, 3.0 * (2.0 * a1 - (al_i + ar_i)))
-    if iv == 0:
+    elif akord == 10:
+        if qmin is not None:
+            flat = extm & ((a1 < qmin) | neighbours(extm))
+        else:
+            flat = extm & neighbours(extm)
+        a6_0 = 6.0 * a1 - 3.0 * (al + ar)
+        nonmono = (~extm) & (torch.abs(a6_0) > torch.abs(al - ar))
+        al_i = torch.where(flat, a1, torch.where(nonmono, al_h, al))
+        ar_i = torch.where(flat, a1, torch.where(nonmono, ar_h, ar))
+        a6_i = torch.where(flat, zero, 6.0 * a1 - 3.0 * (al_i + ar_i))
+    elif akord == 11:
+        if qmin is not None:
+            noisy = ext5 & (neighbours(ext5) | (a1 < qmin))
+        else:
+            noisy = ext5 & neighbours(ext5)
+        al_i = torch.where(noisy, a1, al)
+        ar_i = torch.where(noisy, a1, ar)
+        a6_i = torch.where(noisy, zero, 3.0 * (2.0 * a1 - (al_i + ar_i)))
+    elif akord == 12:
+        n5 = neighbours(ext5)
+        flat = ext5 & n5
+        huynh = (ext5 & ~n5 & neighbours(ext6)) | (~ext5 & ext6 & n5)
+        al_i = torch.where(flat, a1, torch.where(huynh, al_h, al))
+        ar_i = torch.where(flat, a1, torch.where(huynh, ar_h, ar))
+        a6_i = 3.0 * (2.0 * a1 - (al_i + ar_i))
+    elif akord == 13:
+        al_i, ar_i = al, ar
+        a6_i = 3.0 * (2.0 * a1 - (al + ar))
+    else:                                                   # 14, 15
+        a6_0 = 3.0 * (2.0 * a1 - (al + ar))
+        al_i, ar_i, a6_i = _cs_limiter(a1, al, ar, a6_0, extm,
+                                       2 if akord == 14 else 1)
+    if iv == 0 and akord <= 13:
         al_i, ar_i, a6_i = _cs_limiter(a1, al_i, ar_i, a6_i, extm, 0)
 
     # ---- layers 0, 1, km-2, km-1 use the monotone limiters ---------------
@@ -230,6 +285,9 @@ def remap_ppm(a1, pe1, pe2, al, ar, a6):
     lead = a1.shape[:-1]
     km = a1.shape[-1]
     kn1 = pe2.shape[-1]
+    # edges may broadcast over the field's leading axes (tracers stacked)
+    pe1 = pe1.expand(*lead, pe1.shape[-1])
+    pe2 = pe2.expand(*lead, kn1)
     flat = [t.reshape(-1, t.shape[-1]) for t in (pe1, pe2, al, ar, a6)]
     npts = flat[0].shape[0]
     chunk = max(1, _REMAP_CHUNK_ELEMS // (kn1 * km))
@@ -254,7 +312,30 @@ def map1_ppm(q, pe1, pe2, qs=None, iv=1, kord=8, qmin=None):
     return remap_ppm(q, pe1, pe2, al, ar, a6)
 
 
-def mapn_tracer(qstack, pe1, pe2, kord=8, fill=False):
+def map1_ppm_ext(q, pe1, pe2, qs=None, iv=1, kord=8, qmin=None):
+    """map1_ppm with constant extrapolation where the target column reaches
+    past the source's ends (mappm's above-ptop / below-surface handling,
+    fv_operators.F90:1782), e.g. a restart remapped onto a higher-top
+    coordinate: remap_ppm clips the target edges into the source range, so
+    the uncovered width of each target layer is filled with the end source
+    layer's value."""
+    q2 = map1_ppm(q, pe1, pe2, qs=qs, iv=iv, kord=kord, qmin=qmin)
+    w = pe2[..., 1:] - pe2[..., :-1]
+    top = pe1[..., :1]
+    bot = pe1[..., -1:]
+    miss_top = (torch.clamp_min(top - pe2[..., :-1], 0.0)
+                - torch.clamp_min(top - pe2[..., 1:], 0.0))
+    miss_bot = (torch.clamp_min(pe2[..., 1:] - bot, 0.0)
+                - torch.clamp_min(pe2[..., :-1] - bot, 0.0))
+    return (q2 * w + q[..., :1] * miss_top + q[..., -1:] * miss_bot) / w
+
+
+def map_scalar_logp(q, peln1, peln2, iv=1, kord=8, qmin=T_MIN):
+    """map_scalar on log-p edges (the temperature remap, kord_tm < 0)."""
+    return map1_ppm(q, peln1, peln2, iv=iv, kord=abs(kord), qmin=qmin)
+
+
+def mapn_tracer(qstack, pe1, pe2, kord=8, fill=False, qmin=None):
     """All tracers remapped at once (fv_operators.F90 mapn_tracer:234).
     qstack: [nq, ..., km]; pe1 / pe2: [..., km+1] / [..., kn+1] edges shared
     by the tracers. The positive-definite (iv = 0) reconstructions run over
@@ -264,7 +345,7 @@ def mapn_tracer(qstack, pe1, pe2, kord=8, fill=False):
     are built in chunks of points so their size stays bounded at full
     width; the arithmetic of each column is unchanged."""
     dp1 = pe1[..., 1:] - pe1[..., :-1]
-    al, ar, a6 = cs_profile(qstack, dp1, iv=0, kord=abs(kord))
+    al, ar, a6 = cs_profile(qstack, dp1, iv=0, kord=abs(kord), qmin=qmin)
     nq, km, kn1 = qstack.shape[0], qstack.shape[-1], pe2.shape[-1]
     lead = pe1.shape[:-1]
     coef = [c.reshape(nq, -1, km) for c in (al, ar - al, a6)]

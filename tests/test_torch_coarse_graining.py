@@ -115,8 +115,15 @@ def _save_coarse_state_reads_back_in_jax(case, tmp_path):
         si.close(state[k], jstate[k], 1e-12, f"file {k}")
     for k in jtracers:
         si.close(tracers[k], jtracers[k], 1e-12, f"file q {k}")
-    with pytest.raises(NotImplementedError, match="map1_ppm_ext"):
-        prst.reset_eta(None, None, ak, bk, gt)
+    # reset_eta of the state on its own set_eta(10) coordinate keeps the
+    # coordinate and each column's mass
+    st2, q2, ak2, bk2, _ = prst.reset_eta(
+        si.t64_dict({k: st[k] for k in ("delp", "pt", "u", "v")}),
+        si.t64_dict(q), ak, bk, gt)
+    assert np.array_equal(ak2, ak) and np.array_equal(bk2, bk)
+    np.testing.assert_allclose(st2["delp"].numpy().sum(1),
+                               st["delp"].sum(1), rtol=1e-12)
+    assert set(q2) == set(q)
 
 
 def test_coarse_graining_matches_jax(case, tmp_path):

@@ -4,7 +4,8 @@ against the jitted JAX fv_dynamics_nh on the perturbed dry Jablonowski-
 Williamson state at C12L10 (float64, CPU, <= 1e-10 x field max on delp,
 pt, u, v, w and delz). The k_split = 2 remap loop runs in
 test_torch_fv_dynamics_moist.py; one remap keeps this file's JAX compile
-short. fv_dynamics_nh still refuses what is not ported."""
+short. fv_dynamics_nh still refuses the inline fast physics (do_fast_phys),
+also beside an option the port runs (rf_fast)."""
 
 import jax
 import jax.numpy as jnp
@@ -67,7 +68,8 @@ def test_fv_dynamics_nh_dry():
     assert np.abs(ps - ps_own).max() <= 1e-12 * np.abs(ps_own).max()
 
 
-@pytest.mark.parametrize("over", [dict(rf_fast=True, tau=5.0),
+@pytest.mark.parametrize("over", [dict(do_fast_phys=True, rf_fast=True,
+                                       tau=5.0),
                                   dict(do_fast_phys=True)])
 def test_fv_dynamics_nh_refuses_what_is_not_ported(over):
     gt = build_grid_ops(NPX, dtype=torch.float64, device="cpu")

@@ -3,7 +3,8 @@ fv_dynamics_hydro) against the jitted JAX fv_dynamics_hydro: bench.py's
 moist c192_hydro configuration (hydrostatic, k_split = 1; adiabatic =
 False, the six GFDL-MP tracers, MPConfig()) on the perturbed moist
 Jablonowski-Williamson state at C12L10, n_split = 2 (float64, CPU, <= 1e-10
-x max per field and per tracer); and the options the port refuses.
+x max per field and per tracer); and the kernel arguments the port still
+refuses.
 
 On the CPU the port's kernels take their plain versions; the kernel launch
 counters stay 0, and tracer_2d records one adaptive subcycle count."""
@@ -83,19 +84,24 @@ def test_fv_dynamics_hydro_moist():
 
 
 def test_hydro_refuses_what_is_not_ported():
-    """The options of the hydrostatic path the port leaves out raise
-    NotImplementedError before any work."""
-    cases = [(fv_dynamics_hydro, dict(rf_fast=True, tau=5.0)),
-             (dyn_core.dyn_core_hydro, dict(beta=0.1)),
-             (dyn_core.dyn_core_hydro, dict(d_ext=0.02)),
-             (dyn_core.dyn_core_hydro, dict(fill_dp=True)),
-             (dyn_core.dyn_core_hydro, dict(rf_fast=True, tau=5.0))]
-    for entry, over in cases:
-        cfg = DynConfig(**dict(CFG, **over))
-        with pytest.raises(NotImplementedError):
-            if entry is fv_dynamics_hydro:
-                entry(None, None, None, None, {}, None, cfg, None, None,
-                      300.0)
-            else:
-                entry(None, None, None, None, None, cfg, 0.28, 300.0, 2,
-                      900.0)
+    """The hydrostatic path runs the JAX package's acoustic-loop options
+    (beta, d_ext, fill_dp, rf_fast: tests/test_torch_acoustic_options.py);
+    what it still leaves out raises before any work: the d_sw kernels'
+    damping orders above 1 (nord = 2, nord_v = 2, nord_v2 > 0), ValueError
+    from the packing of their operands on the hydrostatic form's fields,
+    ahead of any device work."""
+    P = NPX - 1 + 6
+    delp = torch.zeros((6, 10, P, P), dtype=torch.float64)
+    winds = dict(dt=900.0, hord_mt=10, hord_vt=10, nord=1, nord_v=1,
+                 dddmp=0.2, d2_bg=0.0, d4_bg=0.16, damp_v=0.02)
+    for over in (dict(nord=2), dict(nord_v=2), dict(nord_v2=2)):
+        with pytest.raises(ValueError, match="nord"):
+            dsw._winds_operands(delp, None, None, None, None, None, None,
+                                None, None, None, None, None,
+                                **dict(winds, **over))
+    fluxes = dict(dt=900.0, hord_dp=10, hord_tm=10, hord_vt=10, nord_v=1,
+                  damp_v=0.02)
+    for over in (dict(nord_v=2), dict(nord_v2=2)):
+        with pytest.raises(ValueError, match="nord"):
+            dsw._fluxes_operands(delp, delp, None, None, None, None,
+                                 **dict(fluxes, **over))
