@@ -61,11 +61,13 @@ over it, through the same kernels.
    but sim1, which must issue exactly 1 of its own (its copies of
    non-contiguous operands would be listed). It prints the resources of
    the tp sweep, c_sw, d_sw stage, column (at K = 79 and 125) and
-   ke_section kernels as built (registers and spill bytes per
-   thread, static and dynamic shared memory per block, resident blocks per
-   SM; "resources" in the kernels line). The
+   ke_section kernels as built, the tp sweep and d_sw stages in both
+   their forms (the usual arguments' and every argument's; registers and
+   spill bytes per thread, static and dynamic shared memory per block,
+   resident blocks per SM; "resources" in the kernels line). The
    tp sweep and ke_section kernels are also checked at every other hord
-   they take (tp_sweep.KERNEL_HORDS, ke.KERNEL_HORDS) on the SW inputs,
+   they take (tp_sweep.KERNEL_HORDS, ke.KERNEL_HORDS: -6 to -1 and 1 to
+   13) on the SW inputs (phase 11 adds the arguments of the SHiELD path),
    and the sim1 kernel's off-centred form (alpha = 0.75) on the NH path's
    captured calls and their casts, K = 79 and 10 in float32 and float64
    under the same limits, with its kernel alone at alpha 0.75 and 1 in the
@@ -188,7 +190,41 @@ over it, through the same kernels.
    alone for SIM3, SIM3p0 and RIM_2D (1 + |dt_acoustic| substeps), plain
    PyTorch on the card (ms and device kernels a call); and reset_eta of
    the moist initial state from L79 to L91 in float64 (seconds, the
-   column mass kept).
+   column mass kept);
+11. the SHiELD namelist's dynamics (SHIELD_FV_CORE_NML through the port's
+   utils/config: nord 2, d4_bg 0.12, vtdm4 0.02, hord_mt = hord_vt =
+   hord_tm = 5, hord_dp -5, hord_tr 8, k_split 1, n_split 8, kord 9,
+   kord_tm -9, tau 5, rf_cutoff 750, d2_bg_k1/k2 0.20/0.15, consv_te 1),
+   which runs the d_sw kernels' every-argument forms and the tp sweep's
+   usual one: (c) one
+   C24L10 float64 big step at SHIELD_C24's cuts, dry and moist, and of
+   its SHIELD_NORD3 variant (dry), card against CPU with phase 3's
+   limits and float32 control (nord 3 overflows float32 at C24: the
+   variant's control is the float64 step from the state rounded to
+   float32), the moist step's and the variant's
+   captured calls first held to the plain versions as phase 2 does
+   (every NH kernel, and on
+   the namelist's step the arguments beyond the path's: the tp sweep at
+   every hord at rank 4 and 5 and lim_fac 0.5 at hord +-1, the d_sw
+   fluxes at DSW_FLUX_CHECKS, the d_sw winds at DSW_WIND_CHECKS, c_sw at
+   nord 3); (a) fv_dynamics_nh of the namelist cut to C192 (SHIELD_CUTS:
+   npx 193, dt 450 s; npz 91 as written) on the moist baroclinic state at
+   set_eta(91) with phase 6's tracers and MPConfig(), float32: one
+   captured step held to the plain versions as in (c) at 1e-4 (every NH
+   kernel timed at the namelist's arguments, the d_sw kernels also at
+   ARG_COSTS: the kernel form, the hords and nord 2 apart), then 1
+   warm-up, 5 timed
+   steps and the profiled ones as phase 6 (s/step, pts*lev/s, busy share,
+   peak memory, launches per big step c_sw, d_sw fluxes, d_sw winds and
+   the rank-4 tp sweep 8, sim1 and a2b 16, the rank-5 sweep one per
+   tracer_2d subcycle, the layer split); (b) the SHiELD facade,
+   ShieldAtmosphere(193, 91, 450, hydrostatic=False) with the same
+   DynConfig fields: 1 warm-up and 2 timed
+   atmosphere_dynamics steps (s/step, pts*lev/s, launches per step as
+   (a)'s without the tracer sweep, peak memory), resumed from a
+   checkpoint of (a)'s initial state. (a) and (b) run after phase 7 in a
+   process of their own (this script with PHASE_11_ARG) on the kernels
+   this one built.
 
 Before the last line it prints the card's name and power limit and one JSON
 line with each kernel's launches (those of its path's timed phase: 6 for
@@ -201,8 +237,12 @@ kernels' checks at COLUMN_DEPTHS); "solo_hydro" and
 "solo_nh" give its launches per big step on phase 8b's two forms (with the
 fixers on), "shield" per atmosphere_dynamics step of phase 9b,
 "c192_nh_offc" and "c192_hydro_opts" in phase 10b's 5 big steps (sim1's
-split by form, and its "offcentred" records of phase 2). The last
-line is
+split by form, and its "offcentred" records of phase 2),
+"shield_c192l91" in phase 11a's 5 big steps with its numbers at the
+namelist's arguments, "shield_facade" per phase 11b step, and
+"checked_at" the hords, nords and lim_fac each of the tp sweep,
+ke_section, d_sw and c_sw kernels was held to its plain version at. The
+last line is
 {"ok": true, "device": {...}}. It needs one CUDA card; without one it exits
 with code 2 and prints no result.
 """
@@ -291,10 +331,13 @@ def col_plan_args(kernel, K):
 # exported function, leading arguments, or a function of the element size
 # that gives them)]}
 RESOURCES = {
-    "tp2d_sweep": [("", "tp2d_sweep_attrs", ())],
+    "tp2d_sweep": [("", "tp2d_sweep_attrs", (0,)),
+                   ("every hord", "tp2d_sweep_attrs", (1,))],
     "c_sw": [("", "c_sw_attrs", ())],
-    "d_sw_fluxes": [("", "d_sw_fluxes_attrs", ())],
-    "d_sw_winds": [("", "d_sw_winds_attrs", ())],
+    "d_sw_fluxes": [("", "d_sw_fluxes_attrs", (0,)),
+                    ("every argument", "d_sw_fluxes_attrs", (1,))],
+    "d_sw_winds": [("", "d_sw_winds_attrs", (0,)),
+                   ("every argument", "d_sw_winds_attrs", (1,))],
     "pgradc_fused": [(f"K{K}", "pgradc_fused_attrs",
                       col_plan_args("pgradc_fused", K)) for K in (79, 125)],
     "pkgz": [(f"K{K}", "pkgz_attrs", col_plan_args("pkgz", K))
@@ -397,6 +440,130 @@ SHIELD_TABLE = """C192L79 shield_nh history
               "pmask", "zsurf", "cat15", "f15")) + "".join(
     f'"dynamics", "{f}", "{f}", "atmos_3d", "all", .false., "none", 2\n'
     for f in ("ucomp", "vcomp", "temp", "sphum", "delp", "w"))
+
+# phase 11, the SHiELD namelist's dynamics: the fv_core_nml group of a
+# public SHiELD C768L91 namelist (the one tests/test_torch_config.py holds
+# as SHIELD_NML), read through the port's utils/config; its gfdl_mp_nml
+# (mp_fast off, sedi_uv on) is left out: the moist steps run phase 6's
+# MPConfig()
+SHIELD_FV_CORE_NML = """
+&fv_core_nml
+       layout   = 8,8
+       io_layout = 1,1
+       npx      = 769
+       npy      = 769
+       ntiles   = 6
+       npz      = 91
+       npz_type = ''
+       grid_type = 0
+       make_nh = .F.
+       fv_debug = .F.
+       range_warn = .T.
+       reset_eta = .F.
+       n_sponge = 9
+       nudge_qv = .T.
+       tau = 5.
+       rf_cutoff = 7.5e2
+       d2_bg_k1 = 0.20
+       d2_bg_k2 = 0.15
+       kord_tm = -9
+       kord_mt = 9
+       kord_wz = 9
+       kord_tr = 9
+       hydrostatic = .F.
+       phys_hydrostatic = .F.
+       use_hydro_pressure = .F.
+       beta = 0.
+       a_imp = 1.
+       p_fac = 0.1
+       k_split = 1
+       n_split = 8
+       nwat = 6
+       na_init = 1
+       d_ext = 0.0
+       dnats = 1
+       fv_sg_adj = 600
+       d2_bg = 0.
+       nord = 2
+       dddmp = 0.2
+       d4_bg = 0.12
+       vtdm4 = 0.02
+       delt_max = 0.002
+       ke_bg = 0.
+       do_vort_damp = .T.
+       external_ic = .T.
+       external_eta = .T.
+       gfs_phil = .F.
+       nggps_ic = .T.
+       mountain = .F.
+       ncep_ic = .F.
+       d_con = 1.
+       hord_mt = 5
+       hord_vt = 5
+       hord_tm = 5
+       hord_dp = -5
+       hord_tr = 8
+       adjust_dry_mass = .F.
+       consv_te = 1.
+       consv_am = .F.
+       fill = .T.
+       dwind_2d = .F.
+       print_freq = 6
+       warm_start = .F.
+       no_dycore = .F.
+       z_tracer = .T.
+       agrid_vel_rst = .T.
+       read_increment = .F.
+       res_latlon_dynamics = "fv3_increment.nc"
+/
+"""
+#: the cuts of the namelist at full width: C192 (npx 193, against 769:
+#: C768L91 would need ~490 GiB, scaling phase 6's C192L79 peak) and
+#: bench.py's C192 step (dt 450 s, against the namelist's C768 150 s)
+SHIELD_CUTS = dict(npx=193, dt=450.0)
+#: phase 11c, card vs CPU at C24L10: the namelist (cut to npx 25, npz 10,
+#: phase 3's dt 900 s) and a variant at the far end of the kernels'
+#: arguments
+SHIELD_C24 = dict(npx=25, npz=10, dt=900.0)
+SHIELD_NORD3 = dict(nord=3, hord_mt=6, hord_vt=6, hord_tm=7, hord_dp=-6,
+                    hord_tr=13)
+#: phase 2 on the SHiELD path's captured calls: the kernel arguments
+#: beyond the path's own. The tp sweep at every hord it takes (and lim_fac
+#: at hord +-1, the only place xppm reads it); the d_sw fluxes at nord_v
+#: (nord_w alike) 0-2 with hord_dp = hord_tm = hord_vt of -5, 5, 7, 13,
+#: the second combos (nord_v2 = nord_w2 of 1 and 2, on at every level)
+#: and the linear family's hords 3, 4, -1, 1 at lim_fac 0.5; the d_sw
+#: winds at nord 0-3, nord_v 0-2 and hord_mt = hord_vt of 5 and 7,
+#: nord_v2 1 and 2 (on at every level) and hord_mt = hord_vt of 3, 4, -1,
+#: 1 at lim_fac 0.5; c_sw at nord 3 (and the path's 2)
+ARG_LIM_FAC = 0.5
+DSW_FLUX_CHECKS = (
+    tuple(dict(nord_v=nv, nord_w=nv, hord_dp=h, hord_tm=h, hord_vt=h)
+          for nv in (0, 1, 2) for h in (-5, 5, 7, 13))
+    + tuple(dict(nord_v2=n2, nord_w2=n2, damp_v2=0.03, damp_w2=0.04)
+            for n2 in (1, 2))
+    + tuple(dict(hord_dp=h, hord_tm=h, hord_vt=h, lim_fac=ARG_LIM_FAC)
+            for h in (3, 4, -1, 1)))
+DSW_WIND_CHECKS = (
+    tuple(dict(nord=nd, nord_v=nv, hord_mt=h, hord_vt=h)
+          for nd in (0, 1, 2, 3) for nv in (0, 1, 2) for h in (5, 7))
+    + tuple(dict(nord_v2=n2, damp_v2=0.03) for n2 in (1, 2))
+    + tuple(dict(hord_mt=h, hord_vt=h, lim_fac=ARG_LIM_FAC)
+            for h in (3, 4, -1, 1)))
+#: phase 11a's split of the d_sw kernels' time at the namelist's arguments,
+#: on its captured calls: {label: (fluxes overrides, winds overrides,
+#: whether to launch the every-argument form)}: both forms at hord 10,
+#: nord 1, where both compute the same values, then the namelist's hords
+#: at nord 1 and its own arguments, each in the form they need
+HORD10_NORD1 = (dict(hord_dp=10, hord_tm=10, hord_vt=10, nord_v=1, nord_w=1),
+                dict(hord_mt=10, hord_vt=10, nord=1, nord_v=1))
+ARG_COSTS = {
+    "usual form, hord 10, nord 1": HORD10_NORD1 + (False,),
+    "every-argument form, hord 10, nord 1": HORD10_NORD1 + (True,),
+    "the namelist's hords, nord 1": (dict(nord_v=1, nord_w=1),
+                                     dict(nord=1, nord_v=1), False),
+    "the namelist's arguments": ({}, {}, False),
+}
 
 
 def log(msg):
@@ -663,15 +830,18 @@ def own_kernel_launches(fn, reps=5, own=True):
         evs = [e for e in prof.key_averages() if e.self_device_time_total > 0
                and (not own or is_own_kernel(e.key))]
         # the profiler can lose a launch's record (seen on the H100: 1 of
-        # 5 sim1 launches recorded); each call launches the same kernels,
-        # and every wrapper at least one of its own, so an empty reading or
-        # a count that is no multiple of reps is read again
+        # 5 sim1 launches recorded, and whole readings empty late in a run
+        # whose allocator held most of the card); each call launches the
+        # same kernels, and every wrapper at least one of its own, so an
+        # empty reading or a count that is no multiple of reps is read
+        # again, with the allocator's cached blocks released first
         whole = evs and all(e.count % reps == 0 for e in evs)
         if whole:
             break
         log(f"      (profiler lost kernel records: "
             f"{[(e.key[:40], e.count) for e in evs]} in {reps} calls; "
             f"read again)")
+        torch.cuda.empty_cache()
     require(whole, f"the profiler lost kernel records in 5 readings of "
                    f"{reps} calls: {[(e.key[:40], e.count) for e in evs]}")
     return {e.key: (e.self_device_time_total / reps / 1e3, e.count / reps)
@@ -841,10 +1011,12 @@ def points_of(name, args, n):
     return lead * (n + 1) ** 2
 
 
-def check_call(label, name, args, kw, calls, n, tol, measure, sw=False):
+def check_call(label, name, args, kw, calls, n, tol, measure, sw=False,
+               count=True):
     """One kernel call against its plain version (and, if measure, its
     times and bound): the record of that call shape with the calls the path
-    makes at it per step. The EXACT kernels are held to max |diff| 0."""
+    makes at it per step. The EXACT kernels are held to max |diff| 0.
+    count: read the device kernels of a call (ALL_KERNELS_COUNTED)."""
     mod, attr, plain, _ = kernel_modules()[name]
     shp = list(call_shape(args))
     if name in EXACT:
@@ -853,7 +1025,7 @@ def check_call(label, name, args, kw, calls, n, tol, measure, sw=False):
                        sw=sw)
     rec = {"shape": shp, "calls": calls, "max_abs_err": err}
     wrapper = getattr(mod, attr)
-    if name in ALL_KERNELS_COUNTED:
+    if count and name in ALL_KERNELS_COUNTED:
         rec["device_kernels_per_call"] = count_device_kernels(
             f"{label} {shp}", name, lambda: wrapper(*args, **kw))
     if measure:
@@ -878,7 +1050,8 @@ def check_call(label, name, args, kw, calls, n, tol, measure, sw=False):
     return rec
 
 
-def check_kernels(cap, names, n, tol, label, measure, sw=False):
+def check_kernels(cap, names, n, tol, label, measure, sw=False,
+                  count=True):
     """Kernel against plain version on the captured inputs, at every call
     shape the main path gave it. Returns {name: [record per shape]}, each
     with the shape, the calls at that shape in the captured run, the error
@@ -889,7 +1062,8 @@ def check_kernels(cap, names, n, tol, label, measure, sw=False):
         recs[name] = [
             check_call(label, name, args, kw, cap.calls[name][shp], n, tol,
                        measure is True or (callable(measure)
-                                           and measure(name, shp)), sw=sw)
+                                           and measure(name, shp)), sw=sw,
+                       count=count)
             for shp, (args, kw) in cap.args[name].items()]
     return recs
 
@@ -1151,11 +1325,14 @@ class BigStep:
                 + (f" {self.bundle}" if self.bundle else ""))
 
 
-def card_vs_cpu(card_case, steps=2, phase="3", tols=None):
+def card_vs_cpu(card_case, steps=2, phase="3", tols=None,
+                control="float32"):
     """C24L10 float64 big steps of `card_case` on the card against the
     same steps of the port on the CPU, each field (and tracer) against its
-    own maximum (CARD_TOL's limits, or tols'); the same steps on the card
-    in float32 are the control and must read over every limit."""
+    own maximum (CARD_TOL's limits, or tols'); both must be finite. The
+    control must read over every limit: the same steps on the card in
+    float32, or (control "rounded") in float64 from the initial state
+    rounded to float32, for a configuration whose float32 run overflows."""
     import torch
     kw = dict(geom=card_case.geom, ic=card_case.ic, moist=card_case.moist,
               hydro=card_case.hydro, over=card_case.over,
@@ -1163,18 +1340,27 @@ def card_vs_cpu(card_case, steps=2, phase="3", tols=None):
     c = card_case.cfg
     cpu = BigStep(25, 10, c.dt, c.k_split, c.n_split, torch.float64, "cpu",
                   **kw)
-    f32 = BigStep(25, 10, c.dt, c.k_split, c.n_split, torch.float32, "cuda",
-                  **kw)
+    if control == "float32":
+        f32 = BigStep(25, 10, c.dt, c.k_split, c.n_split, torch.float32,
+                      "cuda", **kw)
+        sf, step_ctl = list(f32.state), f32.step
+        what = "the card in float32"
+    else:
+        sf = [t.float().double() for t in card_case.state]
+        step_ctl = card_case.step
+        what = "the card from the state rounded to float32"
     label = card_case.label
     tols = tols if tols is not None else CARD_TOL[label.split()[0]]
-    scard, sc, sf = list(card_case.state), list(cpu.state), list(f32.state)
+    scard, sc = list(card_case.state), list(cpu.state)
     for _ in range(steps):
         scard = card_case.step(scard)
         sc = cpu.step(sc)
-        sf = f32.step(sf)
-    for nm, b in zip(card_case.names, sc):
+        sf = step_ctl(sf)
+    for nm, a, b in zip(card_case.names, scard, sc):
         require(bool(torch.isfinite(b).all()),
-                f"{label} CPU step: NaN in {nm}")
+                f"{label} CPU step: NaN or inf in {nm}")
+        require(bool(torch.isfinite(a).all()),
+                f"{label} card step: NaN or inf in {nm}")
     bad = []
     for nm, a, f, b in zip(card_case.names, scard, sf, sc):
         top = float(b.abs().max())
@@ -1182,12 +1368,13 @@ def card_vs_cpu(card_case, steps=2, phase="3", tols=None):
         ctl = float((f.cpu().double() - b).abs().max()) / top
         tol = tols.get(nm, 1e-10)
         log(f"  C24L10 f64 {label} {steps} big steps {nm}: card vs CPU "
-            f"{r:.3e} x its max (tol {tol:g}); control, the card in "
-            f"float32: {ctl:.3e}")
-        if r > tol:
+            f"{r:.3e} x its max (tol {tol:g}); control, {what}: "
+            f"{ctl:.3e}")
+        if not r <= tol:
             bad.append(nm)
         require(ctl > tol, f"the control reads {nm} within its limit "
-                           f"{tol:g}: the check could not tell a fault")
+                           f"{tol:g} (or NaN): the check could not tell a "
+                           f"fault")
     log(f"phase {phase} {label} big step card vs CPU: over the limit "
         f"{bad or 'none'}")
     require(not bad, f"{label} step on the card disagrees with the CPU "
@@ -1195,7 +1382,7 @@ def card_vs_cpu(card_case, steps=2, phase="3", tols=None):
 
 
 def step_phase(label, case, state, mass0, card, shapes, per_step, kernels):
-    """The full-width C192L79 big step of `case`: 1 warm-up step (the
+    """The full-width C192 big step of `case`: 1 warm-up step (the
     captured step came before it), 5 timed steps behind a scalar readback
     barrier with the launch counts and tracer_2d's subcycle counts set to 0
     just before them and read just after, 1 step under the profiler, 1 by
@@ -1225,7 +1412,7 @@ def step_phase(label, case, state, mass0, card, shapes, per_step, kernels):
         require(bool(torch.isfinite(t).all()),
                 f"{label}: NaN or inf in {nm}")
     dm = abs(mass(case.g, state[0]) - mass0) / abs(mass0)
-    ptslev = 6 * 192 ** 2 * 79 / sec
+    ptslev = 6 * (case.cfg.npx - 1) ** 2 * case.cfg.npz / sec
     log(f"phase {label}: {sec:.4f} s/step, {ptslev:.4e} pts*lev/s on {card}; "
         f"mass change {dm:.3e} over {nsteps + 2} big steps; launches "
         f"{launches}, of which rank-5 tp2d_sweep {rank5}; tracer_2d nsplt "
@@ -2061,6 +2248,246 @@ def options_full_width(geom, ic, ak, bk, card, shapes_nh, shapes_hy,
         f"1e-12)")
     return la, lh
 
+# ---- phase 11: the SHiELD namelist's dynamics -----------------------------
+
+def shield_config(**over):
+    """The DynConfig of SHIELD_FV_CORE_NML through the port's
+    utils/config, with over (the cuts) on top."""
+    import dataclasses
+    from gfdl_atmos_cubed_sphere_tpu_torch.utils import config
+    dt = over.pop("dt")
+    cfg, _ = config.dyn_config_from_namelist(
+        config.parse_namelist(SHIELD_FV_CORE_NML), dt=dt)
+    return dataclasses.replace(cfg, **over)
+
+
+def shield_case(cfg, dtype, geom, moist, label, ic=None):
+    """BigStep of the SHiELD config: its splits and every other setting
+    of the namelist (BigStep sets adiabatic by moist)."""
+    import dataclasses
+    over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if f.name not in ("npx", "npz", "dt", "k_split", "n_split",
+                              "adiabatic")}
+    return BigStep(cfg.npx, cfg.npz, cfg.dt, cfg.k_split, cfg.n_split,
+                   dtype, "cuda", geom=geom, ic=ic, moist=moist, over=over,
+                   bundle=label)
+
+
+def shield_per_step(cfg):
+    """Launches per big step of the NH kernels at cfg's splits (NH_PER_STEP
+    is c192_nh's 12 acoustic steps)."""
+    nsub = cfg.k_split * cfg.n_split
+    return {k: v // 12 * nsub for k, v in NH_PER_STEP.items()}
+
+
+def check_kernel_arguments(cap, n, tol, label):
+    """Phase 2 at the arguments beyond the path's on the SHiELD path's
+    captured calls (each against its plain version on the same inputs,
+    under phase 2's limits): the tp sweep at every hord at each captured
+    shape (rank 4 and 5) and lim_fac at hord +-1, the d_sw stages at
+    DSW_FLUX_CHECKS and DSW_WIND_CHECKS, c_sw at nord 3. Returns what each
+    kernel was checked at."""
+    from gfdl_atmos_cubed_sphere_tpu_torch.ops import tp_sweep
+    hords = list(tp_sweep.KERNEL_HORDS)
+    worst = {}
+
+    def run(name, args, kw, what):
+        err, _ = compare(f"{label} {what}", name, args, kw, n, tol)
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    for shp, (args, kw) in cap.args["tp2d_sweep"].items():
+        for hord in hords:
+            run("tp2d_sweep", args[:3] + [hord] + args[4:], kw,
+                f"{list(shp)} hord {hord}")
+        for hord in (1, -1):
+            run("tp2d_sweep", args[:3] + [hord] + args[4:],
+                dict(kw, lim_fac=ARG_LIM_FAC),
+                f"{list(shp)} hord {hord} lim_fac {ARG_LIM_FAC}")
+    (args, kw), = cap.args["d_sw_fluxes"].values()
+    for over in DSW_FLUX_CHECKS:
+        run("d_sw_fluxes", args, dict(kw, **over), str(over))
+    (args, kw), = cap.args["d_sw_winds"].values()
+    for over in DSW_WIND_CHECKS:
+        run("d_sw_winds", args, dict(kw, **over), str(over))
+    (args, kw), = cap.args["c_sw"].values()
+    run("c_sw", args, dict(kw, nord=3), "nord 3")
+    nords_csw = [kw["nord"], 3]
+    ranks = sorted({len(shp) - 1 for shp in cap.args["tp2d_sweep"]})
+    return {
+        "tp2d_sweep": dict(hords=hords, ranks=ranks,
+                           lim_fac={str(ARG_LIM_FAC): [1, -1]}),
+        "d_sw_fluxes": checked_values(DSW_FLUX_CHECKS),
+        "d_sw_winds": checked_values(DSW_WIND_CHECKS),
+        "c_sw": dict(nord=nords_csw), "max_abs_err": worst}
+
+
+def checked_values(checks):
+    """{argument: the values a list of phase-2 overrides checked it at}
+    (the damping coefficients left out)."""
+    out = {}
+    for over in checks:
+        for k, v in over.items():
+            if not k.startswith("damp"):
+                out.setdefault(k, set()).add(v)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def argument_costs(cap):
+    """The d_sw kernels alone (profiler) on the SHiELD path's captured calls
+    at ARG_COSTS: what the every-argument form costs on the same values,
+    and what the namelist's hords and nord 2 add. Returns {kernel: {label:
+    ms}}."""
+    from gfdl_atmos_cubed_sphere_tpu_torch.ops import dsw
+    out = {}
+    for i, name in enumerate(("d_sw_fluxes", "d_sw_winds")):
+        (args, kw), = cap.args[name].values()
+        fn = dsw._launch_fluxes if i == 0 else dsw._launch_winds
+        out[name] = {}
+        for label, overs in ARG_COSTS.items():
+            k = dict(kw, **overs[i], every=overs[2])
+            own = own_kernel_launches(lambda: fn(*args, **k))
+            out[name][label] = sum(v[0] for v in own.values())
+        log(f"    {name} kernel alone on the captured C192L91 call: " +
+            "; ".join(f"{lab} {ms:.4f} ms" for lab, ms in out[name].items()))
+    return out
+
+
+def shield_card_vs_cpu(geom):
+    """Phase 11c: one C24L10 float64 big step of the SHiELD namelist
+    (SHIELD_C24 cuts), dry and moist, and of its SHIELD_NORD3 variant, on
+    the card against the CPU with phase 3's limits and its float32
+    control; phase 2's checks first on the captured calls of the moist
+    namelist step and of the variant (every kernel of the path against its
+    plain version, and check_kernel_arguments on the namelist's). The
+    variant's dd8 = (da_min_c d4_bg)^4 overflows float32 at C24, so its
+    float32 run is NaN: its control is the float64 step on the card from
+    the state rounded to float32. It runs dry, as phase 3's NH dry step;
+    its hord_tr 13 is held by the tp sweep's every hord at rank 5 on the
+    moist captured calls. Returns what the kernels were checked at."""
+    import torch
+    ics, checked = {}, {}
+    for label, over, moist in (("shield", {}, False),
+                               ("shield", {}, True),
+                               ("shield nord3", SHIELD_NORD3, False)):
+        t0 = time.perf_counter()
+        cfg = shield_config(**dict(SHIELD_C24, **over))
+        case = shield_case(cfg, torch.float64, geom, moist, label,
+                           ic=ics.get(moist))
+        ics[moist] = case.ic
+        if moist or over:
+            with Capture() as cap:
+                case.step(case.state)
+            tag = f"C24L10 {label} {'moist' if moist else 'dry'} f64"
+            # (phase 2 counted the device kernels of calls of these shapes)
+            check_kernels(cap, NH_KERNELS, 24, 1e-12, tag, measure=False,
+                          count=False)
+            if not over:
+                checked = check_kernel_arguments(cap, 24, 1e-12, tag)
+            del cap
+        card_vs_cpu(case, steps=1, phase="11c",
+                    control="rounded" if over else "float32")
+        log(f"  ({label} {'moist' if moist else 'dry'}: "
+            f"{time.perf_counter() - t0:.1f} s; nord {cfg.nord}, hord_mt "
+            f"{cfg.hord_mt}, hord_vt {cfg.hord_vt}, hord_tm {cfg.hord_tm}, "
+            f"hord_dp {cfg.hord_dp}, hord_tr {cfg.hord_tr}, k_split "
+            f"{cfg.k_split}, n_split {cfg.n_split})")
+    return checked
+
+
+def shield_full_width(geom, card):
+    """Phase 11 at full width, float32: 11a fv_dynamics_nh of the SHiELD
+    namelist cut to C192 (SHIELD_CUTS; npz 91 and every other setting as
+    written) on the moist baroclinic state at set_eta(91) with phase 6's
+    tracers and MPConfig(): one captured step, phase 2 on its calls (every
+    NH kernel timed at the namelist's arguments: hord 5 / -5, nord 2 with
+    nord_v = nord_w = 2, hord_tr 8; check_kernel_arguments), then timed as
+    phase 6 (step_phase). 11b the SHiELD facade: ShieldAtmosphere(193, 91,
+    450, hydrostatic=False) with the same DynConfig fields, resumed from a
+    checkpoint of 11a's initial state (its tracers pass through the solo
+    step untouched): 1 warm-up and 2 timed atmosphere_dynamics steps,
+    launches per step as 11a's less the tracer sweep. Returns (the kernel
+    records by call shape, the launches of 11a's 5 steps, the launches per
+    facade step, what the kernels were checked at)."""
+    import dataclasses
+    import gc
+    import os
+    import shutil
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.driver.shield import (
+        ShieldAtmosphere)
+    from gfdl_atmos_cubed_sphere_tpu_torch.model import tracer_2d
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = shield_config(**SHIELD_CUTS)
+    require((cfg.npz, cfg.nord, cfg.hord_dp, cfg.hord_tr) == (91, 2, -5, 8),
+            f"the SHiELD namelist read as {cfg}")
+    case = shield_case(cfg, torch.float32, geom, True, "shield_c192l91")
+    log(f"phase 11a shield_c192l91: C192L91 moist baroclinic state, host "
+        f"set-up {case.t_setup:.1f} s; DynConfig from the namelist: nord "
+        f"{cfg.nord}, hord_mt/vt/tm/dp/tr {cfg.hord_mt}/{cfg.hord_vt}/"
+        f"{cfg.hord_tm}/{cfg.hord_dp}/{cfg.hord_tr}, k_split {cfg.k_split},"
+        f" n_split {cfg.n_split}, d4_bg {cfg.d4_bg}, vtdm4 {cfg.vtdm4}, "
+        f"tau {cfg.tau}, rf_cutoff {cfg.rf_cutoff}, consv_te {cfg.consv_te}")
+    mass0 = mass(case.g, case.state[0])
+    tracer_2d.reset_nsplt()
+    with Capture() as cap:
+        state = case.step(case.state)
+        float(torch.sum(state[0]))
+    nsplt = list(tracer_2d.nsplt_calls)
+    shapes = check_kernels(cap, NH_KERNELS, 192, 1e-4,
+                           "shield_c192l91 f32", measure=True)
+    checked = check_kernel_arguments(cap, 192, 1e-4, "shield_c192l91 f32")
+    checked["argument_costs"] = argument_costs(cap)
+    per_step = shield_per_step(cfg)
+    captured_calls("shield_c192l91", cap, per_step, nsplt)
+    del cap
+    launches = step_phase("11a shield_c192l91 moist f32", case, state,
+                          mass0, card, shapes, per_step, NH_KERNELS)
+    ic, ak, bk = case.ic, case.ak, case.bk
+    del case, state
+    torch.cuda.empty_cache()
+    over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if f.name not in ("npx", "npz", "dt")}
+    os.makedirs(SOLO_DIR, exist_ok=True)
+    try:
+        path = os.path.join(SOLO_DIR, "shield_c192l91.npz")
+        t0 = time.perf_counter()
+        moist_checkpoint(path, ic, ak, bk, "float32")
+        del ic
+        atm = ShieldAtmosphere(193, cfg.npz, cfg.dt, hydrostatic=False,
+                               cfg_overrides=over, restart=path, geom=geom,
+                               device="cuda")
+        t_init = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(SOLO_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    atm.atmosphere_dynamics(1)                           # warm-up
+    torch.cuda.synchronize()
+    nsteps = 2
+    reset_counts()
+    t0 = time.perf_counter()
+    atm.atmosphere_dynamics(nsteps)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / nsteps
+    fac = {k: v // nsteps for k, v in counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in atm.state.items():
+        require(bool(torch.isfinite(v).all()), f"11b: {k} not finite")
+    for name, per in per_step.items():
+        require(fac[name] == per, f"11b: {name} launched {fac[name]} times "
+                                  f"a facade step, expected {per}")
+    npts = 6 * 192 ** 2 * cfg.npz
+    log(f"phase 11b ShieldAtmosphere C192L91 f32 on {card}: checkpoint of "
+        f"11a's initial state written and resumed in {t_init:.1f} s; "
+        f"atmosphere_dynamics {sec:.4f} s/step, "
+        f"{npts / sec:.4e} pts*lev/s; launches per step " + ", ".join(
+            f"{k} {v}" for k, v in fac.items() if v)
+        + f"; peak device memory {peak / 2 ** 30:.2f} GiB")
+    del atm
+    torch.cuda.empty_cache()
+    return shapes, launches, fac, checked
+
+
 
 def main():
     import torch
@@ -2221,6 +2648,11 @@ def main():
     options_card_vs_cpu(geom24)
     log(f"phase 10a: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 11c. the SHiELD namelist at C24L10, card vs CPU --------------------
+    t0 = time.perf_counter()
+    checked_c24 = shield_card_vs_cpu(geom24)
+    log(f"phase 11c: {time.perf_counter() - t0:.1f} s")
+
     # ---- 4. full width sw_c768 ----------------------------------------------
     state = list(step(state))                            # warm-up
     float(torch.sum(state[0]))
@@ -2263,6 +2695,12 @@ def main():
                             card, shapes_hy, HYDRO_PER_STEP, HYDRO_KERNELS)
     del hy, hy_state
 
+    # ---- 11a, 11b. the SHiELD namelist's dynamics at C192L91 ---------------
+    t0 = time.perf_counter()
+    shapes_sh, sh_launches, fac_launches, checked = shield_subprocess()
+    recs_sh = {k: per_launch(v) for k, v in shapes_sh.items()}
+    log(f"phase 11a, 11b: {time.perf_counter() - t0:.1f} s")
+
     # ---- 8. the solo driver ------------------------------------------------
     solo_card_vs_cpu(geom24)
     solo_hy_launches, solo_nh_launches = solo_full_width(geom192, card)
@@ -2280,6 +2718,7 @@ def main():
         h_launches)
     log(f"phase 10b: {time.perf_counter() - t0:.1f} s")
     del moist_ic
+
 
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "kernel_ms")
@@ -2316,6 +2755,27 @@ def main():
         # launches in phase 10b's 5 big steps with the option bundles
         entry["c192_nh_offc"] = {"launches": offc_launches[name]}
         entry["c192_hydro_opts"] = {"launches": opts_launches[name]}
+        # phase 11a's 5 big steps at the SHiELD namelist's arguments (with
+        # the kernel alone per call shape), 11b's per facade step
+        entry["shield_c192l91"] = {"launches": sh_launches[name]}
+        if name in recs_sh:
+            entry["shield_c192l91"].update(
+                {k: recs_sh[name][k] for k in keys},
+                shapes=shapes_sh[name])
+        entry["shield_facade"] = {"launches": fac_launches[name]}
+        if name in checked["argument_costs"]:
+            entry["shield_c192l91"]["argument_costs"] = checked[
+                "argument_costs"][name]
+        if name in checked:
+            entry["checked_at"] = dict(
+                checked[name], c24_max_abs_err=checked_c24[
+                    "max_abs_err"].get(name),
+                c192_max_abs_err=checked["max_abs_err"].get(name))
+        if name == "ke_section":
+            from gfdl_atmos_cubed_sphere_tpu_torch.ops import ke
+            entry["checked_at"] = dict(hords=list(ke.KERNEL_HORDS),
+                                       on="the SW inputs, C768 f32 and "
+                                          "C48 f64")
         if name == "sim1":
             entry["c192_nh_offc"].update(
                 launches_alpha_1=offc_launches["sim1"]
@@ -2338,5 +2798,59 @@ def main():
     return 0
 
 
+def shield_subprocess():
+    """Phases 11a and 11b in a process of their own (this script with
+    PHASE_11_ARG), which builds its own C192 geometry: in this process,
+    after phases 2-7, the profiler returned empty readings of the kernels
+    alone at C192L91 in three runs of three, where a process that
+    profiles first in 11a reads them whole. Its lines pass through; its
+    last line holds shield_full_width's results."""
+    import gc
+    import os
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             PHASE_11_ARG], stdout=subprocess.PIPE,
+                            text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    last = None
+    for line in proc.stdout:
+        if last is not None:
+            log(last)
+        last = line.rstrip("\n")
+    rc = proc.wait()
+    require(rc == 0 and last is not None,
+            f"phases 11a and 11b failed (exit code {rc})")
+    out = json.loads(last)
+    return (out["shapes"], out["launches"], out["facade_launches"],
+            out["checked"])
+
+
+def phase_11_main():
+    """The process of shield_subprocess: phases 11a and 11b on the kernels
+    the parent built, their results as the last line."""
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.grid.metrics import (
+        build_grid_geometry)
+    require(torch.cuda.is_available(), "phase 11: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    geom = build_grid_geometry(193, ng=H)
+    log(f"phase 11a: C192 grid geometry, host {time.perf_counter() - t0:.1f}"
+        f" s")
+    shapes, launches, fac, checked = shield_full_width(geom, card_line())
+    print(json.dumps({"shapes": shapes, "launches": launches,
+                      "facade_launches": fac, "checked": checked}),
+          flush=True)
+    return 0
+
+
+#: the argument that runs phase_11_main
+PHASE_11_ARG = "--phase-11"
+
 if __name__ == "__main__":
+    if sys.argv[1:] == [PHASE_11_ARG]:
+        sys.exit(phase_11_main())
     sys.exit(main())

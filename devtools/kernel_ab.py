@@ -17,8 +17,9 @@ Then, in the order PARENT, this, this, PARENT:
 - for each captured float32 call of a named kernel: the wrapper's ms (CUDA
   events, median of 20), the kernel alone (profiler: the port's own device
   kernels), the device kernels per call with PyTorch's ops, copies and
-  fills, and max |diff| against this checkout's plain version (the
-  non-finite points must coincide);
+  fills, max |diff| against this checkout's plain version (the
+  non-finite points must coincide) and whether the outputs are bit for
+  bit the first PARENT reading's;
 - for each path: s/step after 1 warm-up, from the same captured state,
   with the named kernels' wrappers of that checkout swapped into this
   one's step; as many steps as take MIN_SECONDS (at least 3) by one
@@ -136,19 +137,33 @@ def max_diff(label, name, out, ref, n, sw):
     return err
 
 
+def same_bits(a, b):
+    """Two outputs equal bit for bit (NaN where the other has NaN)."""
+    import torch
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan], b[~nan]))
+
+
 def kernel_readings(label, name, args, kw, n, sw, wr):
     """ORDER's readings of one captured call."""
     import torch
     plain = cs.kernel_modules()[name][2]
     ref = dict(cs.flatten_outputs(plain(*args, **kw)))
-    recs = []
+    recs, first = [], None
     for tree in ORDER:
         wrapper = wr[tree][name][2]
 
         def fn():
             return wrapper(*args, **kw)
 
-        err = max_diff(label, name, fn(), ref, n, sw)
+        out = fn()
+        err = max_diff(label, name, out, ref, n, sw)
+        flat = dict(cs.flatten_outputs(out))
+        if first is None:
+            first = flat
+        same = all(same_bits(v, first[k]) for k, v in flat.items())
+        del out, flat
         torch.cuda.synchronize()
         ms = cs.time_ms(fn)
         own = cs.own_kernel_launches(fn)
@@ -157,11 +172,12 @@ def kernel_readings(label, name, args, kw, n, sw, wr):
                "shape": list(cs.call_shape(args)), "ms": ms,
                "kernel_ms": sum(v for v, _ in own.values()),
                "device_kernels_per_call": sum(c for _, c in every.values()),
-               "max_abs_err": err}
+               "max_abs_err": err, "bitwise_parent": same}
         cs.log(f"{tree:6s} {label} {name} {rec['shape']}: wrapper {ms:.4f} "
                f"ms, kernel alone {rec['kernel_ms']:.4f} ms, "
                f"{rec['device_kernels_per_call']:g} device kernels per "
-               f"call, max|diff| vs plain {err:.3e}")
+               f"call, max|diff| vs plain {err:.3e}, bit for bit the "
+               f"parent's: {same}")
         recs.append(rec)
     return recs
 

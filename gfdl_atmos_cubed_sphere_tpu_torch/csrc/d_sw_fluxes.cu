@@ -30,8 +30,10 @@
 //                                      holds the cube corner
 //   crx, xfx / cry, yfx / ra_x, ra_y   whole window
 //   delp: copy_corners, double sweep   fv_tile.cuh tile_sweep extents
-//   delp damping (nord_v 0/1, combo 2) d2 on the box + 1 ring, the fluxes
-//                                      on the box's walls
+//   delp damping (nord_v 0-2, combo 2  nord 1: d2 on the box + 1 ring;
+//     with nord_v2 0-2)                nord 2: a pass on the box + 2
+//                                      rings, then d2 on + 1 ring from
+//                                      it; the fluxes on the box's walls
 //   w: sweep on delp's mass fluxes, w damping (dw, heat), w_new
 //   pt: sweep on the mass fluxes, damping in mass form, delp_new, pt_new
 // Reads of window points no output needs are clamped into the window (a
@@ -46,6 +48,15 @@
 // select, so NaN held in the cube-corner halo of a metric stays where the
 // plain version (ops/sw_core.py d_sw, stage="fluxes") puts it. Built with
 // --fmad=false: bit-exact with the plain version.
+//
+// Two forms (the GEN template flag): the path's usual arguments (hord 5, 6,
+// 8 or 10, nord_v and nord_w 0 or 1, nord_v2 = nord_w2 = 0) in
+// the smaller body they need, and every argument sw_core.d_sw takes (any
+// hord of tp_core.xppm, nord_v, nord_w, nord_v2, nord_w2 up to 2, any
+// lim_fac), each damping combo's chain and fluxes in turn. The second d2
+// pass of nord 2 takes the sweep's QX plane, free once the sweep ends. A
+// launch takes the form its arguments need, or the every-argument one when
+// asked (the same values).
 
 #include "fv_tile.cuh"
 
@@ -86,11 +97,11 @@ template <typename T> struct FluxArgs {
   T* out[14];
   const T* prof[4];     // damp4_v, damp4_v2, damp4_w, damp4_w2 [K]
   int n, K, ntx, nty, hord_dp, hord_vt, hord_tm, nord_v, nord_w;
-  int on_v, on_v2, on_w, on_w2;
-  double dt, dd8;
+  int nord_v2, nord_w2, on_v, on_v2, on_w, on_w2;
+  double dt, dd8, lim;
 };
 
-template <typename T, int TY, int TX>
+template <typename T, int TY, int TX, bool GEN>
 __global__ void __launch_bounds__(NT, 1) fluxes_kernel(FluxArgs<T> a) {
   constexpr int S = fv::win_stride<TX>();
   constexpr size_t WIN = fv::win_elems<TY, TX>();
@@ -430,10 +441,11 @@ __global__ void __launch_bounds__(NT, 1) fluxes_kernel(FluxArgs<T> a) {
                               PL(BLX), PL(BRX), PL(FY2), PL(QI),
                               PL(FX2), PL(QJ),  flags,   flags + WIN};
     auto sweep = [&](int q, int hord, bool mass, T* gx, T* gy) {
-      fv::tile_sweep<T, TY, TX>(
+      fv::tile_sweep<T, TY, TX, GEN>(
           tl, PL(q), PL(AREA), PL(DXA), PL(DYA), PL(RAX), PL(RAY), PL(CRX),
           PL(XFX), PL(CRY), PL(YFX), mass ? PL(FX) : nullptr,
-          mass ? PL(FY) : nullptr, hord == 10 ? 8 : hord, hord, sw, gx, gy);
+          mass ? PL(FY) : nullptr, hord == 10 ? 8 : hord, hord, T(a.lim), sw,
+          gx, gy);
     };
     auto deln = [&](int q, const T* pre) {
       return fv::Deln<T, TY, TX>{&tl, PL(q), PL(DEL6U), PL(DEL6V), PL(RAREA),
@@ -481,59 +493,106 @@ __global__ void __launch_bounds__(NT, 1) fluxes_kernel(FluxArgs<T> a) {
       const T* pre2 = f == 0 ? d4v2 : (f == 1 ? d4w2 : nullptr);
       const fv::Deln<T, TY, TX> d1 = deln(q, on1 ? pre1 : nullptr);
       const fv::Deln<T, TY, TX> d2 = deln(q, on2 ? pre2 : nullptr);
-      if (on1 && nord1 > 0) {
-        d1.d2(D2p);
-        __syncthreads();
-      }
-      if (f != 1) {  // the damping fluxes on the box's walls
-        const T* dp = PL(DELP);
-        const T c1 = f == 2 && on1 ? d4v[k] : T(0);
-        const T c2 = f == 2 && on2 ? d4v2[k] : T(0);
-        const int nx = ty * (tx + 1), ny = (ty + 1) * tx;
-        for (int e = id; e < nx + ny; e += nt) {
-          const bool xw = e < nx;
-          int a0, a1;
-          if (xw) dwx.split(e, a0, a1);        // box row, wall
-          else dbox.split(e - nx, a0, a1);     // wall, box column
-          const int o = a0 * S + a1, m = (a0 + 3) * S + a1 + 3;
-          const T ms = dp[m - (xw ? 1 : S)] + dp[m];
-          T* g = xw ? gx : gy;
-          T v = g[o];
-          if (on1) {
-            const T d = xw ? d1.fx(nord1, D2p, a0, a1)
-                           : d1.fy(nord1, D2p, a0, a1);
-            v = f == 0 ? v + d : v + T(0.5) * c1 * ms * d;
+      if (GEN) {  // each combo in turn: its d2 chain, then its fluxes
+        const int nord2 = f == 1 ? a.nord_w2 : a.nord_v2;
+        // unrolled, so that each combo's operator is named directly: a
+        // rolled loop selects it by reference, which puts both operators
+        // in local memory (1.4x the kernel's time, PERF.md)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (!(c == 0 ? on1 : on2)) continue;
+          const fv::Deln<T, TY, TX>& d = c == 0 ? d1 : d2;
+          const int nd = c == 0 ? nord1 : nord2;
+          if (nd > 0) d.chain(nd, PL(QX), D2p);
+          if (f != 1) {
+            const T* dp = PL(DELP);
+            const T cm = f == 2 ? (c == 0 ? d4v[k] : d4v2[k]) : T(0);
+            const int nx = ty * (tx + 1), ny = (ty + 1) * tx;
+            for (int e = id; e < nx + ny; e += nt) {
+              const bool xw = e < nx;
+              int a0, a1;
+              if (xw) dwx.split(e, a0, a1);
+              else dbox.split(e - nx, a0, a1);
+              const int o = a0 * S + a1, m = (a0 + 3) * S + a1 + 3;
+              T* g = xw ? gx : gy;
+              const T dd = xw ? d.fx(nd, D2p, a0, a1) : d.fy(nd, D2p, a0, a1);
+              if (f == 0) {
+                g[o] = g[o] + dd;
+              } else {
+                const T ms = dp[m - (xw ? 1 : S)] + dp[m];
+                g[o] = g[o] + T(0.5) * cm * ms * dd;
+              }
+            }
+          } else {
+            const bool first = c == 0 || !on1;
+            for (int e = id; e < ty * tx; e += nt) {
+              int lq, lc;
+              dbox.split(e, lq, lc);
+              const T ra = rarea[(lq + 3) * S + lc + 3];
+              const T v = (d.fx(nd, D2p, lq, lc) - d.fx(nd, D2p, lq, lc + 1)
+                           + d.fy(nd, D2p, lq, lc)
+                           - d.fy(nd, D2p, lq + 1, lc)) * ra;
+              T* dw = PL(DW) + lq * S + lc;
+              *dw = (first ? T(0) : *dw) + v;
+            }
           }
-          if (on2) {
-            const T d = xw ? d2.fx(0, D2p, a0, a1) : d2.fy(0, D2p, a0, a1);
-            v = f == 0 ? v + d : v + T(0.5) * c2 * ms * d;
-          }
-          g[o] = v;
+          __syncthreads();
         }
-        __syncthreads();
-      } else if (wd) {  // dw, the w damping's divergence, per box cell
-        for (int e = id; e < ty * tx; e += nt) {
-          int lq, lc;
-          dbox.split(e, lq, lc);
-          const T ra = rarea[(lq + 3) * S + lc + 3];
-          T dw = T(0);
-          bool first = true;
-          const fv::Deln<T, TY, TX>* ds[2] = {&d1, &d2};
-          const bool on[2] = {on1, on2};
-          const int nd[2] = {nord1, 0};
-          for (int c = 0; c < 2; ++c) {
-            if (!on[c]) continue;
-            const fv::Deln<T, TY, TX>& d = *ds[c];
-            const T v = (d.fx(nd[c], D2p, lq, lc)
-                         - d.fx(nd[c], D2p, lq, lc + 1)
-                         + d.fy(nd[c], D2p, lq, lc)
-                         - d.fy(nd[c], D2p, lq + 1, lc)) * ra;
-            dw = (first ? T(0) : dw) + v;
-            first = false;
-          }
-          PL(DW)[lq * S + lc] = dw;
+      } else {  // the usual arguments: nord1 <= 1, combo 2 at nord 0
+        if (on1 && nord1 > 0) {
+          d1.d2(D2p);
+          __syncthreads();
         }
-        __syncthreads();
+        if (f != 1) {  // the damping fluxes on the box's walls
+          const T* dp = PL(DELP);
+          const T c1 = f == 2 && on1 ? d4v[k] : T(0);
+          const T c2 = f == 2 && on2 ? d4v2[k] : T(0);
+          const int nx = ty * (tx + 1), ny = (ty + 1) * tx;
+          for (int e = id; e < nx + ny; e += nt) {
+            const bool xw = e < nx;
+            int a0, a1;
+            if (xw) dwx.split(e, a0, a1);        // box row, wall
+            else dbox.split(e - nx, a0, a1);     // wall, box column
+            const int o = a0 * S + a1, m = (a0 + 3) * S + a1 + 3;
+            const T ms = dp[m - (xw ? 1 : S)] + dp[m];
+            T* g = xw ? gx : gy;
+            T v = g[o];
+            if (on1) {
+              const T d = xw ? d1.fx(nord1, D2p, a0, a1)
+                             : d1.fy(nord1, D2p, a0, a1);
+              v = f == 0 ? v + d : v + T(0.5) * c1 * ms * d;
+            }
+            if (on2) {
+              const T d = xw ? d2.fx(0, D2p, a0, a1) : d2.fy(0, D2p, a0, a1);
+              v = f == 0 ? v + d : v + T(0.5) * c2 * ms * d;
+            }
+            g[o] = v;
+          }
+          __syncthreads();
+        } else if (wd) {  // dw, the w damping's divergence, per box cell
+          for (int e = id; e < ty * tx; e += nt) {
+            int lq, lc;
+            dbox.split(e, lq, lc);
+            const T ra = rarea[(lq + 3) * S + lc + 3];
+            T dw = T(0);
+            bool first = true;
+            const fv::Deln<T, TY, TX>* ds[2] = {&d1, &d2};
+            const bool on[2] = {on1, on2};
+            const int nd[2] = {nord1, 0};
+            for (int c = 0; c < 2; ++c) {
+              if (!on[c]) continue;
+              const fv::Deln<T, TY, TX>& d = *ds[c];
+              const T v = (d.fx(nd[c], D2p, lq, lc)
+                           - d.fx(nd[c], D2p, lq, lc + 1)
+                           + d.fy(nd[c], D2p, lq, lc)
+                           - d.fy(nd[c], D2p, lq + 1, lc)) * ra;
+              dw = (first ? T(0) : dw) + v;
+              first = false;
+            }
+            PL(DW)[lq * S + lc] = dw;
+          }
+          __syncthreads();
+        }
       }
       if (f == 0) {  // fx [n, n+1], fy [n+1, n]: the box's own walls
         const int wx = tl.lx ? tx + 1 : tx, wy = tl.ly ? ty + 1 : ty;
@@ -579,7 +638,7 @@ __global__ void __launch_bounds__(NT, 1) fluxes_kernel(FluxArgs<T> a) {
   }
 }
 
-// the box (TX, TY) of each element size, as ops/dsw.py's TILE
+// the box (TX, TY) of each element size, as ops/dsw.py's BOX
 template <typename T> struct Box;
 template <> struct Box<float> { static constexpr int TX = 32, TY = 16; };
 template <> struct Box<double> { static constexpr int TX = 16, TY = 12; };
@@ -600,8 +659,9 @@ FluxArgs<T> make_args(const void* const* in, const void* const* met,
   for (int b = 0; b < 18; ++b) a.in[5 + b] = static_cast<const T*>(met[b]);
   for (int b = 0; b < 14; ++b) a.out[b] = static_cast<T*>(out[b]);
   for (int b = 0; b < 4; ++b) a.prof[b] = static_cast<const T*>(prof[b]);
-  // iv: n, K, hord_dp, hord_vt, hord_tm, nord_v, nord_w, on_v, on_v2,
-  //     on_w, on_w2, ntx, nty; dv: dt, dd8
+  // iv: n, K, hord_dp, hord_vt, hord_tm, nord_v, nord_w, nord_v2,
+  //     nord_w2, on_v, on_v2, on_w, on_w2, (iv[13], read by run), ntx,
+  //     nty; dv: dt, dd8, lim_fac
   a.n = iv[0];
   a.K = iv[1];
   a.hord_dp = iv[2];
@@ -609,14 +669,17 @@ FluxArgs<T> make_args(const void* const* in, const void* const* met,
   a.hord_tm = iv[4];
   a.nord_v = iv[5];
   a.nord_w = iv[6];
-  a.on_v = iv[7];
-  a.on_v2 = iv[8];
-  a.on_w = iv[9];
-  a.on_w2 = iv[10];
-  a.ntx = iv[11];
-  a.nty = iv[12];
+  a.nord_v2 = iv[7];
+  a.nord_w2 = iv[8];
+  a.on_v = iv[9];
+  a.on_v2 = iv[10];
+  a.on_w = iv[11];
+  a.on_w2 = iv[12];
+  a.ntx = iv[14];
+  a.nty = iv[15];
   a.dt = dv[0];
   a.dd8 = dv[1];
+  a.lim = dv[2];
   return a;
 }
 
@@ -624,13 +687,19 @@ template <typename T>
 int run(const void* const* in, const void* const* met, void* const* out,
         const void* const* prof, const int* iv, const double* dv,
         cudaStream_t s) {
-  // iv[13..15]: the wrapper's box and shared-memory bytes, which must be
+  // iv[16..18]: the wrapper's box and shared-memory bytes, which must be
   // this instantiation's
   const size_t bytes = smem_bytes<T>();
-  if (iv[13] != Box<T>::TX || iv[14] != Box<T>::TY || (size_t)iv[15] != bytes)
+  if (iv[16] != Box<T>::TX || iv[17] != Box<T>::TY || (size_t)iv[18] != bytes)
     return (int)cudaErrorInvalidValue;
   const FluxArgs<T> a = make_args<T>(in, met, out, prof, iv, dv);
-  auto kern = fluxes_kernel<T, Box<T>::TY, Box<T>::TX>;
+  // iv[13]: 1 asks for the every-argument form whatever the arguments
+  const bool gen = iv[13] != 0 || !fv::usual_hord(a.hord_dp)
+                   || !fv::usual_hord(a.hord_vt)
+                   || !fv::usual_hord(a.hord_tm) || a.nord_v > 1
+                   || a.nord_w > 1 || a.nord_v2 != 0 || a.nord_w2 != 0;
+  auto kern = gen ? fluxes_kernel<T, Box<T>::TY, Box<T>::TX, true>
+                  : fluxes_kernel<T, Box<T>::TY, Box<T>::TX, false>;
   cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (rc != cudaSuccess) return (int)rc;
@@ -648,8 +717,10 @@ int run(const void* const* in, const void* const* met, void* const* out,
 // ra_y, ut, vt (full frames), heat [6,K,n,n] (w_new null when w is; heat
 // null without w damping); prof: the per-level damping coefficients
 // damp4_v, damp4_v2, damp4_w, damp4_w2 [K] (null when off); iv: n, K,
-// hord_dp, hord_vt, hord_tm, nord_v, nord_w, on_v, on_v2, on_w, on_w2,
-// boxes along x and y, box TX, TY, shared-memory bytes; dv: dt, dd8.
+// hord_dp, hord_vt, hord_tm, nord_v, nord_w, nord_v2, nord_w2, on_v,
+// on_v2, on_w, on_w2, 1 for the every-argument form whatever the
+// arguments (0: the form they need), boxes along x and y, box TX, TY,
+// shared-memory bytes; dv: dt, dd8, lim_fac.
 // dtype 0 = float32, 1 = float64. Returns a cudaError_t code.
 extern "C" int d_sw_fluxes(const void* const* in, const void* const* met,
                            void* const* out, const void* const* prof,
@@ -660,12 +731,16 @@ extern "C" int d_sw_fluxes(const void* const* in, const void* const* met,
   return run<double>(in, met, out, prof, iv, dv, s);
 }
 
-// The kernel's resources (fv_tile.cuh kernel_attrs): registers, local
-// (spill) bytes, static and dynamic shared memory, resident blocks per SM
-// and threads per block into out[0..5]. Returns a cudaError_t code.
-extern "C" int d_sw_fluxes_attrs(int dtype, int* out) {
-  auto f32 = fluxes_kernel<float, Box<float>::TY, Box<float>::TX>;
-  auto f64 = fluxes_kernel<double, Box<double>::TY, Box<double>::TX>;
+// The resources of the kernel's form gen (0: the usual arguments, 1: every
+// argument; fv_tile.cuh kernel_attrs): registers, local (spill) bytes,
+// static and dynamic shared memory, resident blocks per SM and threads per
+// block into out[0..5]. Returns a cudaError_t code.
+extern "C" int d_sw_fluxes_attrs(int gen, int dtype, int* out) {
+  auto f32 = gen ? fluxes_kernel<float, Box<float>::TY, Box<float>::TX, true>
+                 : fluxes_kernel<float, Box<float>::TY, Box<float>::TX, false>;
+  auto f64 = gen
+      ? fluxes_kernel<double, Box<double>::TY, Box<double>::TX, true>
+      : fluxes_kernel<double, Box<double>::TY, Box<double>::TX, false>;
   if (dtype == 0) return fv::kernel_attrs(f32, NT, smem_bytes<float>(), out);
   return fv::kernel_attrs(f64, NT, smem_bytes<double>(), out);
 }

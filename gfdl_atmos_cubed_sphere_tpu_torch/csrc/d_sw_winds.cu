@@ -32,8 +32,12 @@
 //   KE: xtp_u cells of u on the box's corner rows, one cell beyond each
 //       side; ytp_v cells of v likewise on its corner columns; then ke per
 //       corner (the ke_section kernel's arithmetic, fv_ppm.cuh)
+//   nord 2, 3: the nord - 1 passes of the del-2 loop with their corner
+//       fills, on the box's corners and nord - 1 .. 1 rings (QI, QJ)
 //   vortB (del-2 / del-4 / blend, Smagorinsky) per box corner; ke += vortB
-//   wk damping d2 (nord_v 1) on the box + 1 ring; fluxes on the box walls
+//   wk damping d2 (nord_v 1) on the box + 1 ring (nord_v 2: a pass on + 2
+//       rings first; the second combo's chain in BLX, BRX); fluxes on the
+//       box walls
 //   u, v on the box walls; the heat per box cell
 // Every stage's reads stay inside the window. Nothing but u, v and heat
 // goes to device memory: the old chain of some 16 launches wrote and
@@ -41,6 +45,13 @@
 // the cube-corner halo of a metric stays where the plain version
 // (ops/sw_core.py d_sw, stage="winds") puts it. Built with --fmad=false:
 // bit-exact with the plain version.
+//
+// Two forms (the GEN template flag), as the fluxes kernel's: the path's
+// usual arguments (hord_vt 5, 6, 8 or 10, nord and nord_v 0 or 1, nord_v2
+// 0) and every argument sw_core.d_sw takes (any hord_vt of tp_core.xppm,
+// nord 0-3, nord_v and nord_v2 0-2, any lim_fac). A launch takes the form
+// its arguments need, or the every-argument one when asked (the same
+// values). The KE stage takes any hord_mt of sw_core.xtp_u in both.
 
 #include "fv_tile.cuh"
 
@@ -91,16 +102,16 @@ template <typename T> struct WindArgs {
   T* out[3];            // u, v, heat
   // per-level d2_bg, d_con, nord_mask, damp4_v, damp4_v2
   const T* prof[5];
-  int n, K, ntx, nty, hord_mt, hord_vt, nord_v, need0, needN, smag;
-  int do_heat, on_v, on_v2;
-  double dt, dddmp, da_min_c, dd8;
+  int n, K, ntx, nty, hord_mt, hord_vt, nord, nord_v, nord_v2, need0;
+  int needN, smag, do_heat, on_v, on_v2;
+  double dt, dddmp, da_min_c, dd8, lim;
 };
 
 // the wrapper's input index of each window field plane
 __device__ const int kIn[VTI + 1] = {1, 2, 3, 4, 5, 6, 7, 10, 11, 12,
                                             13, 14, 15, 16, 17};
 
-template <typename T, int TY, int TX>
+template <typename T, int TY, int TX, bool GEN>
 __global__ void __launch_bounds__(NT, 1) winds_kernel(WindArgs<T> a) {
   constexpr int S = fv::win_stride<TX>();
   constexpr size_t WIN = fv::win_elems<TY, TX>();
@@ -183,11 +194,11 @@ __global__ void __launch_bounds__(NT, 1) winds_kernel(WindArgs<T> a) {
     const fv::SweepWork<T> sw{PL(QX),  PL(QY),  PL(BLY), PL(BRY),
                               PL(BLX), PL(BRX), PL(FY2), PL(QI),
                               PL(FX2), PL(QJ),  flags,   flags + WIN};
-    fv::tile_sweep<T, TY, TX>(tl, PL(VABS), PL(AREA), PL(DXA), PL(DYA),
-                              PL(RAX), PL(RAY), PL(CRX), PL(XFX), PL(CRY),
-                              PL(YFX), nullptr, nullptr,
-                              a.hord_vt == 10 ? 8 : a.hord_vt, a.hord_vt, sw,
-                              PL(FXV), PL(FYV));
+    fv::tile_sweep<T, TY, TX, GEN>(tl, PL(VABS), PL(AREA), PL(DXA), PL(DYA),
+                                   PL(RAX), PL(RAY), PL(CRX), PL(XFX),
+                                   PL(CRY), PL(YFX), nullptr, nullptr,
+                                   a.hord_vt == 10 ? 8 : a.hord_vt, a.hord_vt,
+                                   T(a.lim), sw, PL(FXV), PL(FYV));
 
     prefetch(2);
 
@@ -363,11 +374,73 @@ __global__ void __launch_bounds__(NT, 1) winds_kernel(WindArgs<T> a) {
         return (vv - T(0.5) * (ul + ur) * D(COSA_U, j, i)) * dxc
                * D(SINA_U, j, i);
       };
+      // nord 2, 3: the loop's first nord - 1 passes, each with the corner
+      // fills of dd (fill_corners_bgrid in x for vc_g, in y for uc_g) and
+      // of the fluxes (fill_corners_dgrid_vector), on the box's corners
+      // and nord - nn rings into QI, QJ; the last pass, without fills, is
+      // the one below on the box's corners
+      const T* ddp = PL(DIVG);
+      if (GEN && a.needN && a.nord > 1) {
+        const bool cnr = tl.at_corner();
+        auto fill_pass = [&](const T* src, int j, int i) -> T {
+          auto dd = [&](int dir, int jj, int ii) -> T {
+            if (cnr) fv::bgrid_src(dir, n, jj, ii, jj, ii);
+            return src[fv::wix<TY, TX>(jj - oy, ii - ox)];
+          };
+          auto vcg0 = [&](int jj, int ii) {   // y-wall [W, P]
+            return (dd(1, jj, ii + 1) - dd(1, jj, ii)) * D(DIVG_U, jj, ii);
+          };
+          auto ucg0 = [&](int jj, int ii) {   // x-wall [P, W]
+            return (dd(2, jj + 1, ii) - dd(2, jj, ii)) * D(DIVG_V, jj, ii);
+          };
+          auto vcgf = [&](int jj, int ii) -> T {
+            int sj = jj, si = ii;
+            const int sg = cnr ? fv::dgrid_src(true, n, jj, ii, sj, si) : 0;
+            if (sg == 0) return vcg0(jj, ii);
+            const T x = ucg0(sj, si);
+            return sg < 0 ? -x : x;
+          };
+          auto ucgf = [&](int jj, int ii) -> T {
+            int sj = jj, si = ii;
+            const int sg = cnr ? fv::dgrid_src(false, n, jj, ii, sj, si) : 0;
+            if (sg == 0) return ucg0(jj, ii);
+            const T x = vcg0(sj, si);
+            return sg < 0 ? -x : x;
+          };
+          const T rl = j > 0 ? ucgf(j - 1, i) : T(0);
+          const T rr = j < P ? ucgf(j, i) : T(0);
+          const T cl = i > 0 ? vcgf(j, i - 1) : T(0);
+          const T cr = i < P ? vcgf(j, i) : T(0);
+          T d = rl - rr + cl - cr;
+          if (j == fi(1) && i == fi(1)) d = d - ucgf(fi(0), fi(1));
+          else if (j == fi(1) && i == fi(npx)) d = d - ucgf(fi(0), fi(npx));
+          else if (j == fi(npx) && i == fi(1)) d = d + ucgf(fi(npx), fi(1));
+          else if (j == fi(npx) && i == fi(npx))
+            d = d + ucgf(fi(npx), fi(npx));
+          return d * rarea_c[(long long)j * W + i];
+        };
+        for (int nn = 1; nn < a.nord; ++nn) {
+          T* out = PL(nn % 2 ? QI : QJ);
+          const int r = a.nord - nn, lo = 3 - r;
+          const int rows = ty + 1 + 2 * r, cols = tx + 1 + 2 * r;
+          const fv::Div dr(cols);
+          for (int e = id; e < rows * cols; e += nt) {
+            int lr, lc;
+            dr.split(e, lr, lc);
+            lr += lo;
+            lc += lo;
+            out[lr * S + lc] = fill_pass(ddp, oy + lr, ox + lc);
+          }
+          __syncthreads();
+          ddp = out;
+        }
+      }
+      auto DD = [&](int jj, int ii) { return ddp[(jj - oy) * S + (ii - ox)]; };
       auto vcg = [&](int jj, int ii) {   // (dd[:, 1:] - dd[:, :-1]) * divg_u
-        return (D(DIVG, jj, ii + 1) - D(DIVG, jj, ii)) * D(DIVG_U, jj, ii);
+        return (DD(jj, ii + 1) - DD(jj, ii)) * D(DIVG_U, jj, ii);
       };
       auto ucg = [&](int jj, int ii) {   // (dd[1:] - dd[:-1]) * divg_v
-        return (D(DIVG, jj + 1, ii) - D(DIVG, jj, ii)) * D(DIVG_V, jj, ii);
+        return (DD(jj + 1, ii) - DD(jj, ii)) * D(DIVG_V, jj, ii);
       };
       const int cc = tx + 1;
       const fv::Div dv5(cc);
@@ -397,7 +470,7 @@ __global__ void __launch_bounds__(NT, 1) winds_kernel(WindArgs<T> a) {
           vB0 = damp * d;
         }
         if (a.needN) {
-          // one del-2 pass of divg_d (nord = 1)
+          // the loop's last del-2 pass (the only one for nord = 1)
           const T rl = j > 0 ? ucg(j - 1, i) : T(0);
           const T rr = j < P ? ucg(j, i) : T(0);
           const T cl = i > 0 ? vcg(j, i - 1) : T(0);
@@ -433,28 +506,35 @@ __global__ void __launch_bounds__(NT, 1) winds_kernel(WindArgs<T> a) {
 
     prefetch(4);
 
-    // ---- 5. vorticity damping of wk: (nord_v, damp_v) and (0, damp_v2) -----
+    // ---- 5. vorticity damping of wk: (nord_v, damp_v), (nord_v2, damp_v2) ---
     T* D2p = PL(FY2);
+    T* D2q = GEN ? PL(BRX) : D2p;      // the second combo's d2
+    const int nv2 = GEN ? a.nord_v2 : 0;
     const fv::Deln<T, TY, TX> da{&tl, PL(WK), PL(DEL6U), PL(DEL6V), PL(RAREA),
                                  a.on_v ? a.prof[3][k] : T(1), true,
                                  tl.at_corner()};
     const fv::Deln<T, TY, TX> db{&tl, PL(WK), PL(DEL6U), PL(DEL6V), PL(RAREA),
                                  a.on_v2 ? a.prof[4][k] : T(1), true,
                                  tl.at_corner()};
-    if (a.on_v && a.nord_v > 0) da.d2(D2p);
+    if (GEN) {
+      if (a.on_v && a.nord_v > 0) da.chain(a.nord_v, PL(FX2), D2p);
+      if (a.on_v2 && nv2 > 0) db.chain(nv2, PL(BLX), D2q);
+    } else if (a.on_v && a.nord_v > 0) {
+      da.d2(D2p);
+    }
     __syncthreads();
     const bool damp = a.on_v || a.on_v2;
     // the summed damping fluxes on the box's x-wall (row lq, wall lw) and
     // y-wall (wall lw, column lq)
     auto f2x = [&](int lq, int lw) -> T {
       if (a.on_v && a.on_v2)
-        return da.fx(a.nord_v, D2p, lq, lw) + db.fx(0, D2p, lq, lw);
-      return a.on_v ? da.fx(a.nord_v, D2p, lq, lw) : db.fx(0, D2p, lq, lw);
+        return da.fx(a.nord_v, D2p, lq, lw) + db.fx(nv2, D2q, lq, lw);
+      return a.on_v ? da.fx(a.nord_v, D2p, lq, lw) : db.fx(nv2, D2q, lq, lw);
     };
     auto f2y = [&](int lw, int lq) -> T {
       if (a.on_v && a.on_v2)
-        return da.fy(a.nord_v, D2p, lw, lq) + db.fy(0, D2p, lw, lq);
-      return a.on_v ? da.fy(a.nord_v, D2p, lw, lq) : db.fy(0, D2p, lw, lq);
+        return da.fy(a.nord_v, D2p, lw, lq) + db.fy(nv2, D2q, lw, lq);
+      return a.on_v ? da.fy(a.nord_v, D2p, lw, lq) : db.fy(nv2, D2q, lw, lq);
     };
 
     // ---- 6. the wind update on the box's walls ------------------------------
@@ -566,25 +646,29 @@ WindArgs<T> make_args(const void* const* in, const void* const* met,
   for (int b = 0; b < 28; ++b) a.met[b] = static_cast<const T*>(met[b]);
   for (int b = 0; b < 3; ++b) a.out[b] = static_cast<T*>(out[b]);
   for (int b = 0; b < 5; ++b) a.prof[b] = static_cast<const T*>(prof[b]);
-  // iv: n, K, hord_mt, hord_vt, nord_v, need0, needN, smag, do_heat,
-  //     on_v, on_v2, boxes along x and y; dv: dt, dddmp, da_min_c, dd8
+  // iv: n, K, hord_mt, hord_vt, nord, nord_v, nord_v2, need0, needN,
+  //     smag, do_heat, on_v, on_v2, (iv[13], read by run), boxes along
+  //     x and y; dv: dt, dddmp, da_min_c, dd8, lim_fac
   a.n = iv[0];
   a.K = iv[1];
   a.hord_mt = iv[2];
   a.hord_vt = iv[3];
-  a.nord_v = iv[4];
-  a.need0 = iv[5];
-  a.needN = iv[6];
-  a.smag = iv[7];
-  a.do_heat = iv[8];
-  a.on_v = iv[9];
-  a.on_v2 = iv[10];
-  a.ntx = iv[11];
-  a.nty = iv[12];
+  a.nord = iv[4];
+  a.nord_v = iv[5];
+  a.nord_v2 = iv[6];
+  a.need0 = iv[7];
+  a.needN = iv[8];
+  a.smag = iv[9];
+  a.do_heat = iv[10];
+  a.on_v = iv[11];
+  a.on_v2 = iv[12];
+  a.ntx = iv[14];
+  a.nty = iv[15];
   a.dt = dv[0];
   a.dddmp = dv[1];
   a.da_min_c = dv[2];
   a.dd8 = dv[3];
+  a.lim = dv[4];
   return a;
 }
 
@@ -592,13 +676,17 @@ template <typename T>
 int run(const void* const* in, const void* const* met, void* const* out,
         const void* const* prof, const int* iv, const double* dv,
         cudaStream_t s) {
-  // iv[13..15]: the wrapper's box and shared-memory bytes, which must be
+  // iv[16..18]: the wrapper's box and shared-memory bytes, which must be
   // this instantiation's
   const size_t bytes = smem_bytes<T>();
-  if (iv[13] != Box<T>::TX || iv[14] != Box<T>::TY || (size_t)iv[15] != bytes)
+  if (iv[16] != Box<T>::TX || iv[17] != Box<T>::TY || (size_t)iv[18] != bytes)
     return (int)cudaErrorInvalidValue;
   const WindArgs<T> a = make_args<T>(in, met, out, prof, iv, dv);
-  auto kern = winds_kernel<T, Box<T>::TY, Box<T>::TX>;
+  // iv[13]: 1 asks for the every-argument form whatever the arguments
+  const bool gen = iv[13] != 0 || !fv::usual_hord(a.hord_vt) || a.nord > 1
+                   || a.nord_v > 1 || a.nord_v2 != 0;
+  auto kern = gen ? winds_kernel<T, Box<T>::TY, Box<T>::TX, true>
+                  : winds_kernel<T, Box<T>::TY, Box<T>::TX, false>;
   cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (rc != cudaSuccess) return (int)rc;
@@ -617,8 +705,10 @@ int run(const void* const* in, const void* const* met, void* const* out,
 // WIND_METRICS order; out: u [6,K,n+1,n], v [6,K,n,n+1], heat [6,K,n,n]
 // (null without heating); prof (5): the per-level d2_bg, d_con, nord_mask,
 // damp4_v, damp4_v2 [K] (null when off); iv: n, K, hord_mt, hord_vt,
-// nord_v, need0, needN, smag, do_heat, on_v, on_v2, boxes along x and y,
-// box TX, TY, shared-memory bytes; dv: dt, dddmp, da_min_c, dd8.
+// nord, nord_v, nord_v2, need0, needN, smag, do_heat, on_v, on_v2, 1 for
+// the every-argument form whatever the arguments (0: the form they need),
+// boxes along x and y, box TX, TY, shared-memory bytes; dv: dt, dddmp,
+// da_min_c, dd8, lim_fac.
 // dtype 0 = float32, 1 = float64. Returns a cudaError_t code.
 extern "C" int d_sw_winds(const void* const* in, const void* const* met,
                           void* const* out, const void* const* prof,
@@ -629,12 +719,16 @@ extern "C" int d_sw_winds(const void* const* in, const void* const* met,
   return run<double>(in, met, out, prof, iv, dv, s);
 }
 
-// The kernel's resources (fv_tile.cuh kernel_attrs): registers, local
-// (spill) bytes, static and dynamic shared memory, resident blocks per SM
-// and threads per block into out[0..5]. Returns a cudaError_t code.
-extern "C" int d_sw_winds_attrs(int dtype, int* out) {
-  auto f32 = winds_kernel<float, Box<float>::TY, Box<float>::TX>;
-  auto f64 = winds_kernel<double, Box<double>::TY, Box<double>::TX>;
+// The resources of the kernel's form gen (0: the usual arguments, 1: every
+// argument; fv_tile.cuh kernel_attrs): registers, local (spill) bytes,
+// static and dynamic shared memory, resident blocks per SM and threads per
+// block into out[0..5]. Returns a cudaError_t code.
+extern "C" int d_sw_winds_attrs(int gen, int dtype, int* out) {
+  auto f32 = gen ? winds_kernel<float, Box<float>::TY, Box<float>::TX, true>
+                 : winds_kernel<float, Box<float>::TY, Box<float>::TX, false>;
+  auto f64 = gen
+      ? winds_kernel<double, Box<double>::TY, Box<double>::TX, true>
+      : winds_kernel<double, Box<double>::TY, Box<double>::TX, false>;
   if (dtype == 0) return fv::kernel_attrs(f32, NT, smem_bytes<float>(), out);
   return fv::kernel_attrs(f64, NT, smem_bytes<double>(), out);
 }

@@ -64,6 +64,63 @@ __device__ __forceinline__ void cc_src(int dir, int n, int j, int i, int& sj,
   si = SI - 1 + H;
 }
 
+// fill_corners_bgrid (fv_mp_mod.F90:944-982, BGRID) as a source map: the
+// padded point (j, i) of a corner array (W x W) reads (sj, si) of the
+// array before the fill for direction dir (1 = x, 2 = y). Each direction
+// fills the whole 3 x 3 corner blocks from points outside them, so the
+// fill in y after the one in x reads what the y fill alone reads.
+__device__ __forceinline__ void bgrid_src(int dir, int n, int j, int i,
+                                          int& sj, int& si) {
+  const int npx = n + 1, npy = n + 1;
+  const int I = i - H + 1, J = j - H + 1;
+  const bool lo_i = I <= 0, hi_i = I >= npx + 1, lo_j = J <= 0,
+             hi_j = J >= npy + 1;
+  int SI = I, SJ = J;
+  if (dir == 1) {
+    if (lo_j && lo_i) { SJ = 2 - I; SI = J; }
+    else if (hi_j && lo_i) { SJ = npy - 1 + I; SI = npy + 1 - J; }
+    else if (lo_j && hi_i) { SJ = I - npx + 1; SI = npx + 1 - J; }
+    else if (hi_j && hi_i) { SJ = npy + npx - I; SI = npx + J - npy; }
+  } else {
+    if (lo_j && lo_i) { SJ = I; SI = 2 - J; }
+    else if (hi_j && lo_i) { SJ = npy + 1 - I; SI = J - npy + 1; }
+    else if (lo_j && hi_i) { SJ = npx + 1 - I; SI = npx - 3 - J; }
+    else if (hi_j && hi_i) { SJ = npy + I - npx; SI = npx + J - npy - 4; }
+  }
+  sj = SJ - 1 + H;
+  si = SI - 1 + H;
+}
+
+// fill_corners_dgrid_vector (fv_mp_mod.F90:1249-1281, sign -1) as a source
+// map: the padded point (j, i) of the y-wall array [W, P] (ywall true) or
+// of the x-wall array [P, W] takes the returned sign (+-1) times (sj, si)
+// of the other array before the fill; 0 where the point is not filled.
+// Neither fill reads a point the other writes.
+__device__ __forceinline__ int dgrid_src(bool ywall, int n, int j, int i,
+                                         int& sj, int& si) {
+  const int npx = n + 1, npy = n + 1;
+  const int I = i - H + 1, J = j - H + 1;
+  int s = 0, SI = I, SJ = J;
+  if (ywall) {
+    if (J <= 0 && I <= 0) { s = -1; SJ = 1 - I; SI = J; }
+    else if (J >= npy + 1 && I <= 0) { s = 1; SJ = npy - 1 + I; SI = npy + 1 - J; }
+    else if (J <= 0 && I >= npx) { s = 1; SJ = 1 + I - npx; SI = npx + 1 - J; }
+    else if (J >= npy + 1 && I >= npx) {
+      s = -1; SJ = npy + npx - 1 - I; SI = npx + J - npy;
+    }
+  } else {
+    if (J <= 0 && I <= 0) { s = -1; SJ = I; SI = 1 - J; }
+    else if (J >= npy && I <= 0) { s = 1; SJ = npy + 1 - I; SI = J - npy + 1; }
+    else if (J <= 0 && I >= npx + 1) { s = 1; SJ = npx + 1 - I; SI = npx - 1 + J; }
+    else if (J >= npy && I >= npx + 1) {
+      s = -1; SJ = npy + I - npx; SI = npx - J + npy - 1;
+    }
+  }
+  sj = SJ - 1 + H;
+  si = SI - 1 + H;
+  return s;
+}
+
 // fill_4corners_cell (sw_core.F90 fill_4corners) as a source map on the
 // padded cell array: two cells at each cube corner read an in-tile cell.
 __device__ __forceinline__ void f4_src(int dir, int npx, int j, int i,

@@ -12,11 +12,23 @@
 // same expressions in the same order, so they round alike.
 // Every branch is a select on values, never a multiply by a mask, so NaN
 // held in a cube-corner halo stays where the plain PyTorch versions put it.
+//
+// The GEN template flag selects the whole of tp_core.xppm: every iord in
+// [-6, -1] and [1, 13] (the linear family 1-6 with its negatives, which
+// clamp the interface values at 0, -5 adding the positive-definite fix;
+// the monotone and positive-definite family 7-13) and lim_fac. Without it
+// the code takes only iord 5, 6, 8 and 10 (the path's usual values) and
+// compiles to the smaller body those need. The kernels pick the form per
+// launch from their arguments.
 
 #pragma once
 #include <cuda_runtime.h>
 
 namespace fv {
+
+// a hord of the smaller form of the kernels that take a GEN flag: the
+// path's usual ones (with lim_fac 1)
+inline bool usual_hord(int h) { return h == 5 || h == 6 || h == 8 || h == 10; }
 
 template <typename T> __device__ __forceinline__ T sgn(T x) {
   return T((x > T(0)) - (x < T(0)));
@@ -24,8 +36,22 @@ template <typename T> __device__ __forceinline__ T sgn(T x) {
 
 template <typename T> struct PpmCell {
   T bl, br;
-  bool smt;   // the linear family's smoothness test (iord 5, 6)
+  // the linear family's smoothness test (smt5 of iord 1-6) or iord 7's
+  // bl * br < 0, and the linear family's second test (smt6 of iord 3, 4)
+  bool smt;
+  bool smt6;
 };
+
+// torch.clamp_min(x, 0): NaN stays NaN
+template <typename T> __device__ __forceinline__ T clamp0(T x) {
+  return x < T(0) ? T(0) : x;
+}
+
+// where(a == 0, 1, a): the guard of a division whose result is discarded
+// where a == 0 (tp_core._nz)
+template <typename T> __device__ __forceinline__ T nz(T a) {
+  return a == T(0) ? T(1) : a;
+}
 
 // tp_core's edge extrapolation from cells m2, m2+1 | m2+2, m2+3
 template <typename T, typename QF, typename DF>
@@ -62,21 +88,25 @@ __device__ __forceinline__ T ppm_dm(QF Q, int c) {
   return sgn(xt) * fmin(fmin(fabs(xt), dmax), dmin);
 }
 
-// bl, br (and smt) of cell `cell` of a line for tp_core.xppm (iord 5, 6,
-// 8, 10; cube edge stencils on), n compute cells: Q(c), DX(c) give cell
-// c's value and width (c in [cell - 3, cell + 3] as the cell needs), DM(c)
-// the monotone family's slopes of cells cell - 1 .. cell + 1 and AL(wa) the
-// linear family's interface values at the cell's walls. EDGE false: the
-// caller knows the cell lies in [2, n - 3], away from the face edges.
-template <typename T, bool EDGE = true, typename QF, typename DF,
-          typename MF, typename AF>
+// bl, br (and the smoothness tests) of cell `cell` of a line for
+// tp_core.xppm (cube edge stencils on), n compute cells: Q(c), DX(c) give
+// cell c's value and width (c in [cell - 3, cell + 3] as the cell needs),
+// DM(c) the monotone family's slopes of cells cell - 1 .. cell + 1 and
+// AL(wa) the linear family's interface values at the cell's walls; lim is
+// lim_fac (read by iord +-1 only). EDGE false: the caller knows the cell
+// lies in [2, n - 3], away from the face edges. GEN false: iord 5, 6, 8
+// or 10 only.
+template <typename T, bool EDGE = true, bool GEN = false, typename QF,
+          typename DF, typename MF, typename AF>
 __device__ __forceinline__ PpmCell<T> ppm_edges(QF Q, DF DX, MF DM, AF AL_lin,
-                                                int cell, int n, int iord) {
+                                                int cell, int n, int iord,
+                                                T lim = T(1)) {
   const T S11 = T(11.0 / 14.0), S14 = T(4.0 / 7.0), S15 = T(3.0 / 14.0);
-  const T R3 = T(1.0 / 3.0);
+  const T R3 = T(1.0 / 3.0), R12 = T(1.0 / 12.0);
   PpmCell<T> out;
+  out.smt6 = false;
   const T qc = Q(cell);
-  if (iord < 7) {
+  if (iord < 7 && !GEN) {
     const T l = AL_lin(cell) - qc, r = AL_lin(cell + 1) - qc;
     const T b0 = l + r;
     bool sm;
@@ -91,7 +121,46 @@ __device__ __forceinline__ PpmCell<T> ppm_edges(QF Q, DF DX, MF DM, AF AL_lin,
     out.smt = sm;
     return out;
   }
-  // monotone family (iord 8, 10)
+  if (iord < 7) {  // the linear family, every iord (tp_core.xppm:155-203)
+    T al_l = AL_lin(cell), al_r = AL_lin(cell + 1);
+    if (iord < 0) {
+      al_l = clamp0(al_l);
+      al_r = clamp0(al_r);
+    }
+    T l = al_l - qc, r = al_r - qc;
+    const T b0 = l + r;
+    const int mord = iord < 0 ? -iord : iord;
+    bool s5, s6 = false;
+    if (mord == 1) {
+      s5 = fabs(lim * b0) < fabs(l - r);
+    } else if (mord == 2) {
+      s5 = true;
+    } else if (mord == 3 || mord == 4) {
+      s5 = fabs(b0) < fabs(l - r);
+      s6 = T(3) * fabs(b0) < fabs(l - r);
+    } else {
+      s5 = mord == 5 ? l * r < T(0) : T(3) * fabs(b0) < fabs(l - r);
+      if (iord == -5) {  // the positive-definite fix
+        const T da1 = r - l, a4 = T(-3) * b0;
+        const bool cond = fabs(da1) < -a4
+            && (qc + T(0.25) / nz(a4) * (da1 * da1)) + a4 * R12 < T(0);
+        if (cond) {
+          const T ln = !s5 ? T(0) : (da1 > T(0) ? l : T(-2) * r);
+          const T rn = !s5 ? T(0) : (da1 > T(0) ? T(-2) * l : r);
+          l = ln;
+          r = rn;
+        }
+      }
+      if (EDGE && (cell == -1 || cell == 0 || cell == n - 1 || cell == n))
+        s5 = l * r < T(0);
+    }
+    out.bl = l;
+    out.br = r;
+    out.smt = s5;
+    out.smt6 = s6;
+    return out;
+  }
+  // monotone and positive-definite family
   auto AL = [&](int wa) -> T {
     return T(0.5) * (Q(wa - 1) + Q(wa)) + R3 * (DM(wa - 1) - DM(wa));
   };
@@ -148,6 +217,33 @@ __device__ __forceinline__ PpmCell<T> ppm_edges(QF Q, DF DX, MF DM, AF AL_lin,
     T xt2 = T(2) * DM(cell);
     l = -sgn(xt2) * fmin(fabs(xt2), fabs(AL(cell) - qc));
     r = sgn(xt2) * fmin(fabs(xt2), fabs(AL(cell + 1) - qc));
+  } else if (GEN && iord == 11) {
+    T xt2 = T(1.5) * DM(cell);
+    l = -sgn(xt2) * fmin(fabs(xt2), fabs(AL(cell) - qc));
+    r = sgn(xt2) * fmin(fabs(xt2), fabs(AL(cell + 1) - qc));
+  } else if (GEN && (iord == 7 || iord == 12)) {
+    l = AL(cell) - qc;
+    r = AL(cell + 1) - qc;
+    const T a4 = T(-3) * (l + r), da1 = r - l;
+    const bool ext5 = r * l > T(0), ext6 = fabs(da1) < -a4;
+    const T fm = (qc + T(0.25) / nz(a4) * (da1 * da1)) + a4 * R12;
+    if (ext6 && fm < T(0)) {
+      const T rn = ext5 ? T(0) : (da1 > T(0) ? T(-2) * l : r);
+      const T ln = ext5 ? T(0) : (da1 > T(0) ? l : T(-2) * r);
+      l = ln;
+      r = rn;
+    }
+  } else if (GEN && iord != 10) {  // 9, 13: pert_ppm's positive-definite
+    l = AL(cell) - qc;              // constraint (iv = 0)
+    r = AL(cell + 1) - qc;
+    const T a4 = T(-3) * (r + l), da1 = r - l;
+    const T fm = (qc + T(0.25) / nz(a4) * da1 * da1) + a4 * R12;
+    const bool need = fabs(da1) < -a4 && fm < T(0) && qc > T(0);
+    const bool both = r > T(0) && l > T(0);
+    const T rn = both ? T(0) : (da1 > T(0) ? T(-2) * l : r);
+    const T ln = both ? T(0) : (da1 > T(0) ? l : T(-2) * r);
+    l = need ? ln : (qc <= T(0) ? T(0) : l);
+    r = need ? rn : (qc <= T(0) ? T(0) : r);
   } else {  // 10
     l = AL(cell) - qc;
     r = AL(cell + 1) - qc;
@@ -167,38 +263,48 @@ __device__ __forceinline__ PpmCell<T> ppm_edges(QF Q, DF DX, MF DM, AF AL_lin,
   }
   out.bl = l;
   out.br = r;
-  out.smt = false;
+  out.smt = GEN && iord == 7 && l * r < T(0);
   return out;
 }
 
 // bl, br of cell `cell` of a line held in memory: qp / dp point at the
 // cell, element k * qs (k * ds) is cell + k. The fused stage kernels' form.
-template <typename T>
+template <typename T, bool GEN = false>
 __device__ __forceinline__ PpmCell<T> ppm_cell(const T* __restrict__ qp,
                                                int qs,
                                                const T* __restrict__ dp,
                                                int ds, int cell, int n,
-                                               int iord) {
+                                               int iord, T lim = T(1)) {
   auto Q = [&](int c) -> T { return qp[(c - cell) * qs]; };
   auto DX = [&](int c) -> T { return dp[(c - cell) * ds]; };
   auto DM = [&](int c) -> T { return ppm_dm<T>(Q, c); };
   auto AL = [&](int wa) -> T { return ppm_al<T>(Q, DX, wa, n); };
-  return ppm_edges<T>(Q, DX, DM, AL, cell, n, iord);
+  return ppm_edges<T, true, GEN>(Q, DX, DM, AL, cell, n, iord, lim);
 }
 
 // The xppm flux at a wall from its left cell (value qL, edge values L) and
 // right cell (qR, R), Courant number c.
-template <typename T>
+template <typename T, bool GEN = false>
 __device__ __forceinline__ T ppm_combine(T qL, T qR, const PpmCell<T>& L,
                                          const PpmCell<T>& R, T c,
                                          int iord) {
   const bool cpos = c > T(0);
   const T b0L = L.bl + L.br, b0R = R.bl + R.br;
-  if (iord < 7) {
+  if (iord < 7 || (GEN && iord == 7)) {
     T fx1 = cpos ? (T(1) - c) * (L.br - c * b0L)
                  : (T(1) + c) * (R.bl + c * b0R);
     T low = cpos ? qL : qR;
-    return low + ((L.smt || R.smt) ? fx1 : T(0));
+    bool add = L.smt || R.smt;   // iord 1, 5, 6, 7
+    if (GEN) {
+      const int mord = iord < 0 ? -iord : iord;
+      if (mord == 2)
+        add = true;
+      else if (mord == 3)
+        add = cpos ? (L.smt || R.smt6) : (L.smt6 || R.smt);
+      else if (mord == 4)
+        add = (L.smt && R.smt) || (L.smt6 || R.smt6);
+    }
+    return low + (add ? fx1 : T(0));
   }
   return cpos ? qL + (T(1) - c) * (L.br - c * b0L)
               : qR + (T(1) + c) * (R.bl + c * b0R);
@@ -233,7 +339,7 @@ __device__ PpmCell<T> xtp_cell(const Line<T>& L, int C, int npx, int iord,
   const T C1 = T(-2.0 / 14.0), C2 = T(11.0 / 14.0), C3 = T(5.0 / 14.0);
   const T S11 = T(11.0 / 14.0), S14 = T(4.0 / 7.0), S15 = T(3.0 / 14.0);
   const T R3 = T(1.0 / 3.0);
-  PpmCell<T> out{T(0), T(0), false};
+  PpmCell<T> out{T(0), T(0), false, false};
   const int nc = L.nc;
   if (C < xf(0) || C > xf(npx)) return out;
   auto u = [&](int i) { return L.U(xf(i)); };

@@ -269,23 +269,26 @@ template <typename T> struct SweepWork {
   unsigned char *fly, *flx;
 };
 
-template <typename T>
+// a cell's edge values and its smoothness flags (bit 0 smt, bit 1 smt6;
+// GEN false: smt only)
+template <typename T, bool GEN = false>
 __device__ __forceinline__ PpmCell<T> cell_at(const T* bl, const T* br,
                                               const unsigned char* fl,
                                               int o) {
   PpmCell<T> c;
   c.bl = bl[o];
   c.br = br[o];
-  c.smt = fl[o] != 0;
+  c.smt = GEN ? (fl[o] & 1) != 0 : fl[o] != 0;
+  c.smt6 = GEN && (fl[o] & 2) != 0;
   return c;
 }
 
-template <typename T>
+template <typename T, bool GEN = false>
 __device__ __forceinline__ void put_cell(T* bl, T* br, unsigned char* fl,
                                          int o, const PpmCell<T>& c) {
   bl[o] = c.bl;
   br[o] = c.br;
-  fl[o] = c.smt ? 1 : 0;
+  fl[o] = GEN ? (c.smt ? 1 : 0) | (c.smt6 ? 2 : 0) : (c.smt ? 1 : 0);
 }
 
 // fv_tp_2d's double sweep (tp2d_sweep_kernel's arithmetic) of q on one
@@ -301,12 +304,12 @@ __device__ __forceinline__ void put_cell(T* bl, T* br, unsigned char* fl,
 // [0, tx + 6), q_j on [0, ty + 6) x box columns; the outer sweeps' cells
 // one beyond the box on each side of the swept axis. Each cell's edge
 // values are evaluated once per line, then combined per wall.
-template <typename T, int TY, int TX>
+template <typename T, int TY, int TX, bool GEN = false>
 __device__ void tile_sweep(const Tile& tl, const T* q, const T* area,
                            const T* dxa, const T* dya, const T* rax,
                            const T* ray, const T* crx, const T* xfx,
                            const T* cry, const T* yfx, const T* mfx,
-                           const T* mfy, int ord_in, int ord_ou,
+                           const T* mfy, int ord_in, int ord_ou, T lim,
                            const SweepWork<T>& w, T* gx, T* gy) {
   constexpr int S = win_stride<TX>();
   const int n = tl.n, ty = tl.ty, tx = tl.tx, j0 = tl.j0, i0 = tl.i0;
@@ -329,11 +332,11 @@ __device__ void tile_sweep(const Tile& tl, const T* q, const T* area,
         lc += 2;
       }
       const int o = lr * S + lc;
-      const PpmCell<T> c = ppm_cell(
+      const PpmCell<T> c = ppm_cell<T, GEN>(
           (ydir ? w.qy : w.qx) + o, ydir ? S : 1, (ydir ? dya : dxa) + o,
-          ydir ? S : 1, ydir ? j0 + lr - 3 : i0 + lc - 3, n, ord_in);
-      put_cell(ydir ? w.bly : w.blx, ydir ? w.bry : w.brx,
-               ydir ? w.fly : w.flx, o, c);
+          ydir ? S : 1, ydir ? j0 + lr - 3 : i0 + lc - 3, n, ord_in, lim);
+      put_cell<T, GEN>(ydir ? w.bly : w.blx, ydir ? w.bry : w.brx,
+                       ydir ? w.fly : w.flx, o, c);
     }
   }
   __syncthreads();
@@ -358,9 +361,9 @@ __device__ void tile_sweep(const Tile& tl, const T* q, const T* area,
       const T* bl = ydir ? w.bly : w.blx;
       const T* br = ydir ? w.bry : w.brx;
       const unsigned char* fl = ydir ? w.fly : w.flx;
-      (ydir ? w.fy2 : w.fx2)[a0 * S + a1] = ppm_combine(
-          qd[oL], qd[oR], cell_at(bl, br, fl, oL), cell_at(bl, br, fl, oR),
-          (ydir ? cry : crx)[oR], ord_in);
+      (ydir ? w.fy2 : w.fx2)[a0 * S + a1] = ppm_combine<T, GEN>(
+          qd[oL], qd[oR], cell_at<T, GEN>(bl, br, fl, oL),
+          cell_at<T, GEN>(bl, br, fl, oR), (ydir ? cry : crx)[oR], ord_in);
     }
   }
   __syncthreads();
@@ -400,12 +403,12 @@ __device__ void tile_sweep(const Tile& tl, const T* q, const T* area,
         lr += 2;
       }
       const int o = lr * S + lc;
-      const PpmCell<T> c = ppm_cell(
+      const PpmCell<T> c = ppm_cell<T, GEN>(
           (xdir ? w.qi : w.qj) + o, xdir ? 1 : S,
           xdir ? dxa + (lr + 3) * S + lc : dya + o + 3, xdir ? 1 : S,
-          xdir ? i0 + lc - 3 : j0 + lr - 3, n, ord_ou);
-      put_cell(xdir ? w.blx : w.bly, xdir ? w.brx : w.bry,
-               xdir ? w.flx : w.fly, o, c);
+          xdir ? i0 + lc - 3 : j0 + lr - 3, n, ord_ou, lim);
+      put_cell<T, GEN>(xdir ? w.blx : w.bly, xdir ? w.brx : w.bry,
+                       xdir ? w.flx : w.fly, o, c);
     }
   }
   __syncthreads();
@@ -433,9 +436,9 @@ __device__ void tile_sweep(const Tile& tl, const T* q, const T* area,
       const T* bl = xdir ? w.blx : w.bly;
       const T* br = xdir ? w.brx : w.bry;
       const unsigned char* fl = xdir ? w.flx : w.fly;
-      const T fo = ppm_combine(qd[oL], qd[oR], cell_at(bl, br, fl, oL),
-                               cell_at(bl, br, fl, oR),
-                               (xdir ? crx : cry)[oc], ord_ou);
+      const T fo = ppm_combine<T, GEN>(
+          qd[oL], qd[oR], cell_at<T, GEN>(bl, br, fl, oL),
+          cell_at<T, GEN>(bl, br, fl, oR), (xdir ? crx : cry)[oc], ord_ou);
       const T* mf = xdir ? mfx : mfy;
       const T m = mf != nullptr ? mf[a0 * S + a1] : (xdir ? xfx : yfx)[oc];
       (xdir ? gx : gy)[a0 * S + a1] =
@@ -490,8 +493,61 @@ template <typename T, int TY, int TX> struct Deln {
                           - fy0(lr + 1, lc)) * rarea[lr * S + lc];
     }
   }
+  // a plane p (a del-n pass's d2) at (lr, lc) after copy_corners(p, dir)
+  __device__ T pcc(const T* p, int dir, int lr, int lc) const {
+    if (!corner) return p[lr * win_stride<TX>() + lc];
+    int sj, si;
+    cc_src(dir, tl->n, tl->j0 + lr, tl->i0 + lc, sj, si);
+    return p[wix<TY, TX>(sj - tl->j0, si - tl->i0)];
+  }
+  // one pass of the del-n operator on the cells of the box and `ring`
+  // rings around it: out = the divergence of the fluxes of the operand
+  // (src null: the first pass, sign -1) or of the pass before (src: its
+  // d2, sign +1), each through copy_corners, times rarea. nord 2 runs a
+  // pass on 2 rings, then one on 1 ring from it (FV3 needs ng >= nord + 1:
+  // the 3-cell window holds the second ring's stencil).
+  __device__ void pass(const T* src, T* out, int ring) const {
+    constexpr int S = win_stride<TX>();
+    const int lo = 3 - ring;
+    const int rows = tl->ty + 2 * ring, cols = tl->tx + 2 * ring;
+    const T s = src == nullptr ? T(-1.0) : T(1.0);
+    auto v1 = [&](int lr, int lc) {
+      return src == nullptr ? acc(1, lr, lc) : pcc(src, 1, lr, lc);
+    };
+    auto v2 = [&](int lr, int lc) {
+      return src == nullptr ? acc(2, lr, lc) : pcc(src, 2, lr, lc);
+    };
+    auto fxp = [&](int lr, int lc) {
+      return del6_v[lr * S + lc] * s * (v1(lr, lc) - v1(lr, lc - 1));
+    };
+    auto fyp = [&](int lr, int lc) {
+      return del6_u[lr * S + lc] * s * (v2(lr, lc) - v2(lr - 1, lc));
+    };
+    const Div dc(cols);
+    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+      int lr, lc;
+      dc.split(e, lr, lc);
+      lr += lo;
+      lc += lo;
+      out[lr * S + lc] = (fxp(lr, lc) - fxp(lr, lc + 1) + fyp(lr, lc)
+                          - fyp(lr + 1, lc)) * rarea[lr * S + lc];
+    }
+  }
+  // the last d2 of a nord 1 or 2 operator into `out` (nord 2: its first
+  // pass in `tmp`); ends with a barrier
+  __device__ void chain(int nord, T* tmp, T* out) const {
+    if (nord == 1) {
+      d2(out);
+    } else {
+      pass(nullptr, tmp, 2);
+      __syncthreads();
+      pass(tmp, out, 1);
+    }
+    __syncthreads();
+  }
   // the damping flux on the box's x-wall (box row lq, wall lw) and y-wall
-  // (wall lw, box column lq): nord 0 from the operand, nord 1 from d2
+  // (wall lw, box column lq): nord 0 from the operand, nord 1 and 2 from
+  // the last d2 of the chain
   __device__ T fx(int nord, const T* d2p, int lq, int lw) const {
     constexpr int S = win_stride<TX>();
     const int lr = lq + 3, lc = lw + 3, o = lr * S + lc;

@@ -145,6 +145,7 @@ __device__ __forceinline__ fv::PpmCell<T> shfl_down(const fv::PpmCell<T>& c) {
   o.bl = __shfl_down_sync(0xffffffffu, c.bl, 1);
   o.br = __shfl_down_sync(0xffffffffu, c.br, 1);
   o.smt = __shfl_down_sync(0xffffffffu, (int)c.smt, 1) != 0;
+  o.smt6 = false;   // xtp_u has no second test
   return o;
 }
 

@@ -41,6 +41,11 @@
 // limiter branch is a select on values, so NaN held in the cube-corner halo
 // of a metric cannot leak. Built with --fmad=false: bit-exact with the
 // plain version (ops/tp_sweep.py tp2d_sweep_ref).
+//
+// Two forms (the GEN template flag, fv_ppm.cuh): the path's usual hords
+// (5, 6, 8, 10) at lim_fac 1 in the smaller body they need (the launch
+// bounds hold it to 64 registers a thread), and every hord and lim_fac of
+// tp_core.xppm. A launch takes the form its arguments need.
 
 #include "fv_tile.cuh"
 
@@ -69,6 +74,7 @@ template <typename T> struct TpArgs {
   T* fx;                    // [6, T, K, n, n + 1]
   T* fy;                    // [6, T, K, n + 1, n]
   int n, nt, K, ntx, nty, ord_in, ord_ou, kl;
+  double lim;               // lim_fac
 };
 
 // the part of operand b's window the sweeps read: local rows [r0, r1) x
@@ -106,12 +112,12 @@ template <typename T> __device__ __forceinline__ T down(T v, int d) {
 // cell per lane (lane l + 1 holds the cell right of lane l's): q0 the
 // lane's cell value, dxp its width (element k * ds is the cell k to its
 // right; read at the face edges only), cell its index along the line (n
-// compute cells), c the Courant number at the wall. fv_ppm.cuh's
+// compute cells), c the Courant number at the wall, lim lim_fac. fv_ppm.cuh's
 // ppm_edges and ppm_combine: the slope and edge values of each cell once,
 // the left cell's by shuffles. Every lane of the warp calls it.
-template <typename T, bool EDGE>
+template <typename T, bool EDGE, bool GEN>
 __device__ __forceinline__ T lane_flux(T q0, const T* dxp, int ds, int cell,
-                                       int n, T c, int iord) {
+                                       int n, T c, int iord, T lim) {
   const T qm1 = up(q0, 1), qm2 = up(q0, 2);
   const T qp1 = down(q0, 1), qp2 = down(q0, 2);
   auto Q = [&](int cc) -> T {
@@ -130,15 +136,23 @@ __device__ __forceinline__ T lane_flux(T q0, const T* dxp, int ds, int cell,
   };
   auto DX = [&](int cc) -> T { return dxp[(cc - cell) * ds]; };
   auto AL = [&](int wa) -> T { return fv::ppm_al<T, EDGE>(Q, DX, wa, n); };
-  const PpmCell<T> R = fv::ppm_edges<T, EDGE>(Q, DX, DM, AL, cell, n, iord);
+  const PpmCell<T> R =
+      fv::ppm_edges<T, EDGE, GEN>(Q, DX, DM, AL, cell, n, iord, lim);
   PpmCell<T> L;
   L.bl = up(R.bl, 1);
   L.br = up(R.br, 1);
-  L.smt = up((int)R.smt, 1) != 0;
-  return fv::ppm_combine(qm1, q0, L, R, c, iord);
+  if (GEN) {
+    const int fl = up((R.smt ? 1 : 0) | (R.smt6 ? 2 : 0), 1);
+    L.smt = (fl & 1) != 0;
+    L.smt6 = (fl & 2) != 0;
+  } else {
+    L.smt = up((int)R.smt, 1) != 0;
+    L.smt6 = false;
+  }
+  return fv::ppm_combine<T, GEN>(qm1, q0, L, R, c, iord);
 }
 
-template <typename T, int TY, int TX>
+template <typename T, int TY, int TX, bool GEN>
 __global__ void __launch_bounds__(NT, MINB) tp2d_sweep_kernel(TpArgs<T> a) {
   constexpr size_t WIN = fv::win_elems<TY, TX>();
   constexpr int S = fv::win_stride<TX>();
@@ -166,6 +180,7 @@ __global__ void __launch_bounds__(NT, MINB) tp2d_sweep_kernel(TpArgs<T> a) {
   const int n = tl.n, ty = tl.ty, tx = tl.tx, j0 = tl.j0, i0 = tl.i0;
   const int faces = tl.kl * a.nt;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T lim = T(a.lim);
 
   // operand b of face (level k, tracer tr) into dst
   auto load = [&](int b, int k, int tr, T* dst) {
@@ -240,10 +255,10 @@ __global__ void __launch_bounds__(NT, MINB) tp2d_sweep_kernel(TpArgs<T> a) {
         const T qv = in ? qcc(q, 2, lr, lc) : T(0);
         const T cw = lr >= 3 && lr <= ty + 3 ? cry[o] : T(0);
         const T fl = yint
-            ? lane_flux<T, false>(qv, dya + o, S, j0 + lr - 3, n, cw,
-                                  a.ord_in)
-            : lane_flux<T, true>(qv, dya + o, S, j0 + lr - 3, n, cw,
-                                 a.ord_in);
+            ? lane_flux<T, false, GEN>(qv, dya + o, S, j0 + lr - 3, n, cw,
+                                  a.ord_in, lim)
+            : lane_flux<T, true, GEN>(qv, dya + o, S, j0 + lr - 3, n, cw,
+                                 a.ord_in, lim);
         const T fr = down(fl, 1);
         if (lr >= 3 && lr < ty + 3) {
           const T f0 = yfx[o] * fl;
@@ -259,10 +274,10 @@ __global__ void __launch_bounds__(NT, MINB) tp2d_sweep_kernel(TpArgs<T> a) {
         const T qv = in ? qcc(q, 1, lr, lc) : T(0);
         const T cw = lc >= 3 && lc <= tx + 3 ? crx[o] : T(0);
         const T fl = xint
-            ? lane_flux<T, false>(qv, dxa + o, 1, i0 + lc - 3, n, cw,
-                                  a.ord_in)
-            : lane_flux<T, true>(qv, dxa + o, 1, i0 + lc - 3, n, cw,
-                                 a.ord_in);
+            ? lane_flux<T, false, GEN>(qv, dxa + o, 1, i0 + lc - 3, n, cw,
+                                  a.ord_in, lim)
+            : lane_flux<T, true, GEN>(qv, dxa + o, 1, i0 + lc - 3, n, cw,
+                                 a.ord_in, lim);
         const T fr = down(fl, 1);
         if (lc >= 3 && lc < tx + 3) {
           const T f0 = xfx[o] * fl;
@@ -293,10 +308,10 @@ __global__ void __launch_bounds__(NT, MINB) tp2d_sweep_kernel(TpArgs<T> a) {
         const bool wall = lc >= 3 && lc <= tx + 3;
         const T cw = wall ? crx[o] : T(0);
         const T fo = xint
-            ? lane_flux<T, false>(qv, dxa + o, 1, i0 + lc - 3, n, cw,
-                                  a.ord_ou)
-            : lane_flux<T, true>(qv, dxa + o, 1, i0 + lc - 3, n, cw,
-                                 a.ord_ou);
+            ? lane_flux<T, false, GEN>(qv, dxa + o, 1, i0 + lc - 3, n, cw,
+                                  a.ord_ou, lim)
+            : lane_flux<T, true, GEN>(qv, dxa + o, 1, i0 + lc - 3, n, cw,
+                                 a.ord_ou, lim);
         const int lw = lc - 3;
         if (wall && lw < wx) {
           const T m = mf ? mfx[(j0 + lq) * a.st[MFX][3]
@@ -312,10 +327,10 @@ __global__ void __launch_bounds__(NT, MINB) tp2d_sweep_kernel(TpArgs<T> a) {
         const bool wall = lr >= 3 && lr <= ty + 3;
         const T cw = wall ? cry[o] : T(0);
         const T fo = yint
-            ? lane_flux<T, false>(qv, dya + o, S, j0 + lr - 3, n, cw,
-                                  a.ord_ou)
-            : lane_flux<T, true>(qv, dya + o, S, j0 + lr - 3, n, cw,
-                                 a.ord_ou);
+            ? lane_flux<T, false, GEN>(qv, dya + o, S, j0 + lr - 3, n, cw,
+                                  a.ord_ou, lim)
+            : lane_flux<T, true, GEN>(qv, dya + o, S, j0 + lr - 3, n, cw,
+                                 a.ord_ou, lim);
         const int lw = lr - 3;
         if (wall) {  // (times mfy where the fluxes are written)
           const T h = T(0.5) * (fo + fy2[lw * S + lq]);
@@ -353,13 +368,15 @@ template <typename T> constexpr size_t smem_bytes() {
          * sizeof(T);
 }
 
-template <typename T> auto kernel_of() {
-  return tp2d_sweep_kernel<T, Box<T>::TY, Box<T>::TX>;
+template <typename T> auto kernel_of(bool gen) {
+  return gen ? tp2d_sweep_kernel<T, Box<T>::TY, Box<T>::TX, true>
+             : tp2d_sweep_kernel<T, Box<T>::TY, Box<T>::TX, false>;
 }
+
 
 template <typename T>
 int run(const void* const* in, const long long* strides, void* fx, void* fy,
-        const int* iv, cudaStream_t s) {
+        const int* iv, double lim, cudaStream_t s) {
   // iv: n, T, K, ntx, nty, ord_in, ord_ou, levels per block, then the
   // wrapper's box TX, TY and shared-memory bytes, which must be this
   // instantiation's
@@ -378,11 +395,13 @@ int run(const void* const* in, const long long* strides, void* fx, void* fy,
   a.ord_in = iv[5];
   a.ord_ou = iv[6];
   a.kl = iv[7];
+  a.lim = lim;
   const size_t bytes = smem_bytes<T>();
   if (iv[8] != Box<T>::TX || iv[9] != Box<T>::TY || (size_t)iv[10] != bytes
       || a.kl < 1)
     return (int)cudaErrorInvalidValue;
-  auto kern = kernel_of<T>();
+  auto kern = kernel_of<T>(!fv::usual_hord(a.ord_in)
+                           || !fv::usual_hord(a.ord_ou) || lim != 1.0);
   cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (rc != cudaSuccess) return (int)rc;
@@ -392,8 +411,8 @@ int run(const void* const* in, const long long* strides, void* fx, void* fy,
   return (int)cudaGetLastError();
 }
 
-template <typename T> int attrs(int* out) {
-  return fv::kernel_attrs(kernel_of<T>(), NT, smem_bytes<T>(), out);
+template <typename T> int attrs(bool gen, int* out) {
+  return fv::kernel_attrs(kernel_of<T>(gen), NT, smem_bytes<T>(), out);
 }
 
 }  // namespace
@@ -406,20 +425,21 @@ template <typename T> int attrs(int* out) {
 // area / dxa / dya [., P, P], ra_x [., P, n], ra_y [., n, P], mfx [., n,
 // n+1], mfy [., n+1, n]. fx, fy: contiguous [6, T, K, n, n+1] / [6, T, K,
 // n+1, n]. iv: n, T, K, boxes along x and y, ord_in, ord_ou, levels per
-// block, box TX, TY, shared-memory bytes. dtype 0 = float32, 1 = float64.
-// Returns a cudaError_t code.
+// block, box TX, TY, shared-memory bytes; lim: lim_fac. dtype 0 =
+// float32, 1 = float64. Returns a cudaError_t code.
 extern "C" int tp2d_sweep(const void* const* in, const long long* strides,
-                          void* fx, void* fy, const int* iv, int dtype,
-                          void* stream) {
+                          void* fx, void* fy, const int* iv, double lim,
+                          int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(in, strides, fx, fy, iv, s);
-  return run<double>(in, strides, fx, fy, iv, s);
+  if (dtype == 0) return run<float>(in, strides, fx, fy, iv, lim, s);
+  return run<double>(in, strides, fx, fy, iv, lim, s);
 }
 
-// The kernel's resources (fv_tile.cuh kernel_attrs): registers, local
-// (spill) bytes, static and dynamic shared memory, resident blocks per SM
-// and threads per block into out[0..5]. Returns a cudaError_t code.
-extern "C" int tp2d_sweep_attrs(int dtype, int* out) {
-  if (dtype == 0) return attrs<float>(out);
-  return attrs<double>(out);
+// The resources of the kernel's form gen (0: the usual hords, 1: every
+// hord; fv_tile.cuh kernel_attrs): registers, local (spill) bytes, static
+// and dynamic shared memory, resident blocks per SM and threads per block
+// into out[0..5]. Returns a cudaError_t code.
+extern "C" int tp2d_sweep_attrs(int gen, int dtype, int* out) {
+  if (dtype == 0) return attrs<float>(gen != 0, out);
+  return attrs<double>(gen != 0, out);
 }

@@ -41,6 +41,12 @@ from .tiles import box_starts, owned_ranges  # noqa: F401 (the plan)
 from .tp_sweep import KERNEL_HORDS as TP_HORDS, tp2d_sweep_ref
 
 H = 3
+#: the del-n orders each kernel takes, as sw_core.d_sw: the divergence
+#: damping's nord 0-3 and the del-n fluxes' nord_v, nord_w, nord_v2,
+#: nord_w2 0-2 (tp_core.deln_damp_fluxes is valid on the compute walls up
+#: to nord 2 with a 3-cell halo)
+KERNEL_NORDS = (0, 1, 2, 3)
+KERNEL_DELN_NORDS = (0, 1, 2)
 #: metric planes of each stage, in the order the kernels take them (the
 #: TPU kernel's _METRICS_FLUX / _METRICS_WIND)
 FLUX_METRICS = (
@@ -238,10 +244,12 @@ def smem_bytes(stage, itemsize):
 def _fluxes_operands(delp, pt, w, uc, vc, g, *, dt, hord_dp, hord_tm,
                      hord_vt, nord_v, damp_v, damp_v2=None, nord_v2=0,
                      damp_w=0.0, nord_w=0, damp_w2=None, nord_w2=0,
-                     ke_bg=0.0, lim_fac=1.0):
+                     ke_bg=0.0, lim_fac=1.0, every=False):
     """The fluxes kernel's arguments: (fields, metric planes, outputs,
     per-level profiles, int and double parameters, the output namespace).
-    Raises ValueError for what the kernel does not take."""
+    every: launch the kernel's every-argument form whatever the arguments
+    (the same values; by default the form they need). Raises ValueError
+    for what the kernel does not take."""
     if delp.ndim != 4 or delp.shape[0] != 6:
         raise ValueError(f"d_sw fluxes kernel takes delp [6, K, P, P], got "
                          f"{tuple(delp.shape)}")
@@ -249,11 +257,11 @@ def _fluxes_operands(delp, pt, w, uc, vc, g, *, dt, hord_dp, hord_tm,
         if h not in TP_HORDS:
             raise ValueError(f"d_sw fluxes kernel supports hord {TP_HORDS}, "
                              f"not {h}")
-    if nord_v not in (0, 1) or nord_w not in (0, 1) or nord_v2 or nord_w2:
-        raise ValueError("d_sw fluxes kernel takes nord_v, nord_w in (0, 1) "
-                         "and nord_v2 = nord_w2 = 0")
-    if lim_fac != 1.0:
-        raise ValueError("d_sw fluxes kernel takes lim_fac = 1")
+    for nm, nd in (("nord_v", nord_v), ("nord_w", nord_w),
+                   ("nord_v2", nord_v2), ("nord_w2", nord_w2)):
+        if nd not in KERNEL_DELN_NORDS:
+            raise ValueError(f"d_sw fluxes kernel takes {nm} in "
+                             f"{KERNEL_DELN_NORDS}, not {nd}")
     K, P = delp.shape[1], delp.shape[-1]
     n = P - 2 * H
     W = n + 1 + 2 * H
@@ -268,9 +276,9 @@ def _fluxes_operands(delp, pt, w, uc, vc, g, *, dt, hord_dp, hord_tm,
     on_w = w is not None and sw_core._on(damp_w)
     on_w2 = w is not None and sw_core._on(damp_w2)
     prof = [_damp4(damp_v, g.da_min, nord_v, delp, K) if on_v else None,
-            _damp4(damp_v2, g.da_min, 0, delp, K) if on_v2 else None,
+            _damp4(damp_v2, g.da_min, nord_v2, delp, K) if on_v2 else None,
             _damp4(damp_w, g.da_min_c, nord_w, delp, K) if on_w else None,
-            _damp4(damp_w2, g.da_min_c, 0, delp, K) if on_w2 else None]
+            _damp4(damp_w2, g.da_min_c, nord_w2, delp, K) if on_w2 else None]
 
     def new(*s):
         return torch.empty((6, K) + s, dtype=delp.dtype, device=delp.device)
@@ -285,10 +293,10 @@ def _fluxes_operands(delp, pt, w, uc, vc, g, *, dt, hord_dp, hord_tm,
             out.xfx, out.yfx, out.ra_x, out.ra_y, out.ut, out.vt,
             out.heat_source]
     tx, ty, ntx, nty = tile_plan("fluxes", n, delp.element_size())
-    iv = (n, K, hord_dp, hord_vt, hord_tm, nord_v, nord_w, on_v, on_v2,
-          on_w, on_w2, ntx, nty, tx, ty,
+    iv = (n, K, hord_dp, hord_vt, hord_tm, nord_v, nord_w, nord_v2, nord_w2,
+          on_v, on_v2, on_w, on_w2, int(every), ntx, nty, tx, ty,
           smem_bytes("fluxes", delp.element_size()))
-    dv = (float(dt), float(ke_bg * abs(dt)))
+    dv = (float(dt), float(ke_bg * abs(dt)), float(lim_fac))
     return fields, mets, outs, prof, iv, dv, out
 
 
@@ -313,21 +321,24 @@ def _launch_fluxes(delp, pt, w, uc, vc, g, **kw):
 def _winds_operands(delp, u, v, uc, vc, ua, va, divg_d, vortS, heat_w,
                     seam, g, *, dt, hord_mt, hord_vt, nord, nord_v, dddmp,
                     d2_bg, d4_bg, damp_v, d_con=0.0, nord_mask=None,
-                    damp_v2=None, nord_v2=0, lim_fac=1.0):
+                    damp_v2=None, nord_v2=0, lim_fac=1.0, every=False):
     """The winds kernel's arguments: (inputs, metric planes, outputs,
     per-level profiles, int and double parameters, the output namespace).
-    Raises ValueError for what the kernel does not take."""
+    every: as _fluxes_operands'. Raises ValueError for what the kernel does
+    not take."""
     if delp.ndim != 4 or delp.shape[0] != 6:
         raise ValueError(f"d_sw winds kernel takes delp [6, K, P, P], got "
                          f"{tuple(delp.shape)}")
     if hord_mt not in KE_HORDS or hord_vt not in TP_HORDS:
         raise ValueError(f"d_sw winds kernel supports hord_mt {KE_HORDS} and "
                          f"hord_vt {TP_HORDS}, not {hord_mt}, {hord_vt}")
-    if nord not in (0, 1) or nord_v not in (0, 1) or nord_v2:
-        raise ValueError("d_sw winds kernel takes nord, nord_v in (0, 1) "
-                         "and nord_v2 = 0")
-    if lim_fac != 1.0:
-        raise ValueError("d_sw winds kernel takes lim_fac = 1")
+    if nord not in KERNEL_NORDS:
+        raise ValueError(f"d_sw winds kernel takes nord in {KERNEL_NORDS}, "
+                         f"not {nord}")
+    for nm, nd in (("nord_v", nord_v), ("nord_v2", nord_v2)):
+        if nd not in KERNEL_DELN_NORDS:
+            raise ValueError(f"d_sw winds kernel takes {nm} in "
+                             f"{KERNEL_DELN_NORDS}, not {nd}")
     K, P = delp.shape[1], delp.shape[-1]
     n = P - 2 * H
     m = n + 1
@@ -350,7 +361,7 @@ def _winds_operands(delp, u, v, uc, vc, ua, va, divg_d, vortS, heat_w,
     prof = [_level_profile(d2_bg, delp, K), _level_profile(d_con, delp, K),
             _level_profile(mask, delp, K) if mask is not None else None,
             _damp4(damp_v, g.da_min_c, nord_v, delp, K) if on_v else None,
-            _damp4(damp_v2, g.da_min_c, 0, delp, K) if on_v2 else None]
+            _damp4(damp_v2, g.da_min_c, nord_v2, delp, K) if on_v2 else None]
     dd8 = float((g.da_min_c * d4_bg) ** (nord + 1))
 
     def new(*s):
@@ -359,9 +370,10 @@ def _winds_operands(delp, u, v, uc, vc, ua, va, divg_d, vortS, heat_w,
     out = SimpleNamespace(u=new(m, n), v=new(n, m),
                           heat_source=new(n, n) if do_heat else None)
     tx, ty, ntx, nty = tile_plan("winds", n, delp.element_size())
-    iv = (n, K, hord_mt, hord_vt, nord_v, need0, needN, smag, do_heat, on_v,
-          on_v2, ntx, nty, tx, ty, smem_bytes("winds", delp.element_size()))
-    dv = (float(dt), float(dddmp), float(g.da_min_c), dd8)
+    iv = (n, K, hord_mt, hord_vt, nord, nord_v, nord_v2, need0, needN, smag,
+          do_heat, on_v, on_v2, int(every), ntx, nty, tx, ty,
+          smem_bytes("winds", delp.element_size()))
+    dv = (float(dt), float(dddmp), float(g.da_min_c), dd8, float(lim_fac))
     return (ins, mets, [out.u, out.v, out.heat_source], prof, iv, dv, out)
 
 

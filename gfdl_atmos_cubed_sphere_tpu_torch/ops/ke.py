@@ -29,7 +29,10 @@ import torch
 from . import _build
 from .sw_core import H, ke_section as ke_section_ref
 
-KERNEL_HORDS = (5, 6, 8, 9, 10)
+#: the hords sw_core.xtp_u takes with the kernels' (tp_sweep.KERNEL_HORDS):
+#: its linear family below 8 (iord 5 apart), 8, 9, 10 and the unlimited
+#: branch above
+KERNEL_HORDS = tuple(range(-6, 0)) + tuple(range(1, 14))
 #: corner columns of a warp strip and warps a block (csrc/ke_section.cu
 #: SPAN, WARPS), and corner rows of a warp strip
 SPAN, WARPS, ROWS = 31, 4, 2

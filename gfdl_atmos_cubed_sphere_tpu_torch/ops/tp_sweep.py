@@ -35,7 +35,11 @@ from .tp_core import xppm, yppm
 from ..parallel.halo import copy_corners
 
 H = 3
-KERNEL_HORDS = (5, 6, 8, 10)
+#: every hord tp_core.xppm has a branch for: the linear family 1-6 with its
+#: negatives, the monotone and positive-definite family 7-13 (hord 5, 6, 8
+#: and 10 at lim_fac 1 take the kernel's smaller form, csrc/fv_ppm.cuh
+#: usual_hord)
+KERNEL_HORDS = tuple(range(-6, 0)) + tuple(range(1, 14))
 #: the box (TX, TY) of compute cells a block owns, by element size
 #: (csrc/tp2d_sweep.cu Box): a window row or column (TX + 6, TY + 6 cells)
 #: fits the 32 lanes of a warp
@@ -112,7 +116,7 @@ def tp2d_sweep(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
         return tp2d_sweep_ref(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y,
                               dxa, dya, lim_fac=lim_fac, mfx=mfx, mfy=mfy)
     return _launch(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
-                   mfx, mfy)
+                   mfx, mfy, lim_fac)
 
 
 def frames(n):
@@ -190,12 +194,12 @@ def _entry():
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
 def _launch(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
-            mfx, mfy, for_fv_tp_2d=False):
+            mfx, mfy, lim_fac=1.0, for_fv_tp_2d=False):
     global launches, launches_rank5, launches_fv_tp_2d
     plan = launch_plan(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa,
                        dya, mfx, mfy)
@@ -205,7 +209,7 @@ def _launch(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
         (ctypes.c_void_p * 12)(
             *(None if a is None else a.data_ptr() for a in plan.ops)),
         (ctypes.c_longlong * 60)(*plan.strides), plan.fx.data_ptr(),
-        plan.fy.data_ptr(), (ctypes.c_int * 11)(*plan.iv),
+        plan.fy.data_ptr(), (ctypes.c_int * 11)(*plan.iv), float(lim_fac),
         _build.dtype_code(q), _build.stream_ptr(q))
     _build.check(rc, "tp2d_sweep")
     launches += 1
@@ -238,11 +242,9 @@ def fv_tp_2d_kernel(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
     if q.ndim != 4:
         raise ValueError(f"fv_tp_2d kernel takes q [6, K, P, P], got "
                          f"{tuple(q.shape)}")
-    if lim_fac != 1.0:
-        raise ValueError("fv_tp_2d kernel takes lim_fac = 1")
     return tp_core.fv_tp_2d(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y,
-                            dxa, dya, mfx=mfx, mfy=mfy, nord=nord,
-                            damp_c=damp_c, g=g, mass=mass,
+                            dxa, dya, lim_fac=lim_fac, mfx=mfx, mfy=mfy,
+                            nord=nord, damp_c=damp_c, g=g, mass=mass,
                             sweep=_fv_tp_2d_sweep)
 
 
@@ -250,4 +252,4 @@ def _fv_tp_2d_sweep(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
                     lim_fac=1.0, mfx=None, mfy=None):
     """fv_tp_2d_kernel's sweep: the kernel launch, counted as its own."""
     return _launch(q, crx, cry, hord, xfx, yfx, area, ra_x, ra_y, dxa, dya,
-                   mfx, mfy, for_fv_tp_2d=True)
+                   mfx, mfy, lim_fac, for_fv_tp_2d=True)

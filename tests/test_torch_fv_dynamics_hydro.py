@@ -86,22 +86,22 @@ def test_fv_dynamics_hydro_moist():
 def test_hydro_refuses_what_is_not_ported():
     """The hydrostatic path runs the JAX package's acoustic-loop options
     (beta, d_ext, fill_dp, rf_fast: tests/test_torch_acoustic_options.py);
-    what it still leaves out raises before any work: the d_sw kernels'
-    damping orders above 1 (nord = 2, nord_v = 2, nord_v2 > 0), ValueError
-    from the packing of their operands on the hydrostatic form's fields,
-    ahead of any device work."""
+    what JAX's d_sw has no branch for raises before any work: the d_sw
+    kernels' damping orders beyond JAX's (nord = 4, nord_v = 3, nord_v2 =
+    3), ValueError from the packing of their operands on the hydrostatic
+    form's fields, ahead of any device work."""
     P = NPX - 1 + 6
     delp = torch.zeros((6, 10, P, P), dtype=torch.float64)
     winds = dict(dt=900.0, hord_mt=10, hord_vt=10, nord=1, nord_v=1,
                  dddmp=0.2, d2_bg=0.0, d4_bg=0.16, damp_v=0.02)
-    for over in (dict(nord=2), dict(nord_v=2), dict(nord_v2=2)):
+    for over in (dict(nord=4), dict(nord_v=3), dict(nord_v2=3)):
         with pytest.raises(ValueError, match="nord"):
             dsw._winds_operands(delp, None, None, None, None, None, None,
                                 None, None, None, None, None,
                                 **dict(winds, **over))
     fluxes = dict(dt=900.0, hord_dp=10, hord_tm=10, hord_vt=10, nord_v=1,
                   damp_v=0.02)
-    for over in (dict(nord_v=2), dict(nord_v2=2)):
+    for over in (dict(nord_v=3), dict(nord_v2=3)):
         with pytest.raises(ValueError, match="nord"):
             dsw._fluxes_operands(delp, delp, None, None, None, None,
                                  **dict(fluxes, **over))

@@ -94,7 +94,7 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         a2b._launch(q, g)                   # a CPU tensor: no launch
     with pytest.raises(ValueError, match="hord"):
-        tp_sweep._launch(q, None, None, 7, None, None, None, None, None,
+        tp_sweep._launch(q, None, None, 14, None, None, None, None, None,
                          None, None, None, None)
     assert a2b.launches == 0 and tp_sweep.launches == 0
     assert np.isfinite(a2b.a2b_ord4_ref(q + 1.0, g).numpy()).all()

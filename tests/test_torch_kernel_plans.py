@@ -18,8 +18,8 @@ import pytest
 import torch
 
 from gfdl_atmos_cubed_sphere_tpu_torch.model.grid_ops import build_grid_ops
-from gfdl_atmos_cubed_sphere_tpu_torch.ops import (csw, ke, pg_col, tiles,
-                                                   tp_sweep)
+from gfdl_atmos_cubed_sphere_tpu_torch.ops import (csw, dsw, ke, pg_col,
+                                                   tiles, tp_sweep)
 
 pytestmark = pytest.mark.fast
 
@@ -167,7 +167,8 @@ def test_tp_sweep_reads_operands_where_they_lie(rank5):
 def test_tp_sweep_raises_on_what_it_does_not_take():
     rng = np.random.default_rng(22)
     ops = _tp_operands(1, 2, False, rng)
-    for bad in (dict(hord=7), dict(hord=10, mfx=ops["ra_y"][..., :N, :N + 1])):
+    for bad in (dict(hord=14), dict(hord=0), dict(hord=-7),
+                dict(hord=10, mfx=ops["ra_y"][..., :N, :N + 1])):
         with pytest.raises(ValueError):
             tp_sweep.launch_plan(**dict(ops, **bad))
     with pytest.raises(ValueError, match="rank"):
@@ -525,7 +526,7 @@ def test_ke_section_reads_operands_where_they_lie():
 
 def test_ke_section_raises_on_what_it_does_not_take():
     ops = _ke_operands(2)
-    for hord in (7, 11):
+    for hord in (0, 14, -7):
         with pytest.raises(ValueError, match="hord"):
             ke.launch_plan(**ops, hord_mt=hord, npx=NPX)
     with pytest.raises(ValueError, match="shape"):
@@ -544,3 +545,125 @@ def test_ke_section_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="6 cells"):
         ke.launch_plan(**{k: v[..., :10, :10] for k, v in ops.items()},
                        hord_mt=6, npx=6)
+
+
+def _args_read(src, arr):
+    """{field: index} of the kernel's make_args reads a.field = arr[index]."""
+    return {f: int(i) for f, i in
+            re.findall(r"a\.(\w+) = %s\[(\d+)\];" % arr, src)}
+
+
+@pytest.mark.parametrize("K", [79, 91])
+def test_d_sw_plans_carry_every_kernel_argument(grid, K):
+    """The d_sw stage kernels' launch plans at the SHiELD namelist's
+    arguments (hord_dp -5, hord 5, nord 2 with nord_v = nord_w = 2) and
+    beyond (nord 3, nord_v2 = 2, nord_w2 = 1, lim_fac 0.5), at the L79 and
+    L91 depths: each int and double parameter sits where the kernel's
+    make_args reads it (csrc/d_sw_fluxes.cu, csrc/d_sw_winds.cu), the
+    per-level profiles are (damp x da_min)^(nord + 1) of each combo, dd8
+    is (da_min_c d4_bg)^(nord + 1), the box and shared-memory bytes are
+    the kernels' own and fit a block. The tp sweep's and ke_section's
+    plans carry every hord of KERNEL_HORDS (tp: ord_in 8 for hord 10)."""
+    rng = np.random.default_rng(31)
+    W = P + 1
+
+    def f(*s):
+        return torch.as_tensor(rng.standard_normal((6, K) + s))
+
+    dv_, dw_, dv2, dw2 = (np.linspace(a, 2 * a, K)
+                          for a in (0.02, 0.03, 0.04, 0.05))
+    fkw = dict(dt=225.0, hord_dp=-5, hord_tm=5, hord_vt=5, nord_v=2,
+               damp_v=dv_, damp_v2=dv2, nord_v2=2, damp_w=dw_, nord_w=2,
+               damp_w2=dw2, nord_w2=1, ke_bg=0.0, lim_fac=0.5)
+    fields, mets, outs, prof, iv, dv, out = dsw._fluxes_operands(
+        f(P, P), f(P, P), f(P, P), f(P, W), f(W, P), grid, **fkw)
+    tx, ty, ntx, nty = dsw.tile_plan("fluxes", N, 8)
+    want = dict(n=N, K=K, hord_dp=-5, hord_vt=5, hord_tm=5, nord_v=2,
+                nord_w=2, nord_v2=2, nord_w2=1, on_v=1, on_v2=1, on_w=1,
+                on_w2=1, ntx=ntx, nty=nty)
+    src = _source("d_sw_fluxes")
+    reads = _args_read(src, "iv")
+    assert set(reads) == set(want) and len(iv) == len(want) + 4
+    assert all(iv[i] == want[k] for k, i in reads.items())
+    assert iv[13] == 0
+    assert list(iv[-3:]) == [tx, ty, dsw.smem_bytes("fluxes", 8)]
+    assert "iv[%d] != Box<T>::TX" % (len(iv) - 3) in src
+    dreads = _args_read(src, "dv")
+    assert dreads == {"dt": 0, "dd8": 1, "lim": 2} and dv[2] == 0.5
+    for p_, d, m, nd in zip(prof, (dv_, dv2, dw_, dw2),
+                            (grid.da_min, grid.da_min, grid.da_min_c,
+                             grid.da_min_c), (2, 2, 2, 1)):
+        assert torch.allclose(p_, (torch.as_tensor(d) * m) ** (nd + 1),
+                              rtol=1e-14, atol=0)
+    seam = {"crx": f(P, W), "cry": f(W, P), "xfx": f(P, W), "yfx": f(W, P),
+            "ra_x": f(P, P), "ra_y": f(P, P), "ut": f(P, W), "vt": f(W, P)}
+    wkw = dict(dt=225.0, hord_mt=-6, hord_vt=13, nord=3, nord_v=2,
+               dddmp=0.2, d2_bg=np.zeros(K), d4_bg=0.12, damp_v=dv_,
+               d_con=np.ones(K), nord_mask=None, damp_v2=dv2, nord_v2=2,
+               lim_fac=0.5)
+    ins, mets, outs, prof, iv, dv, out = dsw._winds_operands(
+        f(P, P), f(W, P), f(P, W), f(P, W), f(W, P), f(P, P), f(P, P),
+        f(W, W), f(W, W), f(N, N), seam, grid, **wkw)
+    tx, ty, ntx, nty = dsw.tile_plan("winds", N, 8)
+    want = dict(n=N, K=K, hord_mt=-6, hord_vt=13, nord=3, nord_v=2,
+                nord_v2=2, need0=0, needN=1, smag=1, do_heat=1, on_v=1,
+                on_v2=1, ntx=ntx, nty=nty)
+    src = _source("d_sw_winds")
+    reads = _args_read(src, "iv")
+    assert set(reads) == set(want) and len(iv) == len(want) + 4
+    assert all(iv[i] == want[k] for k, i in reads.items())
+    assert iv[13] == 0
+    assert list(iv[-3:]) == [tx, ty, dsw.smem_bytes("winds", 8)]
+    assert "iv[%d] != Box<T>::TX" % (len(iv) - 3) in src
+    dreads = _args_read(src, "dv")
+    assert dreads == {"dt": 0, "dddmp": 1, "da_min_c": 2, "dd8": 3,
+                      "lim": 4}
+    assert dv[3] == float((grid.da_min_c * 0.12) ** 4) and dv[4] == 0.5
+    assert torch.allclose(prof[4], (torch.as_tensor(dv2) * grid.da_min_c)
+                          ** 3, rtol=1e-14, atol=0)
+    for stage in ("fluxes", "winds"):
+        for itemsize in (4, 8):
+            assert dsw.smem_bytes(stage, itemsize) <= SMEM_LIMIT
+    ops = _tp_operands(1, K, False, rng)
+    kops = _ke_operands(K)
+    for hord in tp_sweep.KERNEL_HORDS:
+        plan = tp_sweep.launch_plan(**dict(ops, hord=hord))
+        assert plan.iv[5:7] == (8 if hord == 10 else hord, hord)
+        assert ke.launch_plan(**kops, hord_mt=hord, npx=NPX).iv[2] == hord
+    assert ke.KERNEL_HORDS == tp_sweep.KERNEL_HORDS
+    assert dsw.KERNEL_NORDS == (0, 1, 2, 3)
+    assert dsw.launches == {"fluxes": 0, "winds": 0}
+
+
+def test_d_sw_forms_reach_the_kernels(grid):
+    """The d_sw stage kernels' two forms (the usual arguments' and every
+    argument's): the operands' `every` lands in iv[13], where the kernels'
+    run reads it (0 unless asked: the form the arguments need), and each
+    kernel's resources export, as the tp sweep's, takes the form."""
+    rng = np.random.default_rng(37)
+    W, K = P + 1, 2
+
+    def f(*s):
+        return torch.as_tensor(rng.standard_normal((6, K) + s))
+
+    fkw = dict(dt=225.0, hord_dp=10, hord_tm=10, hord_vt=10, nord_v=1,
+               damp_v=0.02, damp_w=0.02, nord_w=1)
+    args = (f(P, P), f(P, P), f(P, P), f(P, W), f(W, P), grid)
+    for name in ("d_sw_fluxes", "d_sw_winds"):
+        src = _source(name)
+        assert "const bool gen = iv[13] != 0 ||" in src
+        assert 13 not in _args_read(src, "iv").values()
+        assert (f'extern "C" int {name}_attrs(int gen, int dtype, int* out)'
+                in src)
+    for every in (False, True):
+        kw = fkw if not every else dict(fkw, every=True)
+        assert dsw._fluxes_operands(*args, **kw)[4][13] == int(every)
+    seam = {k: f(P, P) for k in dsw.SEAM}
+    iv = dsw._winds_operands(f(P, P), f(W, P), f(P, W), f(P, W), f(W, P),
+                             f(P, P), f(P, P), f(W, W), f(W, W), f(N, N),
+                             seam, grid, dt=225.0, hord_mt=10, hord_vt=10,
+                             nord=1, nord_v=1, dddmp=0.2, d2_bg=0.0,
+                             d4_bg=0.12, damp_v=0.02, every=True)[4]
+    assert iv[13] == 1
+    assert ('extern "C" int tp2d_sweep_attrs(int gen, int dtype, int* out)'
+            in _source("tp2d_sweep"))

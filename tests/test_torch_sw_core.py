@@ -96,7 +96,8 @@ def _ke_args(gp, c, conv):
             + [gp.cosa, gp.rsina, gp.dx, gp.rdx, gp.dy, gp.rdy])
 
 
-@pytest.mark.parametrize("hord_mt", [5, 6, 8, 9, 10])
+@pytest.mark.parametrize("hord_mt", [5, 6, 8, 9, 10] + [
+    h for h in ke.KERNEL_HORDS if h not in (5, 6, 8, 9, 10)])
 def test_ke_section(case, hord_mt):
     gj, gt, c = case
     want = jsc.ke_section(*_ke_args(gj, c, jnp.asarray), DT, hord_mt, 1.0,

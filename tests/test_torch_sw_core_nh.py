@@ -4,11 +4,17 @@ and d_sw as its fluxes stage, its winds stage and both together, with the
 per-level sponge profiles of dyn_core's _sponge_level_params (d2_bg, d_con,
 nord_mask, the second damping combos, w damping) and the Smagorinsky term
 (dddmp = 0.2), on a perturbed dry Jablonowski-Williamson state at C12L10
-(float64, CPU, <= 1e-12 x max|ref| per output).
+(float64, CPU, <= 1e-12 x max|ref| per output); d_sw again at the kernel
+arguments beyond the usual ones (DSW_ARGS: the SHiELD namelist's nord 2
+and hord -5/5 with its sponge combos at nord 1, nord 3 with hords
+7/9/13 and hord 1 at lim_fac 0.5); and one dry nonhydrostatic big step of
+the SHiELD namelist (tests/test_torch_config.py SHIELD_NML) cut to C12L10,
+n_split 2, against the jitted JAX fv_dynamics_nh (<= 1e-10 x field max).
 
 On the CPU the JAX package takes its XLA formulation and the port the plain
 versions of its kernels; the kernel launch counters stay 0."""
 
+import dataclasses
 from types import SimpleNamespace
 
 import jax
@@ -22,11 +28,19 @@ from gfdl_atmos_cubed_sphere_tpu.grid.fv_eta import set_eta
 from gfdl_atmos_cubed_sphere_tpu.init.baroclinic import jw_baroclinic
 from gfdl_atmos_cubed_sphere_tpu.model.dyn_core import (
     DynConfig, _sponge_level_params)
+from gfdl_atmos_cubed_sphere_tpu.model.fv_dynamics import fv_dynamics_nh as jfv
 from gfdl_atmos_cubed_sphere_tpu.model.grid_ops import build_grid_ops as jax_pack
+from gfdl_atmos_cubed_sphere_tpu.model.sw_dynamics import prepare_phis as jphis
 from gfdl_atmos_cubed_sphere_tpu.ops import sw_core as jsc
+from gfdl_atmos_cubed_sphere_tpu.utils import config as jcfg
 from gfdl_atmos_cubed_sphere_tpu_torch.model import dyn_core as tdc
-from gfdl_atmos_cubed_sphere_tpu_torch.model.grid_ops import build_grid_ops
+from gfdl_atmos_cubed_sphere_tpu_torch.model.fv_dynamics import fv_dynamics_nh
+from gfdl_atmos_cubed_sphere_tpu_torch.model.grid_ops import (
+    build_grid_ops, state_from_arrays)
+from gfdl_atmos_cubed_sphere_tpu_torch.model.sw_dynamics import prepare_phis
 from gfdl_atmos_cubed_sphere_tpu_torch.ops import a2b, csw, dsw, ke, tp_sweep
+from gfdl_atmos_cubed_sphere_tpu_torch.utils import config as tcfg
+from test_torch_config import SHIELD_NML
 
 pytestmark = pytest.mark.fast
 
@@ -48,11 +62,32 @@ def _t(a):
     return torch.as_tensor(np.array(a), dtype=torch.float64)
 
 
-def _dsw_kw():
-    cfg = DynConfig(**CFG)
-    return dict(dt=DT, hord_mt=10, hord_vt=10, hord_dp=10, hord_tm=10,
-                dddmp=cfg.dddmp, d4_bg=cfg.d4_bg, ke_bg=0.0, lim_fac=1.0,
-                **_sponge_level_params(cfg))
+def _dsw_kw(cfg_over=None, **over):
+    """d_sw's arguments as dyn_core passes them for CFG with cfg_over (the
+    per-level sponge profiles of _sponge_level_params), with over on top."""
+    cfg = DynConfig(**dict(CFG, **(cfg_over or {})))
+    kw = dict(dt=DT, hord_mt=10, hord_vt=10, hord_dp=10, hord_tm=10,
+              dddmp=cfg.dddmp, d4_bg=cfg.d4_bg, ke_bg=0.0, lim_fac=1.0,
+              **_sponge_level_params(cfg))
+    kw.update(over)
+    return kw
+
+
+# the SHiELD namelist's damping (tests/test_torch_config.py SHIELD_NML)
+SHIELD_DAMP = dict(nord=2, d4_bg=0.12, vtdm4=0.02, d2_bg_k1=0.20,
+                   d2_bg_k2=0.15)
+#: d_sw at the kernel arguments beyond hord 5/6/8/10 and nord 0/1:
+#: (DynConfig settings, d_sw arguments on top of _dsw_kw). "shield": the
+#: namelist's nord 2 (nord_v = nord_w = 2) and hords, its sponge levels'
+#: second combos at nord 1; "nord3": nord 3 with hords of the monotone and
+#: positive-definite family, and hord_dp 1 at lim_fac 0.5
+DSW_ARGS = {
+    "shield": (SHIELD_DAMP, dict(hord_mt=5, hord_vt=5, hord_tm=5,
+                                 hord_dp=-5, nord_v2=1, nord_w2=1)),
+    "nord3": (dict(SHIELD_DAMP, nord=3), dict(hord_mt=9, hord_vt=13,
+                                              hord_tm=7, hord_dp=1,
+                                              lim_fac=0.5)),
+}
 
 
 @pytest.fixture(scope="module")
@@ -153,6 +188,66 @@ def test_d_sw_nh(case, stage):
         _close(a, b, nm)
 
 
+@pytest.mark.parametrize("name", sorted(DSW_ARGS))
+def test_d_sw_nh_kernel_arguments(case, name):
+    """d_sw as the two stages' plain versions (nord_v and nord_w follow
+    nord up to 2) against the jitted JAX d_sw at the same arguments."""
+    gj, gt, c, _, _ = case
+    cfg_over, over = DSW_ARGS[name]
+    kw = _dsw_kw(cfg_over, **over)
+    want = SimpleNamespace(**jax.jit(lambda *a: vars(jsc.d_sw(
+        *a, gj, sw_mode=False, hydrostatic=False, stage="all", **kw)))(
+            *(jnp.asarray(c[k]) for k in DSW_IN)))
+    _reset()
+    got = dsw.d_sw(*(_t(c[k]) for k in DSW_IN), gt, **kw)
+    assert _launched() == (0,) * 6
+    for nm in ("u", "v") + FLUX_OUT[:-3] + ("heat_source",):
+        _close(getattr(want, nm), getattr(got, nm), nm)
+
+
+def test_fv_dynamics_nh_shield_namelist():
+    """One dry nonhydrostatic big step of the SHiELD namelist's dynamics
+    (nord 2, hord_dp -5, hord 5, sponge levels, tau 5 d) parsed by each
+    package's utils/config, cut to C12L10 with n_split 2 and dt 1800 s,
+    from a perturbed dry Jablonowski-Williamson state: the port's plain
+    versions against the jitted JAX step, every field <= 1e-10 x its
+    maximum."""
+    cut = dict(npx=NPX, npz=K, n_split=2, adiabatic=True)
+    tc = dataclasses.replace(tcfg.dyn_config_from_namelist(
+        tcfg.parse_namelist(SHIELD_NML), dt=DT)[0], **cut)
+    jc = dataclasses.replace(jcfg.dyn_config_from_namelist(
+        jcfg.parse_namelist(SHIELD_NML), dt=DT)[0], **cut)
+    assert (tc.nord, tc.hord_dp, tc.hord_vt, tc.k_split) == (2, -5, 5, 1)
+    gj = jax_pack(NPX, dtype=jnp.float64)
+    gt = build_grid_ops(NPX, dtype=torch.float64, device="cpu")
+    _, ptop, ak, bk = set_eta(K)
+    ic = jw_baroclinic(gj.geom, K, ak, bk, ptop, perturb=True, moist=False)
+    rng = np.random.default_rng(7)
+    for nm in ("u", "v"):
+        ic[nm] = ic[nm] + 0.5 * rng.standard_normal(ic[nm].shape)
+    jphis(gj, ic["phis"])
+    prepare_phis(gt, ic["phis"])
+    dp0 = np.diff(ak) + np.diff(bk) * 1.0e5
+    names = ("delp", "pt", "u", "v", "w", "delz")
+
+    def jstep(*a):
+        r = jfv(*a, {}, gj, jc, ak, bk, ptop, dp0, u0=a[2], v0=a[3])
+        return tuple(getattr(r, k) for k in names)
+
+    want = jax.jit(jstep)(*(jnp.asarray(ic[k]) for k in names))
+    ts = state_from_arrays(dict(ic, ak=ak, bk=bk), dtype=torch.float64,
+                           device="cpu")
+    _reset()
+    got = fv_dynamics_nh(*(ts[k] for k in names), {}, gt, tc, ts["ak"],
+                         ts["bk"], ptop, dp0, u0=ts["u"], v0=ts["v"])
+    assert _launched() == (0,) * 6
+    for nm, a in zip(names, want):
+        a = np.asarray(a)
+        b = getattr(got, nm).numpy()
+        assert np.isfinite(a).all(), nm
+        assert np.abs(b - a).max() <= 1e-10 * np.abs(a).max(), nm
+
+
 def test_sponge_level_params():
     cfg = DynConfig(**CFG)
     want = _sponge_level_params(cfg)
@@ -209,8 +304,10 @@ def test_d_sw_stage_shared_memory_fits_a_block():
 def test_d_sw_stage_operands_are_outputs_only():
     """The stage kernels' argument packing: the outputs and per-level
     profiles only (no workspace), the box and shared-memory bytes in the
-    int parameters, null w / heat for the hydrostatic form, and ValueError
-    for what the kernels do not take."""
+    int parameters, lim_fac in the double ones, null w / heat for the
+    hydrostatic form, and ValueError for what the kernels do not take:
+    what sw_core.d_sw has no branch for (hord 0, beyond 13 or below -6;
+    nord beyond 3; nord_v, nord_w, nord_v2, nord_w2 beyond 2)."""
     gt = build_grid_ops(NPX, dtype=torch.float64, device="cpu")
     rng = np.random.default_rng(5)
     P, W, Kt = N + 2 * H, N + 2 * H + 1, 2
@@ -224,7 +321,7 @@ def test_d_sw_stage_operands_are_outputs_only():
         fields, mets, outs, prof, iv, dv, out = dsw._fluxes_operands(
             f(P, P), f(P, P), w, f(P, W), f(W, P), gt, **kw)
         assert len(fields) == 5 and len(mets) == len(dsw.FLUX_METRICS)
-        assert len(outs) == 14 and len(prof) == 4 and len(dv) == 2
+        assert len(outs) == 14 and len(prof) == 4 and len(dv) == 3
         assert (outs[2] is None) == (w is None) == (outs[13] is None)
         assert list(iv[-5:]) == [*dsw.tile_plan("fluxes", N, 8)[2:],
                                  *dsw.BOX["fluxes"][8],
@@ -241,15 +338,24 @@ def test_d_sw_stage_operands_are_outputs_only():
         f(P, P), f(W, P), f(P, W), f(P, W), f(W, P), f(P, P), f(P, P),
         f(W, W), f(W, W), f(N, N), seam, gt, **wkw)
     assert len(ins) == 18 and len(mets) == len(dsw.WIND_METRICS)
-    assert len(outs) == 3 and len(prof) == 5 and len(dv) == 4
+    assert len(outs) == 3 and len(prof) == 5 and len(dv) == 5
     assert list(iv[-5:]) == [*dsw.tile_plan("winds", N, 8)[2:],
                              *dsw.BOX["winds"][8], dsw.smem_bytes("winds", 8)]
     assert tuple(out.u.shape) == (6, Kt, N + 1, N)
     assert tuple(out.heat_source.shape) == (6, Kt, N, N)
-    for bad in (dict(hord_dp=7), dict(nord_v=2), dict(lim_fac=0.5)):
+    for bad in (dict(hord_dp=14), dict(hord_tm=0), dict(hord_vt=-7),
+                dict(nord_v=3), dict(nord_w=3), dict(nord_v2=3),
+                dict(nord_w2=-1)):
         with pytest.raises(ValueError):
             dsw._fluxes_operands(f(P, P), f(P, P), None, f(P, W), f(W, P),
                                  gt, **dict(kw, **bad))
+    for bad in (dict(nord=4), dict(nord_v=3), dict(nord_v2=3),
+                dict(hord_mt=14), dict(hord_vt=0)):
+        with pytest.raises(ValueError):
+            dsw._winds_operands(
+                f(P, P), f(W, P), f(P, W), f(P, W), f(W, P), f(P, P),
+                f(P, P), f(W, W), f(W, W), f(N, N), seam, gt,
+                **dict(wkw, **bad))
     with pytest.raises(ValueError, match="8 cells"):
         dsw._fluxes_operands(*(torch.zeros(6, 1, 13, 13),) * 3,
                              torch.zeros(6, 1, 13, 14),

@@ -88,15 +88,26 @@ def _tp(mod, gp, c, hord, conv, **kw):
                         gp.area, a["ra_x"], a["ra_y"], gp.dxa, gp.dya, **kw)
 
 
-@pytest.mark.parametrize("hord", [5, 6, 8, 10])
+# every hord the tp sweep kernel takes (tp_sweep.KERNEL_HORDS), and lim_fac
+# at hord 1, the only place xppm reads it
+FV_TP_2D_HORDS = [5, 6, 8, 10] + [h for h in tp_sweep.KERNEL_HORDS
+                                  if h not in (5, 6, 8, 10)] + ["1-lim0.5"]
+
+
+@pytest.mark.parametrize("hord", FV_TP_2D_HORDS)
 @pytest.mark.parametrize("mass_flux", [False, True])
 def test_fv_tp_2d(case, hord, mass_flux):
     gj, gt, c = case
     tp_sweep.reset_launches()
     kj, kt = {}, {}
+    if hord == "1-lim0.5":
+        hord = 1
+        kj = dict(lim_fac=0.5)
+        kt = dict(lim_fac=0.5)
     if mass_flux:
-        kj = dict(mfx=jnp.asarray(c["mfx"]), mfy=jnp.asarray(c["mfy"]))
-        kt = dict(mfx=torch.as_tensor(c["mfx"]), mfy=torch.as_tensor(c["mfy"]))
+        kj.update(mfx=jnp.asarray(c["mfx"]), mfy=jnp.asarray(c["mfy"]))
+        kt.update(mfx=torch.as_tensor(c["mfx"]),
+                  mfy=torch.as_tensor(c["mfy"]))
     want = _tp(jtp, gj, c, hord, jnp.asarray, **kj)
     got = _tp(ttp, gt, c, hord, torch.as_tensor, **kt)
     for w, g in zip(want, got):
