@@ -15,7 +15,8 @@ the hydrostatic forms of c_sw and d_sw, the column kernels pgradc_fused,
 pkgz and geopk, one_grad_p's batched a2b, the same tracers and physics).
 Phase 8 drives the solo driver (driver/solo.py: its Atmosphere and its
 CLI), as users start the system, and phase 9 the SHiELD and GFDL facades
-over it, through the same kernels.
+over it, through the same kernels; phase 12 the headline step with the
+inline fast physics (do_fast_phys).
 
 1. build: the seconds nvcc took for the eight sources;
 2. each kernel against its plain PyTorch version on the card, on the inputs
@@ -224,7 +225,30 @@ over it, through the same kernels.
    (a)'s without the tracer sweep, peak memory), resumed from a
    checkpoint of (a)'s initial state. (a) and (b) run after phase 7 in a
    process of their own (this script with PHASE_11_ARG) on the kernels
-   this one built.
+   this one built;
+12. the inline fast physics and the rest of the GFDL MP (plain PyTorch, no
+   kernel of their own): (c) at C24L10 in float64, card against CPU with
+   phase 3's limits (FAST_TOL: 5e-9 on the precipitating tracers) and a
+   float32 control, (i) one moist NH big step with do_fast_phys and
+   MPConfig() (the mp_fast chain in each acoustic iteration) from
+   fast_phys_c24_ic's state (sphum scaled by seeded 0.95-1.1, seeded
+   condensates away from TICE and t_wfr), (ii) the same with the SHiELD
+   namelist's gfdl_mp_nml (SHIELD_GFDL_MP_NML through utils/config:
+   sat_adjust as the fast physics, WBF, tau_l2r 600, sedi_uv), (iii)
+   gfdl_mp_driver alone on (ii)'s state with MP_OPTIONS (subgrid_z_proc
+   with rh_adj 0.9, explicit_fall, prog_ccn with a seeded liq_aero, the
+   consv_checker audits, sedi_uv with seeded ua, va, and hs), (iv)
+   fv_sg_adjust at fv_sg_adj = 600 s and fv_sg_adjust_am5, (v) fill_gfs
+   and fill2d on seeded tracers with negatives, each output against its
+   own maximum (1e-10; the audits' relative errors against 1); (a) after
+   phase 6, the moist c192_nh step with do_fast_phys and MPConfig() at
+   C192L79 float32 as phase 6 (s/step, pts*lev/s, busy share, peak
+   memory, the layer split with fast_sat_adj on its own line; launches
+   per big step equal to phase 6's), and the hook's cost as its s/step
+   less phase 6's of the same run; (b) in phase 11's process on 11a's
+   initial state at C192L91 float32: gfdl_mp_driver with the SHiELD
+   gfdl_mp_nml, with MPConfig() and with MP_OPTIONS, and fv_sg_adjust,
+   ms a call and device kernels a call.
 
 Before the last line it prints the card's name and power limit and one JSON
 line with each kernel's launches (those of its path's timed phase: 6 for
@@ -239,7 +263,8 @@ fixers on), "shield" per atmosphere_dynamics step of phase 9b,
 "c192_nh_offc" and "c192_hydro_opts" in phase 10b's 5 big steps (sim1's
 split by form, and its "offcentred" records of phase 2),
 "shield_c192l91" in phase 11a's 5 big steps with its numbers at the
-namelist's arguments, "shield_facade" per phase 11b step, and
+namelist's arguments, "shield_facade" per phase 11b step,
+"c192_nh_fastphys" in phase 12a's 5 big steps, and
 "checked_at" the hords, nords and lim_fac each of the tp sweep,
 ke_section, d_sw and c_sw kernels was held to its plain version at. The
 last line is
@@ -443,9 +468,9 @@ SHIELD_TABLE = """C192L79 shield_nh history
 
 # phase 11, the SHiELD namelist's dynamics: the fv_core_nml group of a
 # public SHiELD C768L91 namelist (the one tests/test_torch_config.py holds
-# as SHIELD_NML), read through the port's utils/config; its gfdl_mp_nml
-# (mp_fast off, sedi_uv on) is left out: the moist steps run phase 6's
-# MPConfig()
+# as SHIELD_NML), read through the port's utils/config; phase 11's moist
+# steps run phase 6's MPConfig(), phase 12 the namelist's gfdl_mp_nml
+# (SHIELD_GFDL_MP_NML)
 SHIELD_FV_CORE_NML = """
 &fv_core_nml
        layout   = 8,8
@@ -517,6 +542,53 @@ SHIELD_FV_CORE_NML = """
        res_latlon_dynamics = "fv3_increment.nc"
 /
 """
+#: phase 12, the inline fast physics and the rest of the GFDL MP: the
+#: gfdl_mp_nml group of the same public SHiELD namelist (as
+#: tests/test_torch_config.py holds it in SHIELD_NML), read through the
+#: port's utils/config: the condensed sat_adjust as the fast physics
+#: (use_mp_fast off), WBF, tau_l2r 600 and sedi_uv
+SHIELD_GFDL_MP_NML = """
+&gfdl_mp_nml
+       do_sedi_uv = .T.
+       use_mp_fast = .F.
+       do_wbf = .T.
+       tau_l2r = 600.
+       fast_fr_mlt = .F.
+       rh_inc = 0.30
+/
+"""
+#: the big step's inline fast physics (phase 12)
+FAST_PHYS = dict(do_fast_phys=True)
+#: phase 12c seeds condensates only where the temperature is this many K
+#: from TICE and t_wfr: the GFDL MP's heat-limited melt and freeze put T
+#: on those thresholds, and the next comparison with them (psaut, psaci,
+#: pgaci at TICE; praut_simp at t_wfr) is then decided by the last bit,
+#: a jump of a share of the ice (ROADMAP "Not faults": 1-ulp exp/log
+#: changes moved ice_wat 2.8e-5 and w 2.4e-6 of their maxima in two
+#: steps with condensates seeded everywhere, `python
+#: devtools/nh_w_conditioning.py --fastphys`)
+FAST_SEED_GAP = 3.0
+#: phase 12c's limits, card vs CPU, x each field's own maximum: phase 3's
+#: NH limits, and 5e-9 on the precipitating tracers, which 1-ulp changes
+#: of exp and log move by up to 4.8e-10 (rainwat), 3.2e-10 (snowwat) and
+#: 8.9e-11 (graupel) of their maxima in one step from fast_phys_c24_ic's
+#: state, every other field under 1.5e-11 (`python
+#: devtools/nh_w_conditioning.py --fastphys`, CPU): a flip of a q > QCMIN
+#: test moves a species by ~QCMIN
+FAST_TOL = dict(CARD_TOL["NH"], rainwat=5e-9, snowwat=5e-9, graupel=5e-9)
+#: gfdl_mp_driver's options beyond the defaults (phase 12c iii, 12b): the
+#: per-process saturation stage with instant evaporation under 90 % RH,
+#: explicit sedimentation, prognostic CCN, the energy and water audits and
+#: sedimentation of the A-grid winds
+MP_OPTIONS = dict(use_subgrid_proc=True, rh_adj=0.9, sedflag=2,
+                  prog_ccn=True, consv_checker=True, do_sedi_uv=True)
+#: the relaxation time of the 2-dz convective adjustment (the namelist's
+#: fv_sg_adj, and tau of the AM5 form)
+FV_SG_ADJ = 600
+#: the audits' relative errors, (end - begin) / begin of column sums, held
+#: against the scale of their terms (1) rather than their own maximum
+AUDIT_ERRORS = ("te_err", "tw_err")
+
 #: the cuts of the namelist at full width: C192 (npx 193, against 769:
 #: C768L91 would need ~490 GiB, scaling phase 6's C192L79 peak) and
 #: bench.py's C192 step (dt 450 s, against the namelist's C768 150 s)
@@ -769,7 +841,9 @@ def layer_ms(nh, state):
     remap_hydro) and the rest, and on the moist path the tracer transport
     (tracer_2d), neg_adj3 and the GFDL microphysics (gfdl_mp_driver), each
     call synchronised before and after. mapn_tracer, the tracers' share of
-    the remap, is listed too and is not subtracted again from the rest."""
+    the remap, is listed too and is not subtracted again from the rest, as
+    is the inline fast physics (fast_sat_adj) inside the acoustic loop
+    when the step runs it (do_fast_phys)."""
     from gfdl_atmos_cubed_sphere_tpu_torch.model import (dyn_core,
                                                          fv_dynamics,
                                                          tracer_2d)
@@ -780,8 +854,10 @@ def layer_ms(nh, state):
     if nh.moist:
         saved += [(tracer_2d, "tracer_2d"), (fv_sg, "neg_adj3"),
                   (gfdl_mp, "gfdl_mp_driver"), (fv_mapz, "mapn_tracer")]
+        if nh.cfg.do_fast_phys:
+            saved.append((gfdl_mp, "fast_sat_adj"))
     return timed_layers(lambda: nh.step(state), saved,
-                        apart=("mapn_tracer",))
+                        apart=("mapn_tracer", "fast_sat_adj"))
 
 
 def solo_layer_ms(atm):
@@ -1253,11 +1329,11 @@ class BigStep:
     state is the list of fields (delp, pt, u, v, and w, delz on the
     nonhydrostatic path), then the tracers of TRACERS when moist. over:
     DynConfig settings on top of the path's (a bundle of phase 10, named
-    bundle)."""
+    bundle); mp: the MPConfig of a moist step (MPConfig() when None)."""
 
     def __init__(self, npx, npz, dt, k_split, n_split, dtype, device,
                  geom=None, ic=None, moist=False, hydro=False, over=None,
-                 bundle=None):
+                 bundle=None, mp=None):
         from gfdl_atmos_cubed_sphere_tpu_torch.grid.fv_eta import set_eta
         from gfdl_atmos_cubed_sphere_tpu_torch.grid.metrics import (
             build_grid_geometry)
@@ -1289,7 +1365,7 @@ class BigStep:
             q["sphum"] = self.ic["sphum"]
             self.ic = dict(self.ic, q=q)
         self.names = self.fields + (TRACERS if moist else ())
-        self.mp_cfg = MPConfig() if moist else None
+        self.mp_cfg = (mp or MPConfig()) if moist else None
         self.t_setup = time.perf_counter() - t0
         self.g = build_grid_ops(npx, dtype=dtype, device=device,
                                 geom=self.geom)
@@ -1332,11 +1408,13 @@ def card_vs_cpu(card_case, steps=2, phase="3", tols=None,
     own maximum (CARD_TOL's limits, or tols'); both must be finite. The
     control must read over every limit: the same steps on the card in
     float32, or (control "rounded") in float64 from the initial state
-    rounded to float32, for a configuration whose float32 run overflows."""
+    rounded to float32, for a configuration whose float32 run overflows.
+    A field that is zero on the CPU must be zero on the card. Returns the
+    CPU's final state."""
     import torch
     kw = dict(geom=card_case.geom, ic=card_case.ic, moist=card_case.moist,
               hydro=card_case.hydro, over=card_case.over,
-              bundle=card_case.bundle)
+              bundle=card_case.bundle, mp=card_case.mp_cfg)
     c = card_case.cfg
     cpu = BigStep(25, 10, c.dt, c.k_split, c.n_split, torch.float64, "cpu",
                   **kw)
@@ -1364,6 +1442,12 @@ def card_vs_cpu(card_case, steps=2, phase="3", tols=None,
     bad = []
     for nm, a, f, b in zip(card_case.names, scard, sf, sc):
         top = float(b.abs().max())
+        if top == 0.0:
+            require(float(a.abs().max()) == 0.0,
+                    f"{label}: {nm} is zero on the CPU, not on the card")
+            log(f"  C24L10 f64 {label} {steps} big steps {nm}: zero on the "
+                f"card and the CPU")
+            continue
         r = float((a.cpu() - b).abs().max()) / top
         ctl = float((f.cpu().double() - b).abs().max()) / top
         tol = tols.get(nm, 1e-10)
@@ -1379,6 +1463,7 @@ def card_vs_cpu(card_case, steps=2, phase="3", tols=None,
         f"{bad or 'none'}")
     require(not bad, f"{label} step on the card disagrees with the CPU "
                      f"in {bad}")
+    return sc
 
 
 def step_phase(label, case, state, mass0, card, shapes, per_step, kernels):
@@ -2443,8 +2528,12 @@ def shield_full_width(geom, card):
     del cap
     launches = step_phase("11a shield_c192l91 moist f32", case, state,
                           mass0, card, shapes, per_step, NH_KERNELS)
+    t0 = time.perf_counter()
+    del state
+    fast_phys_calls_c192l91(case, card)
+    log(f"phase 12b: {time.perf_counter() - t0:.1f} s")
     ic, ak, bk = case.ic, case.ak, case.bk
-    del case, state
+    del case
     torch.cuda.empty_cache()
     over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
             if f.name not in ("npx", "npz", "dt")}
@@ -2487,6 +2576,283 @@ def shield_full_width(geom, card):
     torch.cuda.empty_cache()
     return shapes, launches, fac, checked
 
+
+def shield_mp_config():
+    """The MPConfig of SHIELD_GFDL_MP_NML through the port's utils/config."""
+    from gfdl_atmos_cubed_sphere_tpu_torch.utils import config
+    mpc, unknown = config.mp_config_from_namelist(
+        config.parse_namelist(SHIELD_GFDL_MP_NML))
+    require(not unknown and mpc.do_sedi_uv and not mpc.use_mp_fast
+            and mpc.do_wbf and mpc.tau_l2r == 600.0 and not mpc.fast_fr_mlt,
+            f"the SHiELD gfdl_mp_nml read as {mpc} ({unknown})")
+    return mpc
+
+
+#: the names of the results of run_mp_options and run_fv_sg
+MP_OUT = ("pt", "q", "diag")
+SG_OUT = ("ta", "q", "ua", "va", "w", "u_dt", "v_dt")
+
+
+def named_outputs(out, names):
+    """{name: tensor} of fn's result, a tuple whose items are named by
+    names (dicts flattened to name/key, None left out)."""
+    flat = {}
+    _flat("", dict(zip(names, out)), flat)
+    return flat
+
+
+def hold_card_vs_cpu(label, fn, inputs, names, tol=1e-10):
+    """fn on the CPU in float64, on the card in float64 and, as the control,
+    on the card in float32, from the same inputs (a dict of CPU float64
+    tensors and other arguments; fn takes the device as well). Each output
+    (names: those of fn's result tuple) against the CPU's, over its own
+    maximum (AUDIT_ERRORS over 1): the card under tol, the control over it;
+    an output that is zero on the CPU must be zero on the card."""
+    import torch
+
+    def moved(dtype, device):
+        return {k: v.to(device=device, dtype=dtype) if torch.is_tensor(v)
+                and v.is_floating_point() else v
+                for k, v in inputs.items()}
+
+    outs = [named_outputs(fn(**moved(dt, dev), device=dev), names)
+            for dt, dev in ((torch.float64, "cpu"), (torch.float64, "cuda"),
+                            (torch.float32, "cuda"))]
+    cpu, card, ctl = outs
+    require(sorted(card) == sorted(cpu) == sorted(ctl),
+            f"{label}: the outputs differ in name: {sorted(card)}, "
+            f"{sorted(cpu)}")
+    worst, bad = {}, []
+    for nm, b in cpu.items():
+        a, f = card[nm].cpu().double(), ctl[nm].cpu().double()
+        require(bool(torch.isfinite(b).all() and torch.isfinite(a).all()),
+                f"{label}: NaN or inf in {nm}")
+        top = 1.0 if nm.split("/")[-1] in AUDIT_ERRORS else float(
+            b.abs().max())
+        if top == 0.0:
+            require(float(a.abs().max()) == 0.0,
+                    f"{label}: {nm} is zero on the CPU, not on the card")
+            continue
+        r = float((a - b).abs().max()) / top
+        c = float((f - b).abs().max()) / top
+        worst[nm] = (r, c)
+        if not r <= tol:
+            bad.append(nm)
+        require(c > tol, f"{label}: the float32 control reads {nm} within "
+                         f"{tol:g}: the check could not tell a fault")
+    log(f"  {label}: card vs CPU, x each output's max (tol {tol:g}; the "
+        f"float32 control in brackets): " + ", ".join(
+            f"{nm} {r:.2e} ({c:.1e})" for nm, (r, c) in worst.items()))
+    require(not bad, f"{label}: the card disagrees with the CPU in {bad}")
+
+
+def _pressures(delp, ptop):
+    """pe and peln [6, K+1, y, x] from delp and ptop."""
+    import torch
+    pe = ptop + torch.cat([torch.zeros_like(delp[:, :1]),
+                           torch.cumsum(delp, 1)], 1)
+    return pe, torch.log(pe)
+
+
+def mp_options_inputs(st, names, ptop, phis, seed=7):
+    """gfdl_mp_driver's arguments on a moist big step's state (CPU float64):
+    the tracers with a seeded aerosol number liq_aero, w, seeded A-grid
+    winds and the surface geopotential hs."""
+    import numpy as np
+    import torch
+    d = dict(zip(names, st))
+    rng = np.random.default_rng(seed)
+    shape = tuple(d["pt"].shape)
+    like = dict(dtype=d["pt"].dtype, device=d["pt"].device)
+    q = {k: d[k] for k in TRACERS}
+    q["liq_aero"] = torch.as_tensor(rng.uniform(1e-11, 1e-8, shape), **like)
+    return dict(pt=d["pt"], delp=d["delp"], delz=d["delz"], q=q, w=d["w"],
+                ua=torch.as_tensor(rng.uniform(-30.0, 30.0, shape), **like),
+                va=torch.as_tensor(rng.uniform(-30.0, 30.0, shape), **like),
+                hs=torch.as_tensor(np.asarray(phis), **like), ptop=ptop)
+
+
+def run_mp_options(pt, delp, delz, q, w, ua, va, hs, ptop, dt=900.0,
+                   cfg=None, device=None):
+    """gfdl_mp_driver with MP_OPTIONS (or cfg), nonhydrostatic."""
+    from gfdl_atmos_cubed_sphere_tpu_torch.physics.gfdl_mp import (
+        MPConfig, gfdl_mp_driver)
+    q = {k: v.to(pt.device, pt.dtype) for k, v in q.items()}
+    return gfdl_mp_driver(pt, delp, delz, q, dt, ptop,
+                          cfg=cfg or MPConfig(**MP_OPTIONS),
+                          hydrostatic=False, w=w, ua=ua, va=va,
+                          hs=hs.to(pt.device, pt.dtype))
+
+
+def fv_sg_inputs(st, names, ptop, seed=11):
+    """fv_sg_adjust's arguments on a moist big step's state (CPU float64):
+    pe, peln, the gas-law pkz of theta_v, seeded A-grid winds."""
+    import numpy as np
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch import constants as con
+    d = dict(zip(names, st))
+    pe, peln = _pressures(d["delp"], ptop)
+    tv = d["pt"] * (1.0 + con.ZVIR * d["sphum"])
+    pkz = torch.exp(con.KAPPA * torch.log(-con.RDGAS / con.GRAV * d["delp"]
+                                          / d["delz"] * tv))
+    rng = np.random.default_rng(seed)
+    shape = tuple(d["pt"].shape)
+    like = dict(dtype=d["pt"].dtype, device=d["pt"].device)
+    return dict(delp=d["delp"], pe=pe, peln=peln, pkz=pkz, ta=d["pt"],
+                q={k: d[k] for k in TRACERS}, w=d["w"], delz=d["delz"],
+                ua=torch.as_tensor(rng.uniform(-30.0, 30.0, shape), **like),
+                va=torch.as_tensor(rng.uniform(-30.0, 30.0, shape), **like))
+
+
+def run_fv_sg(delp, pe, peln, pkz, ta, q, ua, va, w, delz, am5=False,
+              dt=900.0, device=None):
+    """fv_sg_adjust at FV_SG_ADJ (am5: fv_sg_adjust_am5 at tau FV_SG_ADJ),
+    nonhydrostatic."""
+    from gfdl_atmos_cubed_sphere_tpu_torch.ops import fv_sg
+    fn = fv_sg.fv_sg_adjust_am5 if am5 else fv_sg.fv_sg_adjust
+    q = {k: v.to(ta.device, ta.dtype) for k, v in q.items()}
+    return fn(dt, FV_SG_ADJ, delp, pe, peln, pkz, ta, q, ua, va,
+              hydrostatic=False, w=w, delz=delz)
+
+
+def fast_phys_c24_ic(geom, seed=3, gap=FAST_SEED_GAP):
+    """Phase 12c's initial state at C24L10: the moist wave with sphum
+    scaled by seeded 0.95-1.1 (supersaturated in places) and seeded
+    condensates (up to 1e-4 - 3e-4 kg/kg) wherever the temperature is more
+    than gap K from TICE and t_wfr (none within it)."""
+    import numpy as np
+    from gfdl_atmos_cubed_sphere_tpu_torch.grid.fv_eta import set_eta
+    from gfdl_atmos_cubed_sphere_tpu_torch.init.baroclinic import (
+        jw_baroclinic)
+    from gfdl_atmos_cubed_sphere_tpu_torch.physics.gfdl_mp import (
+        TICE, MPConfig)
+    _, ptop, ak, bk = set_eta(10)
+    ic = jw_baroclinic(geom, 10, ak, bk, ptop, perturb=True, moist=True)
+    rng = np.random.default_rng(seed)
+    shape = ic["sphum"].shape
+    t = np.asarray(ic["pt"])
+    away = ((np.abs(t - TICE) > gap)
+            & (np.abs(t - MPConfig().t_wfr) > gap))
+    q = {"sphum": ic["sphum"] * rng.uniform(0.95, 1.1, shape)}
+    for nm, top in (("liq_wat", 3e-4), ("rainwat", 3e-4), ("ice_wat", 2e-4),
+                    ("snowwat", 3e-4), ("graupel", 1e-4)):
+        q[nm] = np.where(away, rng.uniform(0.0, top, shape), 0.0)
+    return dict(ic, q=q)
+
+
+def fast_phys_card_vs_cpu(geom):
+    """Phase 12c: at C24L10 float64, card against CPU with phase 3's limits
+    (FAST_TOL: the precipitating tracers 5e-9) and its float32 control: (i)
+    one moist NH big step with do_fast_phys and MPConfig() (the mp_fast
+    chain) from fast_phys_c24_ic's state;
+    (ii) the same with the SHiELD
+    gfdl_mp_nml (sat_adjust as the fast physics); (iii) gfdl_mp_driver alone
+    with MP_OPTIONS on (ii)'s CPU state, with seeded liq_aero, ua, va and
+    the surface geopotential as hs; (iv) fv_sg_adjust and
+    fv_sg_adjust_am5 at FV_SG_ADJ on that state; (v) fill_gfs and fill2d
+    on seeded tracers with negatives."""
+    import numpy as np
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.model.grid_ops import (
+        build_grid_ops)
+    from gfdl_atmos_cubed_sphere_tpu_torch.ops import fv_fill
+    t0 = time.perf_counter()
+    case = BigStep(25, 10, 900.0, 1, 2, torch.float64, "cuda", geom=geom,
+                   ic=fast_phys_c24_ic(geom), moist=True, over=FAST_PHYS,
+                   bundle="fast_phys")
+    card_vs_cpu(case, steps=1, phase="12c (i)", tols=FAST_TOL)
+    case = BigStep(25, 10, 900.0, 1, 2, torch.float64, "cuda", geom=geom,
+                   ic=case.ic, moist=True, over=FAST_PHYS,
+                   bundle="fast_phys shield_mp", mp=shield_mp_config())
+    sc = card_vs_cpu(case, steps=1, phase="12c (ii)", tols=FAST_TOL)
+    log(f"  (12c i, ii: {time.perf_counter() - t0:.1f} s)")
+    phis = case.ic["phis"]
+    hold_card_vs_cpu("12c (iii) gfdl_mp_driver with MP_OPTIONS",
+                     run_mp_options, mp_options_inputs(sc, case.names,
+                                                       case.ptop, phis),
+                     MP_OUT)
+    sg = fv_sg_inputs(sc, case.names, case.ptop)
+    hold_card_vs_cpu(f"12c (iv) fv_sg_adjust fv_sg_adj {FV_SG_ADJ}",
+                     run_fv_sg, sg, SG_OUT)
+    hold_card_vs_cpu(f"12c (iv) fv_sg_adjust_am5 tau {FV_SG_ADJ}",
+                     run_fv_sg, dict(sg, am5=True), SG_OUT)
+    rng = np.random.default_rng(5)
+    q = torch.as_tensor(rng.uniform(-0.2, 1.0, (6, 24, 24, 10)))
+    dp = torch.movedim(sc[0], 1, -1).contiguous()
+    hold_card_vs_cpu("12c (v) fill_gfs", lambda q, dp, device: (
+        fv_fill.fill_gfs(q, dp),), dict(q=q, dp=dp), ("q",))
+    packs = {dev: build_grid_ops(25, dtype=torch.float64, device=dev,
+                                 geom=geom) for dev in ("cpu", "cuda")}
+    q2 = rng.uniform(1e-5, 1e-3, (6, 10, 24, 24))
+    q2[rng.uniform(size=q2.shape) < 0.1] *= -1.0
+    hold_card_vs_cpu("12c (v) fill2d", lambda q, delp, device: (
+        fv_fill.fill2d(q, delp, packs[device]),),
+        dict(q=torch.as_tensor(q2), delp=sc[0]), ("q",))
+    log(f"phase 12c: {time.perf_counter() - t0:.1f} s")
+
+
+def fast_phys_full_width(geom, ic, card, shapes, launches6):
+    """Phase 12a: the moist c192_nh step of phase 6 with do_fast_phys and
+    MPConfig() at C192L79 float32, timed as phase 6 (step_phase, its
+    launch counts those of phase 6 a big step), the hook's cost as this
+    step's s/step less phase 6's of this run. Returns the launches of its 5
+    big steps."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    case = BigStep(193, 79, 450.0, 2, 6, torch.float32, "cuda", geom=geom,
+                   ic=ic, moist=True, over=FAST_PHYS, bundle="fast_phys")
+    mass0 = mass(case.g, case.state[0])
+    state = case.step(case.state)     # in place of phase 6's captured step
+    launches = step_phase("12a c192_nh_fastphys moist f32", case, state,
+                          mass0, card, shapes, NH_PER_STEP, NH_KERNELS)
+    for name in NH_PER_STEP:
+        require(launches[name] == launches6[name],
+                f"12a: {name} launched {launches[name]} times in 5 big "
+                f"steps, phase 6 {launches6[name]}")
+    on, off = launches["s_per_step"], launches6["s_per_step"]
+    log(f"phase 12a: the inline fast physics costs {on - off:.4f} s/step "
+        f"({on:.4f} with it, {off:.4f} in phase 6 of this run) on {card}")
+    del case, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fast_phys_calls_c192l91(case, card):
+    """Phase 12b, at C192L91 float32 on 11a's initial state: gfdl_mp_driver
+    with the SHiELD gfdl_mp_nml and with MPConfig(), with MP_OPTIONS, and
+    fv_sg_adjust at FV_SG_ADJ: ms a call (CUDA events, median of 5) and the
+    device kernels a call (the profiler, one call)."""
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.physics.gfdl_mp import MPConfig
+    d = dict(zip(case.names, case.state))
+    mp_in = mp_options_inputs(case.state, case.names, case.ptop,
+                              case.ic["phis"])
+    sg = fv_sg_inputs(case.state, case.names, case.ptop)
+    calls = {
+        "gfdl_mp_driver shield gfdl_mp_nml": (lambda: run_mp_options(
+            **mp_in, dt=case.cfg.dt, cfg=shield_mp_config()), MP_OUT),
+        "gfdl_mp_driver MPConfig()": (lambda: run_mp_options(
+            **mp_in, dt=case.cfg.dt, cfg=MPConfig()), MP_OUT),
+        "gfdl_mp_driver MP_OPTIONS": (lambda: run_mp_options(
+            **mp_in, dt=case.cfg.dt), MP_OUT),
+        f"fv_sg_adjust fv_sg_adj {FV_SG_ADJ}": (lambda: run_fv_sg(
+            **sg, dt=case.cfg.dt), SG_OUT),
+    }
+    require(d["pt"].dtype == torch.float32, "12b runs in float32")
+    out = {}
+    for label, (fn, names) in calls.items():
+        res = named_outputs(fn(), names)
+        require(all(bool(torch.isfinite(v).all()) for v in res.values()),
+                f"12b {label}: NaN or inf")
+        ms = time_ms(fn, reps=5, warm=1)
+        every = own_kernel_launches(fn, reps=1, own=False)
+        n = sum(c for _, c in every.values())
+        out[label] = dict(ms=ms, device_kernels=n)
+        log(f"phase 12b {label} C192L91 f32 on {card}: {ms:.2f} ms a call, "
+            f"{n:g} device kernels a call")
+    return out
 
 
 def main():
@@ -2653,6 +3019,9 @@ def main():
     checked_c24 = shield_card_vs_cpu(geom24)
     log(f"phase 11c: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 12c. the inline fast physics and the MP options, card vs CPU ------
+    fast_phys_card_vs_cpu(geom24)
+
     # ---- 4. full width sw_c768 ----------------------------------------------
     state = list(step(state))                            # warm-up
     float(torch.sum(state[0]))
@@ -2689,6 +3058,12 @@ def main():
     m_launches = step_phase("6 c192_nh moist f32", nhm, nhm_state, nhm_mass0,
                             card, shapes_nh, NH_PER_STEP, NH_KERNELS)
     del nhm, nhm_state
+
+    # ---- 12a. the headline step with the inline fast physics ---------------
+    t0 = time.perf_counter()
+    fp_launches = fast_phys_full_width(geom192, moist_ic[0], card, shapes_nh,
+                                       m_launches)
+    log(f"phase 12a: {time.perf_counter() - t0:.1f} s")
 
     # ---- 7. full width c192_hydro moist --------------------------------------
     h_launches = step_phase("7 c192_hydro moist f32", hy, hy_state, hy_mass0,
@@ -2746,6 +3121,8 @@ def main():
             entry["depths"] = [r for r in col_depths if r["kernel"] == name]
         if path == "c192_nh moist":
             entry["c192_nh_dry"] = {"launches": nh_launches[name]}
+        # launches in phase 12a's 5 big steps with the inline fast physics
+        entry["c192_nh_fastphys"] = {"launches": fp_launches[name]}
         # launches per big step of the solo driver at C192L79 (phase 8b)
         entry["solo_hydro"] = {"launches": solo_hy_launches[name]}
         entry["solo_nh"] = {"launches": solo_nh_launches[name]}

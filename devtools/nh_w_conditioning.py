@@ -4,6 +4,7 @@
     python devtools/nh_w_conditioning.py --facade
     python devtools/nh_w_conditioning.py --solvers
     python devtools/nh_w_conditioning.py --bundle NAME [--bundle NAME ...]
+    python devtools/nh_w_conditioning.py --fastphys [--steps N] [--gap K]
 
 Runs the port's fv_dynamics_nh (or, with --hydro, fv_dynamics_hydro) on the
 CPU in float64 at chip_smoke's phase 3 setting (C24L10, dt = 900 s,
@@ -28,6 +29,13 @@ With --bundle it runs one dry big step of chip_smoke's phase 10a bundle
 NAME (chip_smoke.BUNDLES: the acoustic-loop options and Riemann solvers at
 C24L10, k_split = 1, n_split = 2, at the bundle's dt) in place of two
 plain steps.
+
+With --fastphys it runs chip_smoke's phase 12c steps: one moist big step
+(or --steps N) with the inline fast physics (do_fast_phys) from
+fast_phys_c24_ic's state, with MPConfig() (the mp_fast chain) and with the
+SHiELD gfdl_mp_nml (sat_adjust), the condensates seeded as the smoke seeds
+them (none within FAST_SEED_GAP K of TICE and t_wfr; --gap K for
+another margin, 0 for everywhere).
 
 With --solvers it runs the Riemann solvers of ops/nh_core.py on the column
 inputs of tests/test_torch_nh_core.py (the perturbed dry wave at C12L10,
@@ -227,6 +235,9 @@ def main():
     ap.add_argument("--hydro", action="store_true")
     ap.add_argument("--facade", action="store_true")
     ap.add_argument("--solvers", action="store_true")
+    ap.add_argument("--fastphys", action="store_true")
+    ap.add_argument("--steps", type=int, default=1)
+    ap.add_argument("--gap", type=float, default=None)
     ap.add_argument("--bundle", action="append", default=[],
                     choices=sorted(cs.BUNDLES))
     opt = ap.parse_args()
@@ -236,6 +247,21 @@ def main():
         return
     if opt.solvers:
         solvers()
+        return
+    if opt.fastphys:
+        from gfdl_atmos_cubed_sphere_tpu_torch.grid.metrics import (
+            build_grid_geometry)
+        geom = build_grid_geometry(25, ng=3)
+        gap = cs.FAST_SEED_GAP if opt.gap is None else opt.gap
+        ic = cs.fast_phys_c24_ic(geom, gap=gap)
+        for mp, name in ((None, "fast_phys"),
+                         (cs.shield_mp_config(), "fast_phys shield_mp")):
+            print(f"condensates seeded where T is over {gap:g} K from TICE "
+                  f"and t_wfr:")
+            spread(cs.BigStep(25, 10, 900.0, 1, 2, torch.float64, "cpu",
+                              geom=geom, ic=ic, moist=True,
+                              over=cs.FAST_PHYS, bundle=name, mp=mp),
+                   steps=opt.steps)
         return
     if opt.bundle:
         for name in opt.bundle:

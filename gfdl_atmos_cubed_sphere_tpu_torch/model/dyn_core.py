@@ -17,9 +17,10 @@ gradients split_p_grad / grad1_p_update (beta > 0, dyn_core.F90:1795,
 :2033), the external-mode damping external_mode_divg2 (d_ext > 0,
 hydrostatic), mix_dp (fill_dp, :2119) and the inline Rayleigh damping
 ray_fast (rf_fast, :2485), with every Riemann solver of ops/nh_core.py.
-
-Not ported (NotImplementedError): the inline fast_phys hook (do_fast_phys),
-which needs the microphysics' fast_sat_adj.
+The nonhydrostatic loop runs the inline fast physics (do_fast_phys,
+dyn_core.F90:1101-1109 / fast_phys.F90:58) at the end of each iteration
+when given a tracer dict and an MPConfig: the microphysics' fast_sat_adj,
+plain PyTorch.
 
 Fields are [6, npz, y, x]; level-interface fields [6, npz+1, y, x].
 """
@@ -566,19 +567,20 @@ def _column_options(cfg, ak, bk, dt, ptop):
     return dpmin, rfp
 
 
-def _check_nh_config(cfg):
-    if cfg.do_fast_phys:
-        raise NotImplementedError("dyn_core_nh: not ported: do_fast_phys")
-
-
 def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
-                n_split, dt_acoustic, dp0, ak=None, bk=None):
+                n_split, dt_acoustic, dp0, ak=None, bk=None, q=None,
+                fast_cfg=None, zvir=0.0):
     """Nonhydrostatic acoustic loop (dyn_core.F90, hydrostatic=.false.):
     per iteration c_sw -> update_dz_c -> Riem_Solver_C -> p_grad_c ->
     d_sw [-> mix_dp] -> update_dz_d -> Riem_Solver3 -> nh_p_grad
-    (split_p_grad when beta > 0) [-> ray_fast], as a Python loop over
-    n_split. ak, bk [K+1] (host arrays or tensors) feed fill_dp's floors and
-    rf_fast's profile; without them both are off, as in the JAX package.
+    (split_p_grad when beta > 0) [-> ray_fast] [-> fast_sat_adj], as a
+    Python loop over n_split. ak, bk [K+1] (host arrays or tensors) feed
+    fill_dp's floors and rf_fast's profile; without them both are off, as
+    in the JAX package. With an MPConfig fast_cfg and a non-empty tracer
+    dict q, each iteration ends in the inline fast physics (the do_fast_phys
+    hook, dyn_core.F90:1101-1109 / fast_phys.F90:58) on the carried
+    tracers; zvir is the virtual-temperature factor of theta_v (0 when the
+    big step runs without sphum).
 
     delp, pt (theta_v), w, delz: [6, K, n, n] interior; u, v D winds.
     The loop carries PADDED (delp, pt, w, zh): the grouped cell exchange
@@ -586,11 +588,15 @@ def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
     next iteration's c_sw, and the w / zh halos come back halo-valid from
     the columnar Riemann solve (the JAX package's carried-pad schedule).
     Returns the updated fields, the accumulated mass fluxes and Courant
-    numbers, and the final pressures (pe/peln/pk on the padded frame)."""
+    numbers, the final pressures (pe/peln/pk on the padded frame) and q
+    (the tracers after the fast physics, or q as given)."""
     from ..ops import nh_core
     from ..ops.csw import c_sw
     from ..ops.dsw import d_sw
-    _check_nh_config(cfg)
+    if fast_cfg is not None and q:
+        from ..physics.gfdl_mp import fast_sat_adj
+    else:
+        fast_cfg = None
     halo = g.halo
     f = fi
     npx = g.npx
@@ -634,6 +640,9 @@ def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
         dddmp=cfg.dddmp, d4_bg=cfg.d4_bg, ke_bg=cfg.ke_bg,
         lim_fac=cfg.lim_fac, **pl)
     dup = dvp = None
+    rrg = -con.RDGAS / con.GRAV
+    akx = akap / (1.0 - akap)
+    qd = dict(q) if fast_cfg is not None else None
 
     for it in range(n_split):
         u, v = halo.reconcile_dgrid(u, v)
@@ -689,6 +698,22 @@ def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
             # the w damping is columnar: on the PADDED w, so the carried
             # halos stay valid
             u, v, w_p = ray_fast(u, v, w_p, *rfp, hydrostatic=False)
+        if fast_cfg is not None:
+            # inline saturation adjustment on theta_v: pkz from the gas
+            # law, T and q adjusted, theta_v restored. Only the interior
+            # of the padded pt changes: its halo stays one phase stale, as
+            # in the reference, whose pt pack starts at dyn_core.F90:823
+            # before fast_phys runs at :1105
+            zh_i = zh_p[..., ctr, ctr]
+            delz_in = zh_i[:, 1:] - zh_i[:, :-1]
+            pkz = torch.exp(akx * torch.log(rrg * delp / delz_in * pt))
+            tvir = pt * pkz
+            t_abs = tvir / (1.0 + zvir * qd["sphum"]) if zvir else tvir
+            t_new, qd = fast_sat_adj(t_abs, delp, delz_in, qd, dt, ptop,
+                                     cfg=fast_cfg, hydrostatic=False)
+            tv_new = t_new * (1.0 + zvir * qd["sphum"]) if zvir else t_new
+            pt = tv_new / pkz
+            pt_p[..., ctr, ctr] = pt
         ws = ws_full[..., ctr, ctr]
 
     u, v = halo.reconcile_dgrid(u, v)
@@ -700,7 +725,8 @@ def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
     return SimpleNamespace(delp=delp, pt=pt_p[..., ctr, ctr], u=u, v=v,
                            w=w_p[..., ctr, ctr], delz=zh[:, 1:] - zh[:, :-1],
                            zh=zh, ws=ws, mfx=mfx, mfy=mfy, cx=cx, cy=cy,
-                           pe=pe, peln=peln, pk=torch.exp(akap * peln))
+                           pe=pe, peln=peln, pk=torch.exp(akap * peln),
+                           q=dict(q, **qd) if fast_cfg is not None else q)
 
 
 def dyn_core_hydro(delp, pt, u, v, g, cfg: DynConfig, akap, ptop, n_split,

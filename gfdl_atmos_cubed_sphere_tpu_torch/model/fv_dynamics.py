@@ -11,8 +11,10 @@ the ideal-case Rayleigh sponge (rayleigh_super) or the real-case Rayleigh
 friction (rayleigh_friction) when tau > 0 (unless the inline Rayleigh
 damping rf_fast takes its place in the acoustic loop), the global
 total-energy fixer (consv_te > 0) and the angular-momentum fixer
-(consv_am). The inline fast physics (do_fast_phys) is not ported and
-raises NotImplementedError.
+(consv_am). On the nonhydrostatic path do_fast_phys runs the inline fast
+physics (fast_sat_adj) inside the acoustic loop on the tracers, with
+mp_cfg as its configuration; without mp_cfg it does nothing, as in the
+JAX package.
 
 State carried between calls: u, v (D winds), delp, pt = TEMPERATURE, the
 tracer dict q, and on the nonhydrostatic path w (m/s) and delz (m,
@@ -245,7 +247,7 @@ def _moist_physics(pt, delp, delz, q, w, cfg, ptop, mp_cfg, hydrostatic):
     Returns (pt, q, w, mp_diag)."""
     if not (q and not cfg.adiabatic and "liq_wat" in q):
         return pt, q, w, None
-    pt, q = fv_sg.neg_adj3(pt, delp, q, hydrostatic=hydrostatic)
+    pt, q = fv_sg.neg_adj3(pt, delp, q, delz=delz, hydrostatic=hydrostatic)
     if mp_cfg is None:
         return pt, q, w, None
     pt, q, mp_diag = gfdl_mp.gfdl_mp_driver(
@@ -283,13 +285,11 @@ def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
     neg_adj3 runs, then gfdl_mp_driver when mp_cfg is given. ak, bk: [K+1]
     (numpy or tensors); dp0: the reference pressure-thickness profile;
     u0, v0: the sponge's reference winds (tau > 0). cfg.consv_te > 0 turns
-    on the total-energy fixer, cfg.consv_am the angular-momentum fixer.
-    Returns SimpleNamespace(delp, pt, u, v, w, delz, q, ps, mp_diag,
-    omga)."""
+    on the total-energy fixer, cfg.consv_am the angular-momentum fixer,
+    cfg.do_fast_phys the inline fast physics in the acoustic loop with
+    mp_cfg (dyn_core_nh's fast_cfg). Returns SimpleNamespace(delp, pt, u,
+    v, w, delz, q, ps, mp_diag, omga)."""
     from .dyn_core import dyn_core_nh
-    if cfg.do_fast_phys:
-        raise NotImplementedError(
-            "fv_dynamics_nh: not ported: do_fast_phys (inline fast physics)")
     akap = con.KAPPA
     rrg = -con.RDGAS / con.GRAV
     cv_air = con.CP_AIR - con.RDGAS
@@ -324,7 +324,11 @@ def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
         dp1 = delp
         res = dyn_core_nh(delp, ptv, u, v, w, delz, g, cfg, akap, ptop,
                           cfg.n_split, mdt / cfg.n_split, dp0, ak=aknp,
-                          bk=bknp)
+                          bk=bknp, q=q if cfg.do_fast_phys else None,
+                          fast_cfg=mp_cfg if cfg.do_fast_phys else None,
+                          zvir=zvir)
+        if cfg.do_fast_phys and res.q is not None:
+            q = res.q
         conv = conv + _mass_convergence(res.mfx, res.mfy, g)
         if q:
             q, _ = tracer.tracer_2d(q, dp1, res.mfx, res.mfy, res.cx,

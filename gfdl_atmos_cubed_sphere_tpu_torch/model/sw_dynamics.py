@@ -51,6 +51,12 @@ class SWConfig:
     advection_only: bool = False   # Williamson case 1
 
 
+def sw_state(delp, u, v, phis, uc=None, vc=None):
+    """The shallow-water state as one namespace (delp, u, v, phis and the
+    optional C-grid winds)."""
+    return SimpleNamespace(delp=delp, u=u, v=v, phis=phis, uc=uc, vc=vc)
+
+
 def prepare_phis(g, phis):
     """Attach the halo-padded static surface geopotential to the grid pack."""
     g.phis_p = g.halo.pad_cell(torch.as_tensor(phis, dtype=g.dtype,

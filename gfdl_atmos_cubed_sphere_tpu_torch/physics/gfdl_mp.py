@@ -4,20 +4,18 @@ Counterpart of gfdl_atmos_cubed_sphere_tpu/physics/gfdl_mp.py: the
 six-category (vapour, cloud water, rain, cloud ice, snow, graupel) GFDL
 scheme of FV3 model/gfdl_mp.F90 on the path of gfdl_mp_driver:607 ->
 mp_full:1892 (sedimentation -> warm rain -> ice cloud -> saturation
-adjustment), written as batched elementwise and column ops over
+adjustment, or subgrid_z_proc under use_subgrid_proc), and the inline
+fast physics fast_sat_adj (the mp_fast process chain, or the condensed
+sat_adjust), written as batched elementwise and column ops over
 [6, K, y, x]. No TPU kernel runs here.
 
 Scalars the JAX package folds in Python doubles before they meet an array
 (1 - exp(-dts / tau), aone, fac_rc, the coefficient pack of mp_coeffs) are
 folded the same way here. The JAX package's lax.scans down the column
-(implicit_fall, sedi_w) are Python loops over K in the same direction with
-the same carried state.
-
-Not ported, raising NotImplementedError where a configuration asks for
-them: explicit_fall (sedflag 2), prog_ccn, consv_checker,
-use_subgrid_proc (subgrid_z_proc), sedi_uv (do_sedi_uv) and the
-fast-physics chain (fast_sat_adj, mp_fast): gfdl_mp_driver refuses a
-setting of UNPORTED_SETTINGS other than its default.
+(implicit_fall, sedi_w, sedi_uv) are Python loops over K in the same
+direction with the same carried state; its lax.while_loop in
+explicit_fall is a Python loop to the largest per-column substep count,
+read from the device once per call.
 """
 
 import math
@@ -49,6 +47,8 @@ RHO0 = 1.2             # reference air density for denfac
 QCMIN = 1.0e-12        # min condensate
 QFMIN = 1.0e-8         # min falling condensate
 
+RHOW, RHOI, RHOR, RHOS, RHOG = 1.0e3, 9.17e2, 1.0e3, 1.0e2, 4.0e2
+
 NAMES = ("sphum", "liq_wat", "rainwat", "ice_wat", "snowwat", "graupel")
 
 
@@ -56,10 +56,9 @@ NAMES = ("sphum", "liq_wat", "rainwat", "ice_wat", "snowwat", "graupel")
 class MPConfig:
     """gfdl_mp_nml (defaults from gfdl_mp.F90:320-460): the JAX
     package's MPConfig, field for field, with the same defaults and
-    order, so any of its namelists parses. The settings that only
-    unported processes read (the mp_fast chain, sedi_uv, subgrid_z_proc)
-    are stored; gfdl_mp_driver refuses a value other than the default
-    (UNPORTED_SETTINGS), where the process would run."""
+    order, so any of its namelists parses. tau_g2r, tau_gmlt, rh_inc and
+    rh_inr have no reader in the JAX package either and are only
+    stored."""
     ntimes: int = 1
     tau_v2l: float = 150.0     # condensation timescale (s)
     tau_l2v: float = 300.0     # evaporation
@@ -196,24 +195,27 @@ class MPConfig:
 
 _COEFF_CACHE = {}
 
-#: settings read only by processes the port lacks: the fast-physics chain
-#: (fast_sat_adj, mp_fast and pinst, gfdl_mp.F90:1995, :4113), the
-#: per-process subgrid_z_proc (:3989) and the momentum sedimentation
-#: sedi_uv (:5622). gfdl_mp_driver raises on a value other than the
-#: default. tau_g2r, tau_gmlt, rh_inc and rh_inr have no reader in the JAX
-#: package either and are only stored.
-UNPORTED_SETTINGS = (
-    "do_sedi_uv", "use_mp_fast", "rh_adj",
-    "fast_fr_mlt", "fast_dep_sub", "delay_cond_evap", "nconds",
-    "do_evap_timescale", "do_cond_timescale", "rh_fac_evap", "rh_fac_cond",
-    "use_rhc_cevap", "rhc_cevap", "do_wbf", "tau_imlt", "tau_wbf",
-    "tau_r2g", "tau_l2r", "tau_smlt", "ql_mlt", "qi0_max", "qi_lim",
-    "is_fac", "ss_fac", "gs_fac", "inflag", "igflag", "tice_mlt")
+
+def _tv_coeffs(alin, blin, mu, n0_sig, n0_exp, rho_x, extra=1.0):
+    """setup_mp:823-844 terminal-velocity PSD coefficients (host scalars).
+    vt = (tva/tvb) * (6*den*q) ** (blin/(mu+3))."""
+    g = math.gamma
+    tva = (math.exp(-blin / (mu + 3) * math.log(n0_sig)) * alin
+           * g(mu + blin + 3)
+           * math.exp(-blin * n0_exp / (mu + 3) * math.log(10.0))) * extra
+    tvb = (math.exp(blin / (mu + 3) * math.log(math.pi * rho_x * g(mu + 3)))
+           * g(mu + 3))
+    return tva / tvb, blin / (mu + 3)
 
 
-def _not_ported(what):
-    raise NotImplementedError(f"gfdl_mp: {what} is not ported")
-
+# defaults (gfdl_mp.F90:339-377); graupel gets the gcon drag factor
+_GCON = math.sqrt(4.0 * con.GRAV * RHOG / (3.0 * 0.5 * RHO0))
+_TV = {
+    "qr": _tv_coeffs(842.0, 0.8, 1.0, 8.0, 6.0, RHOR),
+    "qi": _tv_coeffs(7.0e2, 1.0, 3.35, 1.3, 18.0, RHOI),
+    "qs": _tv_coeffs(4.8, 0.25, 1.0, 3.0, 6.0, RHOS),
+    "qg": _tv_coeffs(1.0, 0.5, 1.0, 4.0, 6.0, RHOG, extra=_GCON),
+}
 
 def _zero(a):
     return torch.zeros((), dtype=a.dtype, device=a.device)
@@ -333,21 +335,25 @@ def _mhc(qv, ql, qr, qi, qs, qg):
             + q_liq * C_LIQ + q_sol * C_ICE)
 
 
-def _cal_mhc_lhc(t, qv, ql, qr, qi, qs, qg):
+def _cal_mhc_lhc(t, qv, ql, qr, qi, qs, qg, t_wfr):
     """cvm, the conserved moist energy te8 = cvm*T + lv00*qv - li00*q_sol,
-    and the latent-heat factors (cal_mhc_lhc / update_qt)."""
+    and the latent-heat factors (cal_mhc_lhc / update_qt); tcp3 blends
+    lcpk and icpk across the band from TICE down to t_wfr."""
     cvm = _mhc(qv, ql, qr, qi, qs, qg)
     te8 = cvm * t + LV0 * qv - LI0 * (qi + qs + qg)
     lcpk = (LV0 + DC_VAP * t) / cvm
     icpk = (LI0 + DC_ICE * t) / cvm
     tcpk = (LI2 + (DC_VAP + DC_ICE) * t) / cvm
-    return cvm, te8, lcpk, icpk, tcpk
+    tcp3 = lcpk + icpk * torch.clamp_max(
+        torch.clamp_min(TICE - t, 0.0) / (TICE - t_wfr), 1.0)
+    return cvm, te8, lcpk, icpk, tcpk, tcp3
 
 
 def _update_qt(st, dqv, dql, dqr, dqi, dqs, dqg):
     """Apply increments and recover T from the conserved te8 (update_qt:
-    6951). st is a dict with keys t, qv, ql, qr, qi, qs, qg, te8;
-    cvm/lcpk/icpk/tcpk are refreshed."""
+    6951). st is a dict with keys t, qv, ql, qr, qi, qs, qg, te8 (and
+    t_wfr in the fast-physics processes); cvm/lcpk/icpk/tcpk are
+    refreshed, and tcp3 where st holds t_wfr."""
     st["qv"] = st["qv"] + dqv
     st["ql"] = st["ql"] + dql
     st["qr"] = st["qr"] + dqr
@@ -362,6 +368,9 @@ def _update_qt(st, dqv, dql, dqr, dqi, dqs, dqg):
     st["lcpk"] = (LV0 + DC_VAP * t) / cvm
     st["icpk"] = (LI0 + DC_ICE * t) / cvm
     st["tcpk"] = (LI2 + (DC_VAP + DC_ICE) * t) / cvm
+    if "t_wfr" in st:       # refresh tcp3 too (update_qt:6987)
+        st["tcp3"] = st["lcpk"] + st["icpk"] * torch.clamp_max(
+            torch.clamp_min(TICE - t, 0.0) / (TICE - st["t_wfr"]), 1.0)
     return st
 
 
@@ -405,6 +414,42 @@ def implicit_fall(q, vt, dz, dp, dts):
     return qm / dp, m1[:, -1], m1
 
 
+def explicit_fall(q, vt, dz, dp, dts):
+    """Sub-stepped explicit upstream sedimentation (explicit_fall:5311,
+    sedflag=2). The CFL-limited substep count is per column, as the
+    reference computes it: nstep(i,j) = 1 + max_k(dts*vt/dz), so the result
+    is column-local (one count for the whole batch would change every
+    column whose own CFL maximum is smaller). The loop runs to the largest
+    count, read from the device once per call (the only host read of the
+    microphysics); columns that finished earlier are masked to no-ops, so
+    the extra trips do not change their values."""
+    q0 = q * dp
+    dd_full = dts * vt
+    nstep_col = (1 + torch.amax(dd_full / dz, dim=1,
+                                keepdim=True)).to(torch.int32)
+    dd = dd_full / nstep_col.to(q.dtype)
+    frac = dd / dz
+    qm = q0
+    for n in range(int(nstep_col.max())):
+        active = (n < nstep_col).to(q.dtype)
+        flux = qm * frac * active
+        qm = qm - flux + _shift_down(flux, torch.zeros_like(flux[:, :1]))
+    m1 = torch.cumsum(q0 - qm, dim=1)
+    return qm / dp, m1[:, -1], m1
+
+
+def sedi_uv(m1, dp, u, v):
+    """Horizontal-momentum transport by falling condensate (sedi_uv:5622):
+    u(k) = (dp(k) u(k) + m1(k-1) u(k-1)) / (dp(k) + m1(k-1)), sequential
+    in k (it uses the already updated u(k-1))."""
+    uo, vo = [u[:, 0]], [v[:, 0]]
+    for k in range(1, u.shape[1]):
+        dd, m_up = dp[:, k], m1[:, k - 1]
+        uo.append((dd * u[:, k] + m_up * uo[-1]) / (dd + m_up))
+        vo.append((dd * v[:, k] + m_up * vo[-1]) / (dd + m_up))
+    return torch.stack(uo, 1), torch.stack(vo, 1)
+
+
 def sedi_w(m1, w, vt, dm):
     """Vertical-momentum transport by falling condensate (sedi_w:5653):
     the falling mass m1(k-1) arrives carrying w(k-1) - vt(k-1); the top
@@ -417,15 +462,44 @@ def sedi_w(m1, w, vt, dm):
     return torch.stack(out, 1)
 
 
-def compute_ccn(den, cfg: MPConfig):
-    """Cloud-condensation-nuclei mixing number (mpdrv:1377-1393), #/m^3
-    over den: the land/ocean blend with no surface geopotential given, so
-    land = 0 (the JAX package's hs=None). prog_ccn is not ported."""
-    if cfg.prog_ccn:
-        _not_ported("prog_ccn")
-    land = 0.0
+def compute_ccn(den, cfg: MPConfig, hs=None, qnl=None):
+    """Cloud-condensation-nuclei mixing number (mpdrv:1377-1393).
+
+    prog_ccn: Boucher & Lohmann (1995) from the prognostic aerosol number
+    tracer qnl (Yi Ming's method); else a land/ocean blend weighted by the
+    surface geopotential |hs| (the land proxy; land = 0 without hs).
+    Returns ccn in #/m^3 over den."""
+    if hs is None:
+        land = 0.0
+    else:
+        land = torch.clamp_max(torch.abs(hs) / (10.0 * con.GRAV), 1.0)
+        if land.ndim == den.ndim - 1 and land.ndim == 3:
+            land = land[:, None]            # [6, 1, y, x] over K
+    if cfg.prog_ccn and qnl is not None:
+        qn = torch.clamp_min(qnl * den * 1.0e9, 1.0e-20)
+        nl = (land * 10.0 ** 2.24 * torch.exp(0.257 * torch.log(qn))
+              + (1.0 - land) * 10.0 ** 2.06 * torch.exp(0.48 * torch.log(qn)))
+        return torch.clamp_min(nl, 10.0) * 1.0e6 / den
     ccn0 = (cfg.ccn_l * land + cfg.ccn_o * (1.0 - land)) * 1.0e6
     return ccn0 / torch.clamp_min(den, 1.0e-10)
+
+
+def mte_column(t, qv, ql, qr, qi, qs, qg, dp, u=None, v=None, w=None):
+    """Column moist total energy and total water (mte:6768 / mtetw:6809),
+    both per unit area: te [J/m^2], tw [kg/m^2]. KE terms included when
+    the winds are given."""
+    q_liq = ql + qr
+    q_sol = qi + qs + qg
+    cvm = ((1.0 - (qv + q_liq + q_sol)) * CV_AIR + qv * CV_VAP
+           + q_liq * C_LIQ + q_sol * C_ICE)
+    te = cvm * t + LV0 * qv - LI0 * q_sol
+    if u is not None:
+        te = te + 0.5 * (u * u + v * v)
+    if w is not None:
+        te = te + 0.5 * w * w
+    te_col = torch.sum(RGRAV * te * dp, dim=1)
+    tw_col = torch.sum(RGRAV * (qv + q_liq + q_sol) * dp, dim=1)
+    return te_col, tw_col
 
 
 def _shift_down(a, top):
@@ -444,21 +518,21 @@ def _sedi_heat(t, m1, dp, dz, cw_spec, qv, ql, qr, qi, qs, qg):
 
 
 def sedimentation(t, qv, ql, qr, qi, qs, qg, dp, dz, den, denfac, dts,
-                  cfg: MPConfig, w=None):
+                  cfg: MPConfig, u=None, v=None, w=None):
     """Fall of rain/ice/snow/graupel (sedimentation:2156 /
-    terminal_fall:2530). Per species: terminal velocity, implicit fall,
-    then momentum transport (sedi_w:5653) and sedimentation heating.
-    Returns (t, qr, qi, qs, qg, precip, w)."""
-    if cfg.sedflag == 2:
-        _not_ported("explicit_fall (sedflag 2)")
+    terminal_fall:2530). Per species: terminal velocity, fall (implicit or
+    explicit per cfg.sedflag), then the reference's terminal_fall tail:
+    momentum transport (sedi_uv:5622 / sedi_w:5653) and sedimentation
+    heating. Returns (t, qr, qi, qs, qg, precip, u, v, w)."""
     precip = {}
+    fall = implicit_fall if cfg.sedflag != 2 else explicit_fall
     if cfg.do_sedi_w and w is not None:
         # moist air mass from the pre-sedimentation state, once for all
         # species (terminal_fall computes dm before any fall updates q)
         dm = dp * (1.0 + qv + ql + qr + qi + qs + qg)
     for name, qx in (("qi", qi), ("qs", qs), ("qg", qg), ("qr", qr)):
         vt = terminal_velocity(name, qx, den, denfac, cfg)
-        qx_new, p, m1 = implicit_fall(qx, vt, dz, dp, dts)
+        qx_new, p, m1 = fall(qx, vt, dz, dp, dts)
         if name == "qr":
             qr = qx_new
         elif name == "qi":
@@ -467,13 +541,15 @@ def sedimentation(t, qv, ql, qr, qi, qs, qg, dp, dz, den, denfac, dts,
             qs = qx_new
         else:
             qg = qx_new
+        if cfg.do_sedi_uv and u is not None:
+            u, v = sedi_uv(m1, dp, u, v)
         if cfg.do_sedi_w and w is not None:
             w = sedi_w(m1, w, vt, dm)
         if cfg.do_sedi_heat:
             cw = C_LIQ if name == "qr" else C_ICE
             t = _sedi_heat(t, m1, dp, dz, cw, qv, ql, qr, qi, qs, qg)
         precip[name] = p * RGRAV            # kg/m^2
-    return t, qr, qi, qs, qg, precip, w
+    return t, qr, qi, qs, qg, precip, u, v, w
 
 
 def warm_rain(t, qv, ql, qr, qi, qs, qg, p_lay, den, denfac, dts,
@@ -540,7 +616,8 @@ def ice_cloud(t, qv, ql, qr, qi, qs, qg, p_lay, den, denfac, dts,
     z = _zero(t)
 
     st = dict(t=t, qv=qv, ql=ql, qr=qr, qi=qi, qs=qs, qg=qg)
-    cvm, te8, lcpk, icpk, tcpk = _cal_mhc_lhc(t, qv, ql, qr, qi, qs, qg)
+    cvm, te8, lcpk, icpk, tcpk, _ = _cal_mhc_lhc(
+        t, qv, ql, qr, qi, qs, qg, t_wfr)
     st.update(cvm=cvm, te8=te8, lcpk=lcpk, icpk=icpk, tcpk=tcpk)
 
     def tvel(name, q):
@@ -787,16 +864,19 @@ def cloud_fraction(qv, ql, qi, qs, p_lay, t, rh_inc=0.25):
 
 
 def mp_full(t, qv, ql, qr, qi, qs, qg, delp, dz, den, denfac, dts, p_lay,
-            cfg: MPConfig, ccn=None, w=None):
+            cfg: MPConfig, ccn=None, ua=None, va=None, w=None):
     """Full microphysics loop (mp_full, gfdl_mp.F90:1892): per subcycle
-    sedimentation -> warm rain -> ice cloud -> saturation adjustment,
-    ntimes times. Returns (t, qv..qg, w, rain, ice, snow, graupel)."""
-    if cfg.use_subgrid_proc:
-        _not_ported("use_subgrid_proc (subgrid_z_proc)")
+    sedimentation -> warm rain -> ice cloud -> the temperature-sensitive
+    saturation processes (subgrid_z_proc under cfg.use_subgrid_proc, else
+    the condensed sat_adjust), ntimes times. Returns (t, qv..qg, ua, va,
+    w, rain, ice, snow, graupel)."""
     rain = snow = icep = graup = 0.0
     for _ in range(cfg.ntimes):
-        t, qr, qi, qs, qg, pcp, w = sedimentation(
-            t, qv, ql, qr, qi, qs, qg, delp, dz, den, denfac, dts, cfg, w=w)
+        t, qr, qi, qs, qg, pcp, ua_n, va_n, w = sedimentation(
+            t, qv, ql, qr, qi, qs, qg, delp, dz, den, denfac, dts, cfg,
+            u=ua, v=va, w=w)
+        if ua_n is not None:
+            ua, va = ua_n, va_n
         rain = rain + pcp["qr"]
         icep = icep + pcp["qi"]
         snow = snow + pcp["qs"]
@@ -805,59 +885,83 @@ def mp_full(t, qv, ql, qr, qi, qs, qg, delp, dz, den, denfac, dts, p_lay,
                                   denfac, dts, cfg, ccn=ccn)
         t, qv, ql, qr, qi, qs, qg = ice_cloud(
             t, qv, ql, qr, qi, qs, qg, p_lay, den, denfac, dts, cfg)
-        t, qv, ql, qr, qi, qs, qg = sat_adjust(
-            t, qv, ql, qr, qi, qs, qg, p_lay, dts, cfg)
-    return t, qv, ql, qr, qi, qs, qg, w, rain, icep, snow, graup
+        if cfg.use_subgrid_proc:
+            t, qv, ql, qr, qi, qs, qg = subgrid_z_proc(
+                t, qv, ql, qr, qi, qs, qg, delp, den, denfac, dts, cfg,
+                rh_adj=cfg.rh_adj, ccn=ccn)
+        else:
+            t, qv, ql, qr, qi, qs, qg = sat_adjust(
+                t, qv, ql, qr, qi, qs, qg, p_lay, dts, cfg)
+    return (t, qv, ql, qr, qi, qs, qg, ua, va, w,
+            rain, icep, snow, graup)
+
+
+def _layer_pressure(delp, ptop):
+    """Layer-mean pressure delp / dlog(pe) from the interface pressures."""
+    pe = ptop + torch.cumsum(delp, dim=1)
+    pe = torch.cat([torch.full_like(pe[:, :1], ptop), pe], dim=1)
+    peln = torch.log(pe)
+    return delp / (peln[:, 1:] - peln[:, :-1]), peln
+
+
+def _layer_thickness(t, qv, delz, peln, hydrostatic):
+    """Layer thickness dz > 0: from the hydrostatic relation, or -delz."""
+    if hydrostatic or delz is None:
+        tv = t * (1.0 + con.ZVIR * qv)
+        return con.RDGAS * tv / con.GRAV * (peln[:, 1:] - peln[:, :-1])
+    return -delz
 
 
 def gfdl_mp_driver(pt, delp, delz, q, dt, ptop, cfg: MPConfig = MPConfig(),
-                   hydrostatic=False, w=None):
+                   hydrostatic=False, w=None, ua=None, va=None, hs=None):
     """One physics step of microphysics (gfdl_mp_driver:607 / mpdrv:1167).
 
     pt: TEMPERATURE [6,K,y,x]; q: dict with the 6 categories (+ optional
-    cld_amt). delz < 0 (heights) for the nonhydrostatic gas-law density;
-    hydrostatic mode derives density from the hydrostatic relation. w: the
-    vertical wind for sedimentation momentum transport (do_sedi_w; returned
-    in diag['w'] when passed). Returns (pt, q, diag with precip
-    accumulations rain/ice/snow/graupel [kg/m^2])."""
-    if cfg.consv_checker:
-        _not_ported("consv_checker")
-    default = MPConfig()
-    for name in UNPORTED_SETTINGS:
-        if getattr(cfg, name) != getattr(default, name):
-            _not_ported(f"the process that {name} = {getattr(cfg, name)!r} "
-                        "asks for")
+    cld_amt, and optionally 'liq_aero', the prognostic aerosol number
+    tracer prog_ccn reads). delz < 0 (heights) for the nonhydrostatic
+    gas-law density; hydrostatic mode derives density from the hydrostatic
+    relation. w/ua/va: winds for sedimentation momentum transport
+    (do_sedi_w/do_sedi_uv; returned in diag['w'/'ua'/'va'] only when
+    passed). hs: surface geopotential (the land proxy for CCN). Returns
+    (pt, q, diag with precip accumulations rain/ice/snow/graupel [kg/m^2];
+    cfg.consv_checker adds the mtetw audits te_beg/te_end/tw_beg/tw_end/
+    te_err/tw_err, mpdrv:1365/:1570)."""
     z = torch.zeros_like(pt)
     qv, ql, qr, qi, qs, qg = (q.get(k, z) for k in NAMES)
     t = pt
     if hydrostatic:
         w = None
 
-    pe = ptop + torch.cumsum(delp, dim=1)
-    pe = torch.cat([torch.full_like(pe[:, :1], ptop), pe], dim=1)
-    peln = torch.log(pe)
-    p_lay = delp / (peln[:, 1:] - peln[:, :-1])
-
-    if hydrostatic or delz is None:
-        tv = t * (1.0 + con.ZVIR * qv)
-        dz = con.RDGAS * tv / con.GRAV * (peln[:, 1:] - peln[:, :-1])
-    else:
-        dz = -delz
+    p_lay, peln = _layer_pressure(delp, ptop)
+    dz = _layer_thickness(t, qv, delz, peln, hydrostatic)
     den = delp / (con.GRAV * dz)
     denfac = torch.sqrt(RHO0 / torch.clamp_min(den, 1e-10))
-    ccn = compute_ccn(den, cfg)
+    ccn = compute_ccn(den, cfg, hs=hs, qnl=q.get("liq_aero"))
+
+    if cfg.consv_checker:
+        te_beg, tw_beg = mte_column(t, qv, ql, qr, qi, qs, qg, delp,
+                                    u=ua, v=va, w=w)
     w_in = w
+    ua_in, va_in = ua, va
 
     dts = dt / cfg.ntimes
-    t, qv, ql, qr, qi, qs, qg, w, rain, icep, snow, graup = mp_full(
+    (t, qv, ql, qr, qi, qs, qg, ua, va, w,
+     rain, icep, snow, graup) = mp_full(
         t, qv, ql, qr, qi, qs, qg, delp, dz, den, denfac, dts, p_lay,
-        cfg, ccn=ccn, w=w)
+        cfg, ccn=ccn, ua=ua, va=va, w=w)
 
     # kinetic energy lost by sedimentation momentum transport goes to heat
-    # (mpdrv:1550-1566, the sedi_w term 0.5*(wa^2 - w^2)/c8)
+    # (mpdrv:1550-1566: the sedi_uv term 0.5*(ua^2+va^2 - u^2-v^2)/c8 and
+    # the sedi_w term 0.5*(wa^2 - w^2)/c8)
+    ke_heat = None
     if w is not None and w_in is not None and cfg.do_sedi_w:
+        ke_heat = 0.5 * (w_in * w_in - w * w)
+    if cfg.do_sedi_uv and ua is not None and ua_in is not None:
+        duv = 0.5 * (ua_in * ua_in + va_in * va_in - ua * ua - va * va)
+        ke_heat = duv if ke_heat is None else ke_heat + duv
+    if ke_heat is not None:
         cvm, _, _ = _heat_capacities(qv, ql, qr, qi, qs, qg, t)
-        t = t + 0.5 * (w_in * w_in - w * w) / cvm
+        t = t + ke_heat / cvm
 
     out = dict(q)
     for k, v in zip(NAMES, (qv, ql, qr, qi, qs, qg)):
@@ -867,4 +971,385 @@ def gfdl_mp_driver(pt, delp, delz, q, dt, ptop, cfg: MPConfig = MPConfig(),
     diag = dict(rain=rain, ice=icep, snow=snow, graupel=graup)
     if w is not None and w_in is not None:
         diag["w"] = w
+    if cfg.do_sedi_uv and ua is not None:
+        diag["ua"], diag["va"] = ua, va
+    if cfg.consv_checker:
+        te_end, tw_end = mte_column(t, qv, ql, qr, qi, qs, qg, delp,
+                                    u=ua, v=va, w=w)
+        surf_w = rain + icep + snow + graup       # kg/m^2 left the column
+        diag.update(
+            te_beg=te_beg, te_end=te_end, tw_beg=tw_beg, tw_end=tw_end,
+            tw_err=(tw_end + surf_w - tw_beg) / torch.clamp_min(tw_beg,
+                                                                1e-30),
+            te_err=(te_end - te_beg) / torch.clamp_min(torch.abs(te_beg),
+                                                       1e-30))
     return t, out, diag
+
+
+def fast_sat_adj(pt, delp, delz, q, dt, ptop, cfg: MPConfig = MPConfig(),
+                 hydrostatic=False, last_step=True):
+    """Inline fast physics (the dyn_core 'fast physics' hook,
+    fast_phys.F90:58): with cfg.use_mp_fast (default), the mp_fast process
+    chain (gfdl_mp.F90:1995); otherwise the condensed melt/freeze +
+    vapor<->liquid<->ice sat_adjust. pt: TEMPERATURE. Returns (t, q) with
+    only the categories present in q replaced."""
+    z = torch.zeros_like(pt)
+    qv, ql, qr, qi, qs, qg = (q.get(k, z) for k in NAMES)
+    p_lay, peln = _layer_pressure(delp, ptop)
+    if cfg.use_mp_fast:
+        dz = _layer_thickness(pt, qv, delz, peln, hydrostatic)
+        den = delp / (con.GRAV * dz)
+        denfac = torch.sqrt(RHO0 / torch.clamp_min(den, 1e-10))
+        t, qv, ql, qr, qi, qs, qg = mp_fast(
+            pt, qv, ql, qr, qi, qs, qg, dt, delp, den, denfac, cfg,
+            last_step=last_step)
+    else:
+        t, qv, ql, qr, qi, qs, qg = sat_adjust(pt, qv, ql, qr, qi, qs, qg,
+                                               p_lay, dt, cfg)
+    out = dict(q)
+    for k, v in zip(NAMES, (qv, ql, qr, qi, qs, qg)):
+        if k in q:
+            out[k] = v
+    return t, out
+
+
+# ---------------------------------------------------------------------------
+# Fast-physics process set: the mp_fast chain (gfdl_mp.F90 mp_fast:1995)
+# run inside the acoustic loop from the fast_phys hook, and the
+# per-process subgrid_z_proc of mp_full. Each process works on a state dict
+# st = {t, qv, ql, qr, qi, qs, qg, te8, cvm, lcpk, icpk, tcpk, tcp3, t_wfr}
+# with masked sinks and the conserved-energy update_qt bookkeeping
+# (_update_qt).
+# ---------------------------------------------------------------------------
+
+DT_FR = 8.0       # t_wfr - dt_fr = min temp liquid water exists (:181)
+TCOND = 2.40e-2   # thermal conductivity of air at 0 C (:151)
+VDIFU = 2.25e-5   # vapor diffusivity at 0 C (:150)
+
+
+def _st_init(t, qv, ql, qr, qi, qs, qg, t_wfr):
+    cvm, te8, lcpk, icpk, tcpk, tcp3 = _cal_mhc_lhc(
+        t, qv, ql, qr, qi, qs, qg, t_wfr)
+    return dict(t=t, qv=qv, ql=ql, qr=qr, qi=qi, qs=qs, qg=qg, te8=te8,
+                cvm=cvm, lcpk=lcpk, icpk=icpk, tcpk=tcpk, tcp3=tcp3,
+                t_wfr=t_wfr)
+
+
+def pimlt(st, dts, cfg: MPConfig):
+    """Cloud ice melting -> cloud water + rain (pimlt:3244)."""
+    z = _zero(st["t"])
+    fac = 1.0 - math.exp(-dts / cfg.tau_imlt)
+    tc = st["t"] - cfg.tice_mlt
+    act = (tc > 0.0) & (st["qi"] > QCMIN)
+    sink = torch.minimum(st["qi"], fac * tc / st["icpk"])
+    sink = torch.where(act, sink, z)
+    tmp = torch.minimum(sink, torch.clamp_min(cfg.ql_mlt - st["ql"], 0.0))
+    return _update_qt(st, 0.0, tmp, sink - tmp, -sink, 0.0, 0.0)
+
+
+def pcomp(st, cfg: MPConfig):
+    """Complete freezing of cloud water below t_wfr (pcomp:4273)."""
+    tc = st["t_wfr"] - st["t"]
+    act = (tc > 0.0) & (st["ql"] > QCMIN)
+    sink = torch.minimum(torch.minimum(st["ql"], st["ql"] * tc / DT_FR),
+                         tc / st["icpk"])
+    sink = torch.where(act, sink, _zero(sink))
+    return _update_qt(st, 0.0, -sink, 0.0, sink, 0.0, 0.0)
+
+
+def pcond_pevap(st, dts, den, cfg: MPConfig):
+    """Cloud water condensation / evaporation (pcond_pevap:4198)."""
+    fac_l2v = 1.0 - math.exp(-dts / cfg.tau_l2v)
+    fac_v2l = 1.0 - math.exp(-dts / cfg.tau_v2l)
+    qsw, dqdt = wqs_den(st["t"], den)
+    qpz = st["qv"] + st["ql"] + st["qi"]
+    rh_tem = qpz / qsw
+    dq = qsw - st["qv"]
+    denom = 1.0 + st["tcp3"] * dqdt
+    # evaporation branch (dq > 0): ql -> qv
+    if cfg.do_evap_timescale:
+        factor_e = torch.clamp_max(fac_l2v * (cfg.rh_fac_evap * dq / qsw),
+                                   1.0)
+    else:
+        factor_e = 1.0
+    sink_e = torch.minimum(st["ql"], factor_e * dq / denom)
+    if cfg.use_rhc_cevap:
+        sink_e = torch.where(rh_tem >= cfg.rhc_cevap, _zero(sink_e), sink_e)
+    # condensation branch (dq <= 0): qv -> ql
+    if cfg.do_cond_timescale:
+        factor_c = torch.clamp_max(
+            fac_v2l * (cfg.rh_fac_cond * (-dq) / qsw), 1.0)
+    else:
+        factor_c = 1.0
+    sink_c = -torch.minimum(st["qv"], factor_c * (-dq) / denom)
+    sink = torch.where(dq > 0.0, sink_e, sink_c)
+    return _update_qt(st, sink, -sink, 0.0, 0.0, 0.0, 0.0)
+
+
+def pifr(st, den, cfg: MPConfig):
+    """Homogeneous cloud water freezing -> ice + snow (pifr:3303)."""
+    tc = st["t_wfr"] - st["t"]
+    act = (tc > 0.0) & (st["ql"] > QCMIN)
+    sink = torch.minimum(torch.minimum(st["ql"], st["ql"] * tc / DT_FR),
+                         tc / st["icpk"])
+    sink = torch.where(act, sink, _zero(sink))
+    qim = cfg.qi0_crt / den
+    tmp = torch.minimum(sink, torch.clamp_min(qim - st["qi"], 0.0))
+    return _update_qt(st, 0.0, -sink, 0.0, tmp, sink - tmp, 0.0)
+
+
+def pwbf(st, dts, den, cfg: MPConfig):
+    """Wegener-Bergeron-Findeisen process (pwbf:4329)."""
+    if not cfg.do_wbf:
+        return st
+    fac = 1.0 - math.exp(-dts / cfg.tau_wbf)
+    tc = TICE - st["t"]
+    qsw, _ = wqs_den(st["t"], den)
+    qsi, _ = iqs_den(st["t"], den)
+    act = ((tc > 0.0) & (st["ql"] > QCMIN) & (st["qi"] > QCMIN)
+           & (st["qv"] > qsi) & (st["qv"] < qsw))
+    sink = torch.minimum(fac * st["ql"], tc / st["icpk"])
+    sink = torch.where(act, sink, _zero(sink))
+    qim = cfg.qi0_crt / den
+    tmp = torch.minimum(sink, torch.clamp_min(qim - st["qi"], 0.0))
+    return _update_qt(st, 0.0, -sink, 0.0, tmp, sink - tmp, 0.0)
+
+
+def pbigg(st, dts, den, ccn, cfg: MPConfig):
+    """Bigg (1953) heterogeneous freezing of cloud water (pbigg:4395)."""
+    tc = TICE - st["t"]
+    act = (tc > 0.0) & (st["ql"] > QCMIN)
+    ccn_ = torch.clamp_min(ccn, 1.0e-8)
+    sink = (100.0 / (cfg.rhow * ccn_) * dts
+            * (torch.exp(0.66 * torch.clamp_max(tc, 80.0)) - 1.0)
+            * st["ql"] ** 2)
+    sink = torch.minimum(torch.minimum(st["ql"], sink), tc / st["icpk"])
+    sink = torch.where(act, sink, _zero(sink))
+    return _update_qt(st, 0.0, -sink, 0.0, sink, 0.0, 0.0)
+
+
+def pgfr_simp(st, dts, cfg: MPConfig):
+    """Rain freezing -> graupel, simple version (pgfr_simp:5814)."""
+    fac = 1.0 - math.exp(-dts / cfg.tau_r2g)
+    tc = st["t"] - TICE
+    act = (tc < 0.0) & (st["qr"] > QCMIN)
+    sink = (-tc * 0.025) ** 2 * st["qr"]
+    sink = torch.minimum(torch.minimum(st["qr"], sink),
+                         -fac * tc / st["icpk"])
+    sink = torch.where(act, sink, _zero(sink))
+    return _update_qt(st, 0.0, 0.0, -sink, 0.0, 0.0, sink)
+
+
+def psmlt_simp(st, dts, cfg: MPConfig):
+    """Snow melting -> cloud water + rain, simple version
+    (psmlt_simp:5872)."""
+    fac = 1.0 - math.exp(-dts / cfg.tau_smlt)
+    tc = st["t"] - TICE
+    act = (tc >= 0.0) & (st["qs"] > QCMIN)
+    sink = (tc * 0.1) ** 2 * st["qs"]
+    sink = torch.minimum(torch.minimum(st["qs"], sink),
+                         fac * tc / st["icpk"])
+    sink = torch.where(act, sink, _zero(sink))
+    tmp = torch.minimum(sink, torch.clamp_min(cfg.qs_mlt - st["ql"], 0.0))
+    return _update_qt(st, 0.0, tmp, sink - tmp, 0.0, -sink, 0.0)
+
+
+def praut_simp(st, dts, cfg: MPConfig):
+    """Cloud water -> rain autoconversion, simple version
+    (praut_simp:5931): a liquid-phase transfer, no T change since ql and
+    qr share C_LIQ."""
+    fac = 1.0 - math.exp(-dts / cfg.tau_l2r)
+    tc = st["t"] - st["t_wfr"]
+    act = (tc > 0.0) & (st["ql"] > cfg.ql0_max)
+    sink = torch.where(act, fac * (st["ql"] - cfg.ql0_max), _zero(tc))
+    return _update_qt(st, 0.0, -sink, sink, 0.0, 0.0, 0.0)
+
+
+def _ice_nuclei(st, den, qsi, cfg: MPConfig):
+    """Ice-nuclei number per inflag (pidep_pisub:4502-4512)."""
+    qi_den = torch.clamp_min(st["qi"] * den, 1.0e-20)
+    if cfg.inflag == 1:
+        return 5.38e7 * torch.exp(0.75 * torch.log(qi_den))
+    if cfg.inflag == 2:
+        return torch.exp(-2.80 + 0.262 * (TICE - st["t"])) * 1000.0
+    if cfg.inflag == 3:
+        return torch.exp(-0.639 + 12.96 * (st["qv"] / qsi - 1.0)) * 1000.0
+    if cfg.inflag == 4:
+        return 5.0e-3 * torch.exp(0.304 * (TICE - st["t"])) * 1000.0
+    return 1.0e-5 * torch.exp(0.5 * (TICE - st["t"])) * 1000.0
+
+
+def pidep_pisub(st, dts, den, cin, cfg: MPConfig):
+    """Cloud ice deposition / sublimation (pidep_pisub:4457)."""
+    z = _zero(st["t"])
+    cold = st["t"] < TICE
+    qsi, dqdt = iqs_den(st["t"], den)
+    dq = st["qv"] - qsi
+    tmp = dq / (1.0 + st["tcpk"] * dqdt)
+    cin_ = _ice_nuclei(st, den, qsi, cfg) if cin is None else cin
+    has_ice = st["qi"] > QCMIN
+    pidep = (dts * dq * 4.0 * 11.9
+             * torch.exp(0.5 * torch.log(
+                 torch.clamp_min(st["qi"] * den * cin_, 1.0e-30)))
+             / (qsi * den * (st["tcpk"] * st["cvm"]) ** 2
+                / (TCOND * con.RVGAS * st["t"] ** 2) + 1.0 / VDIFU))
+    pidep = torch.where(has_ice, pidep, z)
+    # deposition branch (dq > 0): limited by generation + heating
+    tc = TICE - st["t"]
+    qi_gen = 4.92e-11 * torch.exp(1.33 * torch.log(
+        1.0e3 * torch.exp(0.1 * torch.clamp_min(tc, 0.0))))
+    if cfg.igflag == 1:
+        qi_crt = qi_gen / den
+    elif cfg.igflag == 2:
+        qi_crt = qi_gen * torch.clamp_max(0.1 * tc, cfg.qi_lim) / den
+    elif cfg.igflag == 3:
+        qi_crt = 1.82e-6 * torch.clamp_max(0.1 * tc, cfg.qi_lim) / den
+    else:
+        qi_crt = (torch.clamp_min(qi_gen, 1.82e-6)
+                  * torch.clamp_max(0.1 * tc, cfg.qi_lim) / den)
+    sink_dep = torch.minimum(torch.minimum(
+        tmp, torch.maximum(qi_crt - st["qi"], pidep)), tc / st["tcpk"])
+    # sublimation branch (dq <= 0)
+    pisub = pidep * torch.clamp_max(
+        torch.clamp_min(st["t"] - cfg.t_sub, 0.0) * cfg.is_fac, 1.0)
+    sink_sub = torch.maximum(torch.maximum(pisub, tmp), -st["qi"])
+    sink = torch.where(dq > 0.0, sink_dep, sink_sub)
+    sink = torch.where(cold, sink, z)
+    return _update_qt(st, -sink, 0.0, 0.0, sink, 0.0, 0.0)
+
+
+def _dep_sub_species(st, dts, den, denfac, cfg, species, c5, blin, mu,
+                     fac):
+    """Shared psdep_pssub (:4555) / pgdep_pgsub (:4624) body."""
+    z = _zero(st["t"])
+    qx = st[species]
+    act = qx > QCMIN
+    qsi, dqdt = iqs_den(st["t"], den)
+    qden = qx * den
+    t2 = st["t"] * st["t"]
+    dq = qsi - st["qv"]
+    pxsub = dts * psub(t2, dq, qden, qsi, c5, den, denfac, blin, mu,
+                       st["tcpk"], st["cvm"])
+    dq2 = dq / (1.0 + st["tcpk"] * dqdt)
+    # sublimation (pxsub > 0): qx -> qv, temperature-gated
+    sink_sub = torch.minimum(
+        pxsub * torch.clamp_max(
+            torch.clamp_min(st["t"] - cfg.t_sub, 0.0) * fac, 1.0), qx)
+    # deposition (pxsub <= 0) only below freezing
+    sink_dep = torch.where(
+        st["t"] <= TICE,
+        torch.maximum(torch.maximum(pxsub, dq2),
+                      (st["t"] - TICE) / st["tcpk"]), z)
+    sink = torch.where(pxsub > 0.0, sink_sub, sink_dep)
+    sink = torch.where(act, sink, z)
+    dqs = -sink if species == "qs" else 0.0
+    dqg = -sink if species == "qg" else 0.0
+    return _update_qt(st, sink, 0.0, 0.0, 0.0, dqs, dqg)
+
+
+def psdep_pssub(st, dts, den, denfac, cfg: MPConfig):
+    """Snow deposition / sublimation (psdep_pssub:4555)."""
+    return _dep_sub_species(st, dts, den, denfac, cfg, "qs",
+                            cfg.coeffs.cssub, cfg.blins, cfg.mus,
+                            cfg.ss_fac)
+
+
+def pgdep_pgsub(st, dts, den, denfac, cfg: MPConfig):
+    """Graupel deposition / sublimation (pgdep_pgsub:4624)."""
+    return _dep_sub_species(st, dts, den, denfac, cfg, "qg",
+                            cfg.coeffs.cgsub, cfg.bling, cfg.mug,
+                            cfg.gs_fac)
+
+
+def psaut_simp(st, dts, den, cfg: MPConfig):
+    """Cloud ice -> snow autoconversion, simple version
+    (psaut_simp:5983): an ice-phase transfer, no T change."""
+    fac = 1.0 - math.exp(-dts / cfg.tau_i2s)
+    tc = st["t"] - TICE
+    qim = cfg.qi0_max / den
+    act = (tc < 0.0) & (st["qi"] > qim)
+    sink = torch.where(act, fac * (st["qi"] - qim), _zero(tc))
+    return _update_qt(st, 0.0, 0.0, 0.0, -sink, sink, 0.0)
+
+
+def mp_fast(t, qv, ql, qr, qi, qs, qg, dtm, dp, den, denfac,
+            cfg: MPConfig, ccn=None, cin=None, last_step=True):
+    """Fast microphysics loop (mp_fast, gfdl_mp.F90:1995): the simplified
+    phase-change process chain run each acoustic/remap step: melting,
+    complete freezing, condensation/evaporation, homogeneous + WBF +
+    Bigg freezing, rain freezing, snow melting, warm/ice
+    autoconversions, and the three deposition/sublimation processes.
+    Returns (t, qv, ql, qr, qi, qs, qg)."""
+    if ccn is None:
+        ccn = torch.full_like(t, 1.0e8 / 1.2)   # ~100/cm^3 / den fallback
+    st = _st_init(t, qv, ql, qr, qi, qs, qg, cfg.t_wfr)
+    fr_mlt = (not cfg.do_warm_rain_mp) and cfg.fast_fr_mlt
+    if fr_mlt:
+        st = pimlt(st, dtm, cfg)
+        st = pcomp(st, cfg)
+    if (not cfg.delay_cond_evap) or last_step:
+        for _ in range(cfg.nconds):
+            st = pcond_pevap(st, dtm, den, cfg)
+    if fr_mlt:
+        st = pifr(st, den, cfg)
+        st = pwbf(st, dtm, den, cfg)
+        st = pbigg(st, dtm, den, ccn, cfg)
+        st = pgfr_simp(st, dtm, cfg)
+        st = psmlt_simp(st, dtm, cfg)
+    st = praut_simp(st, dtm, cfg)
+    if (not cfg.do_warm_rain_mp) and cfg.fast_dep_sub:
+        st = pidep_pisub(st, dtm, den, cin, cfg)
+        st = psaut_simp(st, dtm, den, cfg)
+        st = psdep_pssub(st, dtm, den, denfac, cfg)
+        st = pgdep_pgsub(st, dtm, den, denfac, cfg)
+    return (st["t"], st["qv"], st["ql"], st["qr"], st["qi"], st["qs"],
+            st["qg"])
+
+
+def pinst(st, den, rh_adj, cfg: MPConfig):
+    """Instant processes (pinst:4113): deposit all vapor to ice below
+    t_min; instantly evaporate/sublimate all clouds when the clear-sky
+    RH (from the te8-implied temperature with all condensate removed)
+    is below rh_adj."""
+    z = _zero(st["t"])
+    # super-cold instant deposition
+    sink = torch.where(st["t"] < cfg.t_min,
+                       torch.clamp_min(st["qv"] - QCMIN, 0.0), z)
+    st = _update_qt(st, -sink, 0.0, 0.0, sink, 0.0, 0.0)
+    # instant evaporation below rh_adj
+    qpz = st["qv"] + st["ql"] + st["qi"]
+    tin = (st["te8"] - LV0 * qpz + LI0 * (st["qs"] + st["qg"])) / _mhc(
+        qpz, st["qr"], 0.0, 0.0, st["qs"], st["qg"])
+    qsi, _ = iqs_den(tin, den)
+    act = (tin > cfg.t_sub + 6.0) & (qpz / qsi < rh_adj)
+    sink_l = torch.where(act, st["ql"], z)
+    sink_i = torch.where(act, st["qi"], z)
+    return _update_qt(st, sink_l + sink_i, -sink_l, 0.0, -sink_i, 0.0,
+                      0.0)
+
+
+def subgrid_z_proc(t, qv, ql, qr, qi, qs, qg, dp, den, denfac, dts,
+                   cfg: MPConfig, rh_adj=0.0, ccn=None, cin=None,
+                   last_step=True):
+    """Temperature-sensitive high-vertical-resolution saturation
+    processes (subgrid_z_proc:3989), the per-process full-path counterpart
+    of the condensed sat_adjust: cal_mhc_lhc -> pinst -> pcond_pevap
+    (x nconds) -> pcomp -> pwbf -> pbigg -> pidep_pisub -> psdep_pssub ->
+    pgdep_pgsub, each on the conserved-te8 update_qt bookkeeping. mp_full
+    runs it under cfg.use_subgrid_proc."""
+    if ccn is None:
+        ccn = torch.full_like(t, 1.0e8 / 1.2)
+    st = _st_init(t, qv, ql, qr, qi, qs, qg, cfg.t_wfr)
+    st = pinst(st, den, rh_adj, cfg)
+    if (not cfg.delay_cond_evap) or last_step:
+        for _ in range(cfg.nconds):
+            st = pcond_pevap(st, dts, den, cfg)
+    if not cfg.do_warm_rain_mp:
+        st = pcomp(st, cfg)
+        st = pwbf(st, dts, den, cfg)
+        st = pbigg(st, dts, den, ccn, cfg)
+        st = pidep_pisub(st, dts, den, cin, cfg)
+        st = psdep_pssub(st, dts, den, denfac, cfg)
+        st = pgdep_pgsub(st, dts, den, denfac, cfg)
+    return (st["t"], st["qv"], st["ql"], st["qr"], st["qi"], st["qs"],
+            st["qg"])

@@ -5,9 +5,10 @@ MPConfig and its grid arguments against the JAX package's (CPU, float64):
   and SHIELD_NML, copied): every DynConfig and MPConfig field, the
   unknown and routed option dicts, and the ValueErrors equal JAX's;
   load_input_nml from a file and grid_kwargs_from_namelist likewise;
-- MPConfig has JAX's fields in JAX's order with JAX's defaults, and
-  gfdl_mp_driver refuses a setting that asks for an unported process
-  (the namelist that sets it still parses);
+- MPConfig has JAX's fields in JAX's order with JAX's defaults, and the
+  SHiELD namelist's gfdl_mp_nml (do_sedi_uv, use_mp_fast off, do_wbf,
+  tau_l2r 600, fast_fr_mlt off) runs gfdl_mp_driver and fast_sat_adj as
+  JAX's do, to 1e-12 of each output's maximum;
 - build_grid_ops takes JAX's grid arguments: a stretched C12 grid (and
   one with the cube transform) equals JAX's metric for metric to 1e-12 of
   each one's maximum, and the solo driver steps on it.
@@ -196,25 +197,56 @@ def _config_errors_as_in_jax():
     assert unk == {"hybrid_z": True, "bogus": 2}
 
 
-def _gfdl_mp_driver_refuses_unported_settings():
-    mpc, _ = cfg.mp_config_from_namelist(cfg.parse_namelist(SHIELD_NML))
+def _shield_gfdl_mp_nml_runs_as_in_jax():
+    """The SHiELD namelist's gfdl_mp_nml through both packages' config:
+    gfdl_mp_driver (nonhydrostatic, with w, ua, va: sedi_uv heats t) and
+    fast_sat_adj (use_mp_fast off: sat_adjust) on seeded moist columns,
+    levels 8 K or more from TICE and t_wfr (see test_torch_gfdl_mp.py)."""
+    import jax
+    from gfdl_atmos_cubed_sphere_tpu.physics import gfdl_mp as jmp
+    nml = cfg.parse_namelist(SHIELD_NML)
+    mpc, _ = cfg.mp_config_from_namelist(nml)
+    jmpc, _ = jcfg.mp_config_from_namelist(nml)
     assert mpc.do_sedi_uv and not mpc.use_mp_fast and mpc.do_wbf
+    assert mpc.tau_l2r == 600.0 and not mpc.fast_fr_mlt
     shape = (6, 4, 3, 3)
-    pt = torch.full(shape, 280.0, dtype=torch.float64)
-    delp = torch.full(shape, 5.0e3, dtype=torch.float64)
-    q = {"sphum": torch.full(shape, 5e-3, dtype=torch.float64)}
-    for over in (dict(do_sedi_uv=True), dict(use_mp_fast=False),
-                 dict(do_wbf=True), dict(fast_fr_mlt=False),
-                 dict(tau_l2r=600.0)):
-        (name, value), = over.items()
-        with pytest.raises(NotImplementedError, match=name):
-            gfdl_mp.gfdl_mp_driver(pt, delp, None, q, 60.0, 1.0e3,
-                                   cfg=MPConfig(**over), hydrostatic=True)
-    # a setting no process reads (rh_inc) is stored and the MP runs
-    pt2, _, _ = gfdl_mp.gfdl_mp_driver(pt, delp, None, q, 60.0, 1.0e3,
-                                       cfg=MPConfig(rh_inc=0.3),
-                                       hydrostatic=True)
-    assert bool(torch.isfinite(pt2).all())
+    rng = np.random.default_rng(23)
+    t = (np.array([215.0, 250.0, 265.0, 285.0])[None, :, None, None]
+         + rng.uniform(-1.5, 1.5, shape))
+    delp = rng.uniform(1.0e4, 2.0e4, shape)
+    pe = 1.0e3 + np.concatenate([np.zeros((6, 1, 3, 3)),
+                                 np.cumsum(delp, 1)], 1)
+    p_lay = delp / np.diff(np.log(pe), axis=1)
+    qsat = gfdl_mp.wqs(torch.as_tensor(t), torch.as_tensor(p_lay))[0]
+    q = {"sphum": qsat.numpy() * rng.uniform(0.7, 1.2, shape)}
+    for nm, top in (("liq_wat", 1e-3), ("rainwat", 1e-3), ("ice_wat", 3e-4),
+                    ("snowwat", 1e-3), ("graupel", 5e-4)):
+        q[nm] = rng.uniform(0.0, top, shape)
+    kw = dict(w=rng.uniform(-1.0, 1.0, shape),
+              ua=rng.uniform(-20.0, 20.0, shape),
+              va=rng.uniform(-20.0, 20.0, shape))
+    delz = -rng.uniform(800.0, 1600.0, shape)
+
+    def jrun(t, delp, delz, q, kw):
+        return (jmp.gfdl_mp_driver(t, delp, delz, q, 450.0, 1.0e3,
+                                   cfg=jmpc, hydrostatic=False, **kw),
+                jmp.fast_sat_adj(t, delp, delz, q, 60.0, 1.0e3, cfg=jmpc))
+
+    want = jax.tree_util.tree_leaves(jrun(*jax.tree_util.tree_map(
+        jax.numpy.asarray, (t, delp, delz, q, kw))))
+    tt = lambda d: {k: torch.as_tensor(v) for k, v in d.items()}
+    got = jax.tree_util.tree_leaves(
+        (gfdl_mp.gfdl_mp_driver(torch.as_tensor(t), torch.as_tensor(delp),
+                                torch.as_tensor(delz), tt(q), 450.0, 1.0e3,
+                                cfg=mpc, hydrostatic=False, **tt(kw)),
+         gfdl_mp.fast_sat_adj(torch.as_tensor(t), torch.as_tensor(delp),
+                              torch.as_tensor(delz), tt(q), 60.0, 1.0e3,
+                              cfg=mpc)))
+    assert len(got) == len(want) == 1 + 6 + 4 + 3 + 1 + 6
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = np.asarray(w)
+        top = max(np.abs(w).max(), 1e-300)
+        assert np.abs(g.numpy() - w).max() <= 1e-12 * top, i
 
 
 def _stretched_grid_matches_jax_and_steps():
@@ -256,11 +288,12 @@ def _stretched_grid_matches_jax_and_steps():
 
 
 def test_config_matches_jax(tmp_path):
-    """The namelists, MPConfig's fields and refusals, and the grid
-    arguments, as the module docstring lists them."""
+    """The namelists, MPConfig's fields and the SHiELD gfdl_mp_nml's
+    microphysics, and the grid arguments, as the module docstring lists
+    them."""
     _mpconfig_has_jax_fields_in_order()
     for text in (NML, SHIELD_NML):
         _namelists_load_as_in_jax(text, tmp_path)
     _config_errors_as_in_jax()
-    _gfdl_mp_driver_refuses_unported_settings()
+    _shield_gfdl_mp_nml_runs_as_in_jax()
     _stretched_grid_matches_jax_and_steps()

@@ -1,5 +1,6 @@
 """The PyTorch port's shallow-water step (model/sw_dynamics.py) against the
-jitted JAX make_sw_step: 4 steps at C12 in float64 on the CPU.
+jitted JAX make_sw_step: 4 steps at C12 in float64 on the CPU; and
+sw_state, the state namespace, against JAX's.
 
 Williamson case 2 is perturbed by seeded noise. Unperturbed, its symmetric
 fields put PPM limiter comparisons on exact ties, where the jitted JAX step
@@ -77,3 +78,15 @@ def test_case1_advection_only(packs):
                   ("delp", "u", "v", "uc", "vc"))
     assert _rel(sj[0], st[0]) <= 1e-10
     assert st[1] is None and st[2] is None
+
+
+def test_sw_state():
+    """sw_state takes JAX's arguments and holds what JAX's holds."""
+    import inspect
+    assert (inspect.signature(tsw.sw_state).parameters.keys()
+            == inspect.signature(jsw.sw_state).parameters.keys())
+    a = [torch.full((6, 1, 3, 3), float(i)) for i in range(4)]
+    got = vars(tsw.sw_state(*a, uc=a[1]))
+    want = vars(jsw.sw_state(*a, uc=a[1]))
+    assert got.keys() == want.keys()
+    assert all(got[k] is want[k] for k in got)
