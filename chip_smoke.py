@@ -248,7 +248,35 @@ inline fast physics (do_fast_phys).
    less phase 6's of the same run; (b) in phase 11's process on 11a's
    initial state at C192L91 float32: gfdl_mp_driver with the SHiELD
    gfdl_mp_nml, with MPConfig() and with MP_OPTIONS, and fv_sg_adjust,
-   ms a call and device kernels a call.
+   ms a call and device kernels a call;
+13. the NWP initialisation and forcing (io/external_ic.py,
+   io/da_increment.py, physics/nudging.py, io/climate_nudge_data.py,
+   physics/forcing_externals.py, utils/terrain.py; plain PyTorch, no
+   kernel of their own): (a) at the end, a chgres cold-start file set at
+   C192 (write_nwp_files: gfs_ctrl.nc with the 127-layer GFS coordinate,
+   gfs_data.tile{1..6}.nc in float32 from phase 6's moist JW state at
+   set_eta(127) with zh integrated hydrostatically, oro_data.tile{1..6}.nc
+   whose orog_filt is surfdrv's terrain of a 0.25 degree DEM, the JW
+   surface height plus a 2 km hill, filtered by fv3_zs_filter), then
+   get_nggps_ic_files onto set_eta(79) on the card in float64 (the host
+   seconds to write and to read the files, the cold start's seconds); (b)
+   the moist c192_nh big step of phase 6 from (a)'s state in float32 with
+   da_increment.IAU applying a 0.5 degree lat-lon increment (T, delp,
+   sphum, o3mr, winds, through read_da_inc) after each step over 6 h;
+   (c) the same with the nudging after each step: nwp_nudge toward
+   ObsSchedule's two analyses 6 h apart on the model levels
+   (remap_analysis_to_model), ps_nudging with the bias correction,
+   breed_slp_inline with two storms. (b) and (c): 1 warm-up and 5 timed
+   big steps (s/step, pts*lev/s, busy share, peak memory, the wall ms of
+   the IAU and of each nudging call), finite fields, sum(delp*area)
+   within 1e-5 across each fv_dynamics_nh call, launches per big step
+   equal to phase 6's. (d) after 12c, card against CPU at C24L10 in
+   float64 with phase 3's limits and a float32 control: the cold start
+   from a C24 file set built as (a)'s, one IAU step and one nudged step,
+   ClimateNudgeDriver.tendencies, do_w_forcing of both types, age_of_air,
+   AeroClimatology.to_model, ExternalSST.to_cube, fv3_zs_filter with the
+   zero-ocean limiter, breed_slp_inline and the global mass after it.
+   `python3 devtools/nwp_phase.py` runs phase 13 alone.
 
 Before the last line it prints the card's name and power limit and one JSON
 line with each kernel's launches (those of its path's timed phase: 6 for
@@ -264,7 +292,8 @@ fixers on), "shield" per atmosphere_dynamics step of phase 9b,
 split by form, and its "offcentred" records of phase 2),
 "shield_c192l91" in phase 11a's 5 big steps with its numbers at the
 namelist's arguments, "shield_facade" per phase 11b step,
-"c192_nh_fastphys" in phase 12a's 5 big steps, and
+"c192_nh_fastphys" in phase 12a's 5 big steps, "nwp_iau" and
+"nwp_nudged" in phase 13b's and 13c's 5 big steps, and
 "checked_at" the hords, nords and lim_fac each of the tp sweep,
 ke_section, d_sw and c_sw kernels was held to its plain version at. The
 last line is
@@ -1378,6 +1407,14 @@ class BigStep:
         st = state_from_arrays(self.ic, dtype=dtype, device=device)
         self.state = [st[k] for k in self.fields] + [
             st["q"][k] for k in self.names[len(self.fields):]]
+        self._like = ((npx, npz, dt, k_split, n_split),
+                      dict(geom=self.geom, ic=self.ic, moist=moist,
+                           hydro=hydro, over=over, bundle=bundle, mp=mp))
+
+    def like(self, dtype, device):
+        """The same case in another dtype or on another device."""
+        args, kw = self._like
+        return type(self)(*args, dtype, device, **kw)
 
     def step(self, state):
         from gfdl_atmos_cubed_sphere_tpu_torch.model.fv_dynamics import (
@@ -1412,15 +1449,9 @@ def card_vs_cpu(card_case, steps=2, phase="3", tols=None,
     A field that is zero on the CPU must be zero on the card. Returns the
     CPU's final state."""
     import torch
-    kw = dict(geom=card_case.geom, ic=card_case.ic, moist=card_case.moist,
-              hydro=card_case.hydro, over=card_case.over,
-              bundle=card_case.bundle, mp=card_case.mp_cfg)
-    c = card_case.cfg
-    cpu = BigStep(25, 10, c.dt, c.k_split, c.n_split, torch.float64, "cpu",
-                  **kw)
+    cpu = card_case.like(torch.float64, "cpu")
     if control == "float32":
-        f32 = BigStep(25, 10, c.dt, c.k_split, c.n_split, torch.float32,
-                      "cuda", **kw)
+        f32 = card_case.like(torch.float32, "cuda")
         sf, step_ctl = list(f32.state), f32.step
         what = "the card in float32"
     else:
@@ -2855,6 +2886,676 @@ def fast_phys_calls_c192l91(case, card):
     return out
 
 
+# ---- phase 13: the NWP cold start, IAU, nudging and terrain ---------------
+
+#: the chgres files' source coordinate: the repo's 127-layer GFS table
+NWP_SOURCE_LEVELS = 127
+#: the orography files' DEM (degrees) and its Gaussian hill (m, degrees)
+NWP_DEM_DEG = 0.25
+NWP_HILL = dict(h0=2000.0, lon=100.0, lat=35.0, radius=7.0)
+#: the lat-lon increment's spacing (degrees) and the IAU window (s)
+NWP_INC_DEG = 0.5
+NWP_IAU_WINDOW = 21600.0
+#: the two analyses of the nudging, 6 h apart: the second warmer, moister
+#: and windier than the first, which is the files' state
+NWP_ANALYSIS_DT = 21600.0
+NWP_ANALYSIS_SHIFT = dict(t=1.5, sphum=1.05, ua=1.1, ps=150.0)
+#: the observed storms of the vortex breeding: lon, lat (degrees), slp (Pa)
+NWP_STORMS = ((140.0, 20.0, 97000.0), (300.0, 25.0, 99000.0))
+#: the breeding's radii at C24 (cells of ~400 km; the defaults fit C192)
+NWP_BREED_C24 = dict(r_min=1500.0e3, r_inc=100.0e3, del_r=1500.0e3,
+                     phis_max=3000.0)
+#: phase 13d's limits beside 1e-10: the NH w of phase 3
+NWP_TOL = dict(CARD_TOL["NH"])
+NWP_DIR = "build/torch_smoke/nwp"
+
+
+def nwp_dem(geom):
+    """The DEM of the orography files: the Jablonowski-Williamson surface
+    height (test_cases.F90's phi_s, a function of latitude) plus a 2 km
+    Gaussian hill, on a NWP_DEM_DEG lat-lon grid. Returns (lon, lat in
+    radians, z [nlat, nlon] in m)."""
+    import numpy as np
+    from gfdl_atmos_cubed_sphere_tpu_torch import constants as con
+    from gfdl_atmos_cubed_sphere_tpu_torch.init import baroclinic as bc
+    lat = np.deg2rad(np.linspace(-90.0, 90.0, int(180 / NWP_DEM_DEG) + 1))
+    lon = np.deg2rad(np.arange(int(360 / NWP_DEM_DEG)) * NWP_DEM_DEG)
+    a, b = bc._t_pert_coef(lat)
+    c = np.cos((bc.ETA_S - bc.ETA_0) * np.pi * 0.5) ** 1.5
+    zs = bc.UBAR * c * (a * bc.UBAR * c + b * geom.radius * geom.omega)
+    lon2, lat2 = np.meshgrid(lon, lat)
+    h = NWP_HILL
+    lat0, lon0 = np.deg2rad(h["lat"]), np.deg2rad(h["lon"])
+    cosd = (np.sin(lat0) * np.sin(lat2)
+            + np.cos(lat0) * np.cos(lat2) * np.cos(lon2 - lon0))
+    r = np.arccos(np.clip(cosd, -1.0, 1.0)) / np.deg2rad(h["radius"])
+    return lon, lat, zs[:, None] / con.GRAV + h["h0"] * np.exp(-r ** 2)
+
+
+def nwp_source(geom):
+    """The moist baroclinic state of phase 6 on the NWP_SOURCE_LEVELS
+    levels (jw_baroclinic at set_eta(127)), as host numpy: ak, bk, ps, the
+    interface heights zh integrated hydrostatically with T from the JW
+    surface height, T, sphum, o3mr (a profile in log-p), the JW jet at the
+    south and west face midpoints (u_s, u_w; v_s = v_w = 0) and at the
+    cell centres (ua, for the analyses), and a seeded w of ~1 cm/s."""
+    import numpy as np
+    from gfdl_atmos_cubed_sphere_tpu_torch import constants as con
+    from gfdl_atmos_cubed_sphere_tpu_torch.grid.fv_eta import set_eta
+    from gfdl_atmos_cubed_sphere_tpu_torch.grid.gnomonic import (
+        normalize, xyz_to_lonlat)
+    from gfdl_atmos_cubed_sphere_tpu_torch.init import baroclinic as bc
+    ks = NWP_SOURCE_LEVELS
+    _, ptop, ak, bk = set_eta(ks)
+    ic = bc.jw_baroclinic(geom, ks, ak, bk, ptop, perturb=True, moist=True)
+    ps = ic["ps"][:, 0]
+    pe = ak[None, :, None, None] + bk[None, :, None, None] * ps[:, None]
+    dz = con.RDGAS / con.GRAV * ic["pt"] * np.log(pe[:, 1:] / pe[:, :-1])
+    zs = ic["phis"][:, 0] / con.GRAV
+    zh = np.concatenate([zs[:, None] + np.cumsum(dz[:, ::-1], 1)[:, ::-1],
+                         zs[:, None]], axis=1)
+    eta = 0.5 * ((ak[:-1] + ak[1:]) / 1.0e5 + bk[:-1] + bk[1:])
+    eta_v = ((eta - bc.ETA_0) * np.pi * 0.5)[:, None, None, None]
+    h, n = geom.ng, geom.n
+    cw = geom.arrays["grid_xyz"][:, h:h + n + 1, h:h + n + 1]
+
+    def jet(xyz):
+        lon, lat = xyz_to_lonlat(xyz)
+        u = bc._u_jet(lat, eta_v, lon=lon, pert=True, radius=geom.radius,
+                      r0=geom.radius / 10.0)
+        return np.moveaxis(u, 0, 1)                 # [6, ks, ...]
+
+    pm = 0.5 * (pe[:, 1:] + pe[:, :-1])
+    return dict(
+        ak=ak, bk=bk, ps=ps, zh=zh, t=ic["pt"], sphum=ic["sphum"],
+        o3mr=1.0e-5 * np.exp(-0.5 * np.log(pm / 1500.0) ** 2),
+        u_s=jet(normalize(cw[:, :, :-1] + cw[:, :, 1:])),
+        u_w=jet(normalize(cw[:, :-1, :] + cw[:, 1:, :])),
+        ua=jet(geom.arrays["agrid_xyz"][:, h:h + n, h:h + n]),
+        w=0.01 * np.random.default_rng(13).standard_normal(ic["pt"].shape))
+
+
+def write_nwp_files(dirpath, geom, g, src):
+    """The chgres cold-start file set in dirpath, as tests/test_nggps_files
+    .py writes one (scipy's NetCDF3 writer): gfs_ctrl.nc with src's
+    coordinate, gfs_data.tile{1..6}.nc in float32 (ps, zh, sphum, liq_wat
+    at 1e-6, o3mr, the face winds u_s, v_s, u_w, v_w, w) and
+    oro_data.tile{1..6}.nc whose orog_filt is surfdrv's terrain of
+    nwp_dem's DEM, filtered by fv3_zs_filter on g. Returns the seconds of
+    surfdrv and of the writes."""
+    import os
+    import numpy as np
+    from scipy.io import netcdf_file
+    from gfdl_atmos_cubed_sphere_tpu_torch import constants as con
+    from gfdl_atmos_cubed_sphere_tpu_torch.utils.terrain import surfdrv
+    os.makedirs(dirpath, exist_ok=True)
+    t0 = time.perf_counter()
+    orog = (surfdrv(geom, *nwp_dem(geom), g=g)["phis"][:, 0]
+            / con.GRAV).cpu().numpy()
+    t_surf = time.perf_counter() - t0
+    ks, n = src["t"].shape[1], geom.n
+    t0 = time.perf_counter()
+    with netcdf_file(os.path.join(dirpath, "gfs_ctrl.nc"), "w") as f:
+        f.createDimension("levsp", ks + 1)
+        f.createDimension("nvcoord", 2)
+        f.createVariable("vcoord", "d", ("nvcoord", "levsp"))[:] = np.stack(
+            [src["ak"], src["bk"]])
+    zeros_s = np.zeros((ks, n + 1, n), np.float32)
+    zeros_w = np.zeros((ks, n, n + 1), np.float32)
+    for t in range(6):
+        with netcdf_file(os.path.join(dirpath, f"gfs_data.tile{t + 1}.nc"),
+                         "w") as f:
+            for nm, size in (("lev", ks), ("levp", ks + 1), ("lat", n),
+                             ("lon", n), ("latp", n + 1), ("lonp", n + 1)):
+                f.createDimension(nm, size)
+            for nm, dims, a in (
+                    ("ps", ("lat", "lon"), src["ps"][t]),
+                    ("zh", ("levp", "lat", "lon"), src["zh"][t]),
+                    ("sphum", ("lev", "lat", "lon"), src["sphum"][t]),
+                    ("liq_wat", ("lev", "lat", "lon"),
+                     np.full((ks, n, n), 1.0e-6)),
+                    ("o3mr", ("lev", "lat", "lon"), src["o3mr"][t]),
+                    ("u_s", ("lev", "latp", "lon"), src["u_s"][t]),
+                    ("v_s", ("lev", "latp", "lon"), zeros_s),
+                    ("u_w", ("lev", "lat", "lonp"), src["u_w"][t]),
+                    ("v_w", ("lev", "lat", "lonp"), zeros_w),
+                    ("w", ("lev", "lat", "lon"), src["w"][t])):
+                f.createVariable(nm, "f", dims)[:] = a.astype(np.float32)
+        with netcdf_file(os.path.join(dirpath, f"oro_data.tile{t + 1}.nc"),
+                         "w") as f:
+            f.createDimension("lat", n)
+            f.createDimension("lon", n)
+            f.createVariable("orog_filt", "f", ("lat", "lon"))[:] = orog[t]
+    return t_surf, time.perf_counter() - t0
+
+
+def nwp_increments(km, seed=14):
+    """The GSI-style lat-lon increment at NWP_INC_DEG on km levels: smooth
+    T, delp, sphum, o3mr and wind increments with seeded phases."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lat = np.linspace(-90.0, 90.0, int(180 / NWP_INC_DEG) + 1)
+    lon = np.arange(int(360 / NWP_INC_DEG)) * NWP_INC_DEG
+    lon2, lat2 = np.meshgrid(np.deg2rad(lon), np.deg2rad(lat))
+    lev = np.linspace(0.0, 1.0, km)[:, None, None]
+
+    def wave(amp):
+        a, b, c = rng.uniform(0.0, 2.0 * np.pi, 3)
+        return amp * (np.cos(lat2) * np.sin(3 * lon2 + a)
+                      * np.cos(2 * lat2 + b))[None] * np.sin(
+                          np.pi * lev + c)
+
+    return {"lon": lon, "lat": lat, "T_inc": wave(0.5),
+            "delp_inc": wave(5.0) * lev, "sphum_inc": wave(1.0e-5),
+            "o3mr_inc": wave(1.0e-8), "u_inc": wave(1.0),
+            "v_inc": wave(1.0)}
+
+
+def nwp_analyses(src):
+    """The two analyses of the nudging on the source levels ([6, ks, n, n]
+    host numpy: t, sphum, the A-grid ua, va): the files' state and the
+    same NWP_ANALYSIS_SHIFT-ed."""
+    import numpy as np
+    a0 = dict(t=src["t"], sphum=src["sphum"], ua=src["ua"],
+              va=np.zeros_like(src["ua"]))
+    s = NWP_ANALYSIS_SHIFT
+    a1 = dict(t=a0["t"] + s["t"], sphum=a0["sphum"] * s["sphum"],
+              ua=a0["ua"] * s["ua"], va=a0["va"])
+    return a0, a1
+
+
+def nwp_mass(g, delp):
+    """sum(delp * area) in float64 on the device, no host read."""
+    import torch
+    ctr = slice(H, H + g.n)
+    return torch.sum(delp.double() * g.area[..., ctr, ctr].double())
+
+
+class NWPStep(BigStep):
+    """The moist NH big step of phase 6 from a cold-start state, then the
+    IAU (nwp "iau": da_increment.IAU over NWP_IAU_WINDOW of the lat-lon
+    increments nwp_data["inc"], through read_da_inc to cube and D-grid
+    increments) or the nudging (nwp "nudged": nwp_nudge toward
+    ObsSchedule's analyses of nwp_data["analyses"] on the source levels
+    nwp_data["ak"], nwp_data["bk"], put on the model levels by
+    remap_analysis_to_model, their D winds by d_winds_from_latlon;
+    ps_nudging toward their ps (the cold start's, + the shift) with the
+    bias correction; breed_slp_inline with NWP_STORMS, nwp_data["breed"]
+    its BreedConfig settings). The model time advances by dt a step.
+    masses: the (before, after) sum(delp*area) of each fv_dynamics_nh
+    call (device scalars); with `layers` a dict, each IAU or nudging call
+    adds its synchronised wall ms under its name."""
+
+    def __init__(self, *args, nwp=None, nwp_data=None, **kw):
+        super().__init__(*args, **kw)
+        self._like[1].update(nwp=nwp, nwp_data=nwp_data)
+        self.nwp, self.data = nwp, nwp_data
+        self.time = 0.0
+        self.masses = []
+        self.layers = None
+        self._iau = self._obs = None
+
+    def _timed(self, name, fn, *a, **kw):
+        import torch
+        if self.layers is None:
+            return fn(*a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        self.layers[name] = self.layers.get(name, 0.0) + 1e3 * (
+            time.perf_counter() - t0)
+        return out
+
+    def _setup(self):
+        """The increments or the analyses on this case's device and dtype,
+        once."""
+        import torch
+        from gfdl_atmos_cubed_sphere_tpu_torch.io import da_increment as da
+        from gfdl_atmos_cubed_sphere_tpu_torch.io.external_ic import (
+            d_winds_from_latlon)
+        from gfdl_atmos_cubed_sphere_tpu_torch.physics import nudging as ng
+        dtype = self.state[0].dtype
+        if self.nwp == "iau":
+            inc = da.read_da_inc(self.data["inc"], self.geom, g=self.g)
+            self._iau = da.IAU({k: v.to(dtype) for k, v in inc.items()},
+                               da.IAUConfig(window_s=NWP_IAU_WINDOW))
+            return
+        ps = self.ptop + torch.sum(self.state[0].double(), dim=1)
+        targets = []
+        for i, ana in enumerate(self.data["analyses"]):
+            m = ng.remap_analysis_to_model(
+                ana, self.data["ak"], self.data["bk"], ps, self.ak, self.bk,
+                device=self.g.device)
+            u, v = d_winds_from_latlon(m["ua"], m["va"], self.g)
+            targets.append({k: x.to(dtype) for k, x in dict(
+                pt=m["t"], sphum=m["sphum"], u=u, v=v,
+                ps=ps + i * NWP_ANALYSIS_SHIFT["ps"]).items()})
+        self._obs = ng.ObsSchedule([0.0, NWP_ANALYSIS_DT], targets)
+
+    def step(self, state):
+        import math
+        import torch
+        from gfdl_atmos_cubed_sphere_tpu_torch.physics import nudging as ng
+        if self._iau is None and self._obs is None:
+            self._setup()
+        m0 = nwp_mass(self.g, state[0])
+        state = super().step(state)
+        self.masses.append((m0, nwp_mass(self.g, state[0])))
+        d = dict(zip(self.names, state))
+        dt = self.cfg.dt
+        if self.nwp == "iau":
+            d = self._timed("IAU.apply", self._iau.apply, d, self.time, dt)
+        else:
+            tgt = self._timed("ObsSchedule.target_at", self._obs.target_at,
+                              self.time)
+            cum = torch.cumsum(d["delp"], 1)
+            pe = torch.cat([torch.zeros_like(cum[:, :1]), cum], 1) + self.ptop
+            pm = 0.5 * (pe[:, 1:] + pe[:, :-1])
+            d.update(self._timed("nwp_nudge", ng.nwp_nudge, dt,
+                                 {k: d[k] for k in ("u", "v", "pt", "sphum")},
+                                 tgt, pm))
+            area = self.g.area[:, 0, H:-H, H:-H]
+            d["delp"], _ = self._timed("ps_nudging", ng.ps_nudging, dt,
+                                       self.ak, self.bk, tgt["ps"],
+                                       d["delp"], area=area)
+            storms = torch.tensor([[math.radians(lo), math.radians(la), p]
+                                   for lo, la, p in NWP_STORMS],
+                                  dtype=d["delp"].dtype)
+            d["delp"] = self._timed(
+                "breed_slp_inline", ng.breed_slp_inline, dt, d["delp"],
+                d["pt"][:, -1], self.g.phis_p[:, 0, H:-H, H:-H], storms,
+                self.g, self.ak,
+                ng.BreedConfig(**self.data.get("breed", {})))
+        self.time += dt
+        return [d[k] for k in self.names]
+
+
+def nwp_cold_start(dirpath, geom, npz, device):
+    """get_nggps_ic_files from the file set onto set_eta(npz) on device in
+    float64, synchronised: (state dict, wall seconds)."""
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.grid.fv_eta import set_eta
+    from gfdl_atmos_cubed_sphere_tpu_torch.io.external_ic import (
+        get_nggps_ic_files)
+    _, ptop, ak, bk = set_eta(npz)
+    t0 = time.perf_counter()
+    cold = get_nggps_ic_files(dirpath, geom, ak, bk, ptop, device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return cold, time.perf_counter() - t0
+
+
+def nwp_ic(cold):
+    """The big step's initial state (host numpy) from a cold start: the
+    fields, phis, and the six tracers (sphum, liq_wat from the files, the
+    other four at 1e-6, as phase 6)."""
+    import numpy as np
+    ic = {k: cold[k].cpu().numpy() for k in ("delp", "pt", "u", "v", "w",
+                                              "delz", "phis")}
+    q = {nm: np.full(ic["delp"].shape, 1e-6) for nm in TRACERS}
+    q.update({nm: cold[nm].cpu().numpy() for nm in ("sphum", "liq_wat")})
+    ic["q"] = q
+    return ic
+
+
+def nwp_phase(label, case, state, card, launches6):
+    """13b or 13c: 1 warm-up big step and 5 timed ones behind a readback
+    barrier with the launch counts set to 0 just before and read just
+    after, then 1 under the profiler and 1 with the IAU or nudging calls
+    timed on their own. Fails on a non-finite field, a relative change of
+    sum(delp*area) over 1e-5 across an fv_dynamics_nh call, or launches
+    other than phase 6's. Returns the launches with "s_per_step" and the
+    layer ms."""
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.model import tracer_2d
+    state = case.step(state)                              # warm-up
+    float(torch.sum(state[0]))
+    nsteps = 5
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    case.masses.clear()
+    reset_counts()
+    tracer_2d.reset_nsplt()
+    sec, state = timed_steps(case.step, state, nsteps)
+    launches = counts()
+    nsplt = list(tracer_2d.nsplt_calls)
+    peak = torch.cuda.max_memory_allocated()
+    for nm, t in zip(case.names, state):
+        require(bool(torch.isfinite(t).all()), f"{label}: NaN or inf in {nm}")
+    dm = max(abs(float(b) - float(a)) / float(a) for a, b in case.masses)
+    for name in NH_PER_STEP:
+        require(launches[name] == launches6[name],
+                f"{label}: {name} launched {launches[name]} times in "
+                f"{nsteps} big steps, phase 6 {launches6[name]}")
+    by, busy = device_ms_by_kernel(lambda: case.step(state), reps=1)
+    case.layers = {}
+    state = case.step(state)
+    layers, case.layers = case.layers, None
+    ptslev = 6 * (case.cfg.npx - 1) ** 2 * case.cfg.npz / sec
+    log(f"phase {label}: {sec:.4f} s/step, {ptslev:.4e} pts*lev/s on {card}; "
+        f"largest mass change across an fv_dynamics_nh call {dm:.3e}; "
+        f"launches {launches}; tracer_2d nsplt {nsplt}; peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB ({base / 2 ** 30:.2f} GiB before the "
+        f"steps); device busy {busy} of the wall time, device ms/step "
+        f"{sum(by.values()):.3f}; wall ms of one step's calls "
+        f"(synchronised): " + ", ".join(f"{k} {v:.2f}"
+                                        for k, v in layers.items()))
+    require(dm <= 1e-5, f"{label}: the mass changed by {dm:.3e} across an "
+                        f"fv_dynamics_nh call")
+    launches["s_per_step"] = sec
+    launches["layers_ms"] = layers
+    return launches, state
+
+
+def nwp_full_width(geom, card, launches6):
+    """Phase 13a-c at C192 on phase 5's geometry: 13a the chgres file set
+    (write_nwp_files from the L127 JW state) and the cold start onto
+    set_eta(79) on the card in float64 (host seconds to write and to read
+    the files, card seconds of the cold start), cast to float32 with phis
+    through prepare_phis; 13b the moist c192_nh big step of phase 6 with
+    the IAU after each step; 13c the same from 13a's state with the
+    nudging after each step. Returns the launches of 13b's and 13c's 5
+    big steps."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.grid.fv_eta import set_eta
+    from gfdl_atmos_cubed_sphere_tpu_torch.io.external_ic import (
+        read_nggps_tiles)
+    from gfdl_atmos_cubed_sphere_tpu_torch.model.grid_ops import (
+        build_grid_ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()
+        src = nwp_source(geom)
+        t_src = time.perf_counter() - t0
+        g = build_grid_ops(193, dtype=torch.float32, device="cuda",
+                           geom=geom)
+        t_surf, t_write = write_nwp_files(NWP_DIR, geom, g, src)
+        t0 = time.perf_counter()
+        read_nggps_tiles(NWP_DIR)
+        t_read = time.perf_counter() - t0
+        cold, t_cold = nwp_cold_start(NWP_DIR, geom, 79, "cuda")
+        for k, v in cold.items():
+            require(bool(torch.isfinite(v).all()),
+                    f"13a cold start: NaN or inf in {k}")
+        _, ptop, ak, bk = set_eta(79)
+        ps = float((ptop + cold["delp"].sum(1)).mean())
+        log(f"phase 13a C192 chgres file set: the L127 JW state on the host "
+            f"{t_src:.1f} s, surfdrv over the {NWP_DEM_DEG} degree DEM "
+            f"{t_surf:.1f} s, writing the 13 files {t_write:.1f} s; "
+            f"read_nggps_tiles {t_read:.1f} s (host); the cold start onto "
+            f"L79 (get_nggps_ic_files in float64 on the card, the read "
+            f"included) {t_cold:.2f} s wall, {t_cold - t_read:.2f} s "
+            f"beside the read; mean ps {ps:.1f} Pa on {card}")
+        ic = nwp_ic(cold)
+        del cold, g
+        shutil.rmtree(NWP_DIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = {}
+        state = None
+        for mode, data in (
+                ("iau", dict(inc=nwp_increments(79))),
+                ("nudged", dict(analyses=nwp_analyses(src), ak=src["ak"],
+                                bk=src["bk"]))):
+            case = NWPStep(193, 79, 450.0, 2, 6, torch.float32, "cuda",
+                           geom=geom, ic=ic, moist=True, nwp=mode,
+                           nwp_data=data)
+            t0 = time.perf_counter()
+            case._setup()
+            torch.cuda.synchronize()
+            t_setup = time.perf_counter() - t0
+            label = "13b nwp_iau" if mode == "iau" else "13c nwp_nudged"
+            what = ("read_da_inc: the increments to the cube and the D grid"
+                    if mode == "iau" else "remap_analysis_to_model: the two "
+                    "analyses onto L79, their winds onto the D grid")
+            log(f"phase {label}: {what}, {t_setup:.2f} s on the card")
+            out[mode], state = nwp_phase(f"{label} C192L79 f32", case,
+                                         case.state, card, launches6)
+            del case, state
+            gc.collect()
+            torch.cuda.empty_cache()
+        return out["iau"], out["nudged"]
+    finally:
+        shutil.rmtree(NWP_DIR, ignore_errors=True)
+
+
+def write_climatology(path, seed=15):
+    """A CAM-style climatology file (P0, hyai, hybi, PHIS, PS, T, Q, U, V
+    on a 24 x 13 lat-lon grid, three times a day apart), as
+    tests/test_external_nudge.py writes one, with seeded noise."""
+    import numpy as np
+    from scipy.io import netcdf_file
+    rng = np.random.default_rng(seed)
+    nlon, nlat, nlev, ntime = 24, 13, 12, 3
+    lat = np.linspace(-88.0, 88.0, nlat)
+    shp = (ntime, nlev, nlat, nlon)
+    with netcdf_file(path, "w") as f:
+        for nm, size in (("lon", nlon), ("lat", nlat), ("lev", nlev),
+                         ("levp", nlev + 1), ("time", ntime), ("scalar", 1)):
+            f.createDimension(nm, size)
+        for nm, dims, a in (
+                ("lon", ("lon",), np.linspace(0.0, 345.0, nlon)),
+                ("lat", ("lat",), lat),
+                ("time", ("time",), np.array([0.0, 86400.0, 172800.0])),
+                ("hyai", ("levp",), np.linspace(0.003, 0.0, nlev + 1)),
+                ("hybi", ("levp",), np.linspace(0.0, 1.0, nlev + 1) ** 1.4),
+                ("P0", ("scalar",), np.array([1.0e5])),
+                ("PHIS", ("lat", "lon"), 300.0 * rng.uniform(size=(nlat,
+                                                                   nlon))),
+                ("PS", ("time", "lat", "lon"),
+                 1.0e5 + 300.0 * rng.standard_normal((ntime, nlat, nlon))),
+                ("T", ("time", "lev", "lat", "lon"),
+                 260.0 + 30.0 * np.cos(np.deg2rad(lat))[None, None, :, None]
+                 + rng.uniform(-1.0, 1.0, shp)),
+                ("Q", ("time", "lev", "lat", "lon"),
+                 4.0e-3 * (1.0 + 0.1 * rng.uniform(-1.0, 1.0, shp))),
+                ("U", ("time", "lev", "lat", "lon"),
+                 rng.uniform(-10.0, 10.0, shp)),
+                ("V", ("time", "lev", "lat", "lon"),
+                 rng.uniform(-10.0, 10.0, shp))):
+            f.createVariable(nm, "d", dims)[:] = a
+
+
+def cold_start_control(dirpath, geom, npz):
+    """The cold start's float32 control: get_nggps_ic_files' host steps,
+    then get_hrrr_ic (the same remaps) on the card with every array in
+    float32, and phis (float32 as read)."""
+    import numpy as np
+    from gfdl_atmos_cubed_sphere_tpu_torch import constants as con
+    from gfdl_atmos_cubed_sphere_tpu_torch.grid.fv_eta import set_eta
+    from gfdl_atmos_cubed_sphere_tpu_torch.io import external_ic as eic
+    _, ptop, ak, bk = set_eta(npz)
+    data = eic.read_nggps_tiles(dirpath)
+    zh = np.asarray(data["zh"], np.float64)
+    ps_src = np.asarray(data["ps"], np.float64)
+    phis = np.asarray(data["phis"], np.float64)
+    data["ps"] = eic.adjust_ps_to_terrain(phis, zh, ps_src, data["ak_src"],
+                                          data["bk_src"])
+    pn0 = np.log(data["ak_src"].reshape(1, -1, 1, 1)
+                 + data["bk_src"].reshape(1, -1, 1, 1) * ps_src[:, None])
+    data["t"] = (con.GRAV * (zh[:, :-1] - zh[:, 1:])
+                 / (con.RDGAS * (pn0[:, 1:] - pn0[:, :-1])))
+    data["ud"], data["vd"] = eic.dgrid_winds_from_faces(
+        data["u_s"], data["v_s"], data["u_w"], data["v_w"], geom)
+    f32 = {k: np.asarray(v, np.float32) for k, v in data.items()}
+    out = eic.get_hrrr_ic(f32, ak.astype(np.float32), bk.astype(np.float32),
+                          ptop, device="cuda")
+    out["phis"] = eic._on(data["phis"], "cuda")[:, None]
+    return out
+
+
+def nwp_card_vs_cpu(geom):
+    """Phase 13d at C24L10 in float64, card against CPU, each output
+    against its own maximum (1e-10, NH w 5e-9), a float32 control over
+    each limit: the cold start from a C24 file set built as 13a's; one
+    IAU step and one nudged step of the moist big step (phase 3's C24L10
+    step, k_split 1, n_split 2, dt 900 s) from it; ClimateNudgeDriver
+    .tendencies from a climate-nudge file; do_w_forcing of both types,
+    age_of_air, AeroClimatology.to_model, ExternalSST.to_cube (float32
+    weights in the control: the field is float32 whatever its type);
+    fv3_zs_filter with the zero-ocean limiter; breed_slp_inline and the
+    global mass after it."""
+    import math
+    import shutil
+    import numpy as np
+    import torch
+    from gfdl_atmos_cubed_sphere_tpu_torch.grid.fv_eta import set_eta
+    from gfdl_atmos_cubed_sphere_tpu_torch.io import climate_nudge_data as cn
+    from gfdl_atmos_cubed_sphere_tpu_torch.io.external_ic import (
+        latlon_bilinear_weights)
+    from gfdl_atmos_cubed_sphere_tpu_torch.model.grid_ops import (
+        build_grid_ops)
+    from gfdl_atmos_cubed_sphere_tpu_torch.physics import (
+        forcing_externals as fe)
+    from gfdl_atmos_cubed_sphere_tpu_torch.physics import nudging as ng
+    from gfdl_atmos_cubed_sphere_tpu_torch.utils import terrain
+    t_start = time.perf_counter()
+    packs = {dev: build_grid_ops(25, dtype=torch.float64, device=dev,
+                                 geom=geom) for dev in ("cpu", "cuda")}
+    dirpath = NWP_DIR + "_c24"
+    try:
+        src = nwp_source(geom)
+        write_nwp_files(dirpath, geom, packs["cpu"], src)
+        card, _ = nwp_cold_start(dirpath, geom, 10, "cuda")
+        cpu, _ = nwp_cold_start(dirpath, geom, 10, "cpu")
+        ctl = cold_start_control(dirpath, geom, 10)
+        require(sorted(card) == sorted(cpu) == sorted(ctl),
+                f"13d cold start: outputs {sorted(card)}, {sorted(cpu)}, "
+                f"{sorted(ctl)}")
+        worst, bad = {}, []
+        for nm, b in cpu.items():
+            a, f = card[nm].cpu(), ctl[nm].cpu().double()
+            require(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+                    f"13d cold start: NaN or inf in {nm}")
+            top = float(b.abs().max())
+            r = float((a - b).abs().max()) / top
+            c = float((f - b).abs().max()) / top
+            worst[nm] = (r, c)
+            if nm == "phis":
+                # the file's float32 orog_filt times g, in float32 on both
+                # sides: read, not computed, so no control can differ
+                require(r == 0.0, f"13d cold start: phis differs by {r:.3e}")
+                continue
+            tol = NWP_TOL.get(nm, 1e-10)
+            if not r <= tol:
+                bad.append(nm)
+            require(c > tol, f"13d cold start: the float32 control reads "
+                             f"{nm} within {tol:g}")
+        log("  13d cold start C24 L127 -> L10 f64: card vs CPU, x each "
+            "field's max (the float32 control in brackets): " + ", ".join(
+                f"{nm} {r:.2e} ({c:.1e})" for nm, (r, c) in worst.items()))
+        require(not bad, f"13d cold start: the card disagrees with the CPU "
+                         f"in {bad}")
+        ic = nwp_ic(cpu)
+        for mode, data in (
+                ("iau", dict(inc=nwp_increments(10))),
+                ("nudged", dict(analyses=nwp_analyses(src), ak=src["ak"],
+                                bk=src["bk"], breed=NWP_BREED_C24))):
+            case = NWPStep(25, 10, 900.0, 1, 2, torch.float64, "cuda",
+                           geom=geom, ic=ic, moist=True, nwp=mode,
+                           nwp_data=data, bundle=f"nwp_{mode}")
+            card_vs_cpu(case, steps=1, phase=f"13d {mode}", tols=NWP_TOL)
+    finally:
+        shutil.rmtree(dirpath, ignore_errors=True)
+
+    # the climate-nudge file pipeline
+    _, ptop, ak, bk = set_eta(10)
+    os_path = NWP_DIR + "_clim.nc"
+    import os
+    os.makedirs(os.path.dirname(os_path), exist_ok=True)
+    write_climatology(os_path)
+    drv = cn.ClimateNudgeDriver(
+        os_path, geom, ak, bk, ic["phis"],
+        cfg=cn.ClimateNudgeConfig(t_tau=21600.0, q_tau=21600.0,
+                                  u_tau=21600.0, v_tau=43200.0, skip_bot_t=3))
+    os.remove(os_path)
+    rng = np.random.default_rng(16)
+    tgt = drv.target_at(50000.0)
+    st = {k: torch.as_tensor(tgt[k] + rng.uniform(-1, 1, tgt[k].shape) * s)
+          for k, s in (("t", 5.0), ("q", 1e-4), ("u", 3.0), ("v", 3.0))}
+    hold_card_vs_cpu("13d ClimateNudgeDriver.tendencies", lambda t, q, u, v,
+                     device: (drv.tendencies(50000.0, t, q, state_u=u,
+                                             state_v=v),),
+                     st, ("tend",))
+
+    # the external forcings
+    w = 0.1 * rng.standard_normal((1, 12, 16, 16))
+    delz = -500.0 * (1.0 + 0.1 * rng.uniform(-1, 1, w.shape))
+    phis = 50.0 * rng.uniform(size=(1, 16, 16))
+
+    def w_forcing(w, delz, phis, device):
+        return tuple(fe.do_w_forcing(w, delz, phis, fe.WForcingConfig(**c),
+                                     dt, 0.0)
+                     for c, dt in ((dict(w_forcing_type=1, i0=8, j0=8,
+                                         L=4.0e3, R=4.0e3), 10.0),
+                                   (dict(w_forcing_type=101, divg=1.0e-5,
+                                         tau=100.0), 1.0e3)))
+
+    hold_card_vs_cpu("13d do_w_forcing types 1 and 101", w_forcing,
+                     dict(w=torch.as_tensor(w), delz=torch.as_tensor(delz),
+                          phis=torch.as_tensor(phis)), ("type1", "type101"))
+    delp = torch.as_tensor(ic["delp"])
+    pe_top = ptop + torch.cumsum(delp, 1) - delp
+    hold_card_vs_cpu("13d age_of_air", lambda q, pe, device: (
+        fe.age_of_air(q, pe, 86400.0),),
+        dict(q=torch.as_tensor(7.0 + rng.uniform(size=ic["delp"].shape)),
+             pe=pe_top), ("q_age",))
+    kc = 8
+    p_edge_c = np.linspace(1000.0, 101000.0, kc + 1)
+    aero = fe.AeroClimatology(
+        np.linspace(0, 2 * np.pi, 36, endpoint=False),
+        np.linspace(-np.pi / 2, np.pi / 2, 19), p_edge_c,
+        {"so4": 1e-6 * rng.uniform(size=(12, kc, 19, 36)),
+         "dust": 1e-7 * rng.uniform(size=(12, kc, 19, 36))})
+    hold_card_vs_cpu("13d AeroClimatology.to_model", lambda delp, device: (
+        aero.to_model(geom, delp, ptop, 3.4),), dict(delp=delp), ("aero",))
+    lats = np.linspace(-np.pi / 2, np.pi / 2, 31)
+    lons = np.linspace(0, 2 * np.pi, 60, endpoint=False)
+
+    def sst_to_cube(sst, device):
+        obj = fe.ExternalSST(lons, lats, sst.cpu().numpy())
+        if sst.dtype == torch.float32:
+            # the control: the weights in float32 as well
+            w = latlon_bilinear_weights(lons, lats, geom.interior("aglon"),
+                                        geom.interior("aglat"))
+            obj._wt = dict(w, wx=w["wx"].astype(np.float32),
+                           wy=w["wy"].astype(np.float32))
+        return (obj.to_cube(geom, device=device),)
+
+    hold_card_vs_cpu("13d ExternalSST.to_cube", sst_to_cube, dict(
+        sst=torch.as_tensor(300.0 - 30.0 * np.sin(lats)[:, None] ** 2
+                            + rng.uniform(-1, 1, (31, 60)))), ("sst",))
+    oro = (ic["phis"][:, 0] > 0.0).astype(np.float64)
+    # the float32 control filters on a float32 pack
+    packs["f32"] = build_grid_ops(25, dtype=torch.float32, device="cuda",
+                                  geom=geom)
+    hold_card_vs_cpu("13d fv3_zs_filter with the zero-ocean limiter",
+                     lambda phis, oro, device: (terrain.fv3_zs_filter(
+                         phis, packs["f32" if phis.dtype == torch.float32
+                                     else device], oro=oro),),
+                     dict(phis=torch.as_tensor(ic["phis"] * oro[:, None]),
+                          oro=torch.as_tensor(oro)), ("phis",))
+    storms = torch.tensor([[math.radians(lo), math.radians(la), p]
+                           for lo, la, p in NWP_STORMS], dtype=torch.float64)
+    area = torch.as_tensor(geom.interior("area"))
+
+    def breed(delp, pt_bot, phis, device):
+        d = ng.breed_slp_inline(900.0, delp, pt_bot, phis, storms,
+                                packs[device], ak,
+                                ng.BreedConfig(**NWP_BREED_C24))
+        return d, torch.sum(d.sum(1) * area.to(d))[None]
+
+    hold_card_vs_cpu("13d breed_slp_inline", breed, dict(
+        delp=delp, pt_bot=torch.as_tensor(ic["pt"][:, -1]),
+        phis=torch.as_tensor(ic["phis"][:, 0])), ("delp", "mass"))
+    log(f"phase 13d: {time.perf_counter() - t_start:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3022,6 +3723,9 @@ def main():
     # ---- 12c. the inline fast physics and the MP options, card vs CPU ------
     fast_phys_card_vs_cpu(geom24)
 
+    # ---- 13d. the NWP initialisation and forcing, card vs CPU --------------
+    nwp_card_vs_cpu(geom24)
+
     # ---- 4. full width sw_c768 ----------------------------------------------
     state = list(step(state))                            # warm-up
     float(torch.sum(state[0]))
@@ -3094,6 +3798,11 @@ def main():
     log(f"phase 10b: {time.perf_counter() - t0:.1f} s")
     del moist_ic
 
+    # ---- 13a-c. the cold start, the IAU and the nudged forecast at C192 ----
+    t0 = time.perf_counter()
+    iau_launches, nudged_launches = nwp_full_width(geom192, card, m_launches)
+    log(f"phase 13a-c: {time.perf_counter() - t0:.1f} s")
+
 
     kernels = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "kernel_ms")
@@ -3140,6 +3849,10 @@ def main():
                 {k: recs_sh[name][k] for k in keys},
                 shapes=shapes_sh[name])
         entry["shield_facade"] = {"launches": fac_launches[name]}
+        # launches in phase 13b's and 13c's 5 big steps (the IAU, the
+        # nudging after each)
+        entry["nwp_iau"] = {"launches": iau_launches[name]}
+        entry["nwp_nudged"] = {"launches": nudged_launches[name]}
         if name in checked["argument_costs"]:
             entry["shield_c192l91"]["argument_costs"] = checked[
                 "argument_costs"][name]

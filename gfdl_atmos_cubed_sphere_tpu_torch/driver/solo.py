@@ -133,14 +133,13 @@ class Atmosphere:
 
         return step
 
-    def adiabatic_init(self):
+    def adiabatic_init(self, na_init=1, wt=1.5):
         """Forward-backward adiabatic initialization
-        (driver/solo/atmosphere.F90 adiabatic_init:194): one cycle of
+        (driver/solo/atmosphere.F90 adiabatic_init:194): na_init cycles of
         {forward, backward, nudge to the initial state, backward, forward,
         nudge} with the physics off, the nudge weighting the initial state
-        1.5 to 1; the backward passes run the dynamics with dt -> -dt,
+        wt to 1; the backward passes run the dynamics with dt -> -dt,
         damping the fast modes while the balanced flow round-trips."""
-        wt = 1.5
         cfgb = dataclasses.replace(self.cfg, dt=-self.cfg.dt)
         fwd = self._build_step(physics="none")
         bwd = self._build_step(cfg=cfgb, physics="none")
@@ -151,8 +150,10 @@ class Atmosphere:
         def nudge(s):
             return dict(s, **{k: xt * (s[k] + wt * s0[k]) for k in keep})
 
-        s = nudge(bwd(fwd(self.state, None, None), None, None))
-        s = nudge(fwd(bwd(s, None, None), None, None))
+        s = self.state
+        for _ in range(na_init):
+            s = nudge(bwd(fwd(s, None, None), None, None))
+            s = nudge(fwd(bwd(s, None, None), None, None))
         self.state = s
         return s
 

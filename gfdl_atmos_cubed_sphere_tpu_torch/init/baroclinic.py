@@ -29,8 +29,10 @@ def _t_pert_coef(lat):
     return A, B
 
 
-def _u_jet(lat, eta_v, lon=None, pert=False, radius=None, r0=None):
-    u = UBAR * np.cos(eta_v) ** 1.5 * np.sin(2.0 * lat) ** 2
+def _jet_parts(lat, lon=None, pert=False, radius=None, r0=None):
+    """The level-independent parts of the jet: sin^2(2 lat) and the
+    case-13 Gaussian bump (0 without pert)."""
+    bump = 0.0
     if pert:
         pc = np.stack([np.cos(2.0 * np.pi / 9.0) * np.cos(np.pi / 9.0),
                        np.cos(2.0 * np.pi / 9.0) * np.sin(np.pi / 9.0),
@@ -39,8 +41,14 @@ def _u_jet(lat, eta_v, lon=None, pert=False, radius=None, r0=None):
                       np.sin(lat)], axis=-1)
         r = great_circle_angle(p, pc) * radius
         arg = -(r / r0) ** 2
-        u = u + np.where(arg > -40.0, np.exp(np.maximum(arg, -40.0)), 0.0)
-    return u
+        bump = np.where(arg > -40.0, np.exp(np.maximum(arg, -40.0)), 0.0)
+    return np.sin(2.0 * lat) ** 2, bump
+
+
+def _u_jet(lat, eta_v, lon=None, pert=False, radius=None, r0=None):
+    base, bump = _jet_parts(lat, lon, pert, radius, r0)
+    u = UBAR * np.cos(eta_v) ** 1.5 * base
+    return u + bump if pert else u
 
 
 def jw_baroclinic(geom, npz, ak, bk, ptop, perturb=True, moist=False):
@@ -65,9 +73,12 @@ def jw_baroclinic(geom, npz, ak, bk, ptop, perturb=True, moist=False):
         lon, lat = xyz_to_lonlat(pts)
         elon = np.stack([-np.sin(lon), np.cos(lon), np.zeros_like(lon)], -1)
         dot = np.sum(evec * elon, -1)
+        base, bump = _jet_parts(lat, lon=lon, pert=perturb, radius=R, r0=r0)
         out = []
         for ev in etav:
-            u = _u_jet(lat, ev, lon=lon, pert=perturb, radius=R, r0=r0)
+            u = UBAR * np.cos(ev) ** 1.5 * base
+            if perturb:
+                u = u + bump
             out.append(u * dot)
         return np.stack(out)
 
@@ -101,8 +112,8 @@ def jw_baroclinic(geom, npz, ak, bk, ptop, perturb=True, moist=False):
                            (6, npz, n, n)).copy()
 
     # --- temperature: T_mean(eta) + 9-point averaged perturbation ---------
-    def t_pert_at(lat, ev, et):
-        A, B = _t_pert_coef(lat)
+    def t_pert_at(coef, ev, et):
+        A, B = coef
         return (0.75 * (et * np.pi * UBAR / con.RDGAS) * np.sin(ev)
                 * np.sqrt(np.cos(ev))
                 * (A * 2.0 * UBAR * np.cos(ev) ** 1.5 + B * R * omg))
@@ -113,21 +124,19 @@ def jw_baroclinic(geom, npz, ak, bk, ptop, perturb=True, moist=False):
     _, mylat = xyz_to_lonlat(normalize(cw[:, :, :-1] + cw[:, :, 1:]))   # y-wall mids [n+1, n]
 
     pt = np.empty((6, npz, n, n))
-    phis_pts = []
+    # the latitude coefficients of the 9 points, the same at every level
+    coefs = [_t_pert_coef(x) for x in (
+        aglat, mylat[:, :-1, :], mylat[:, 1:, :], mxlat[:, :, :-1],
+        mxlat[:, :, 1:], clat[:, :-1, :-1], clat[:, :-1, 1:],
+        clat[:, 1:, 1:], clat[:, 1:, :-1])]
     for kk in range(npz):
         ev, et = eta_v[kk], eta[kk]
         t_mean = T_0 * et ** (con.RDGAS * LAPSE / con.GRAV)
         if ETA_T > et:
             t_mean = t_mean + DELTA_T * (ETA_T - et) ** 5
-        p1 = t_pert_at(aglat, ev, et)
-        p2 = t_pert_at(mylat[:, :-1, :], ev, et)     # S edge mid
-        p4 = t_pert_at(mylat[:, 1:, :], ev, et)      # N edge mid
-        p5 = t_pert_at(mxlat[:, :, :-1], ev, et)     # W edge mid
-        p3 = t_pert_at(mxlat[:, :, 1:], ev, et)      # E edge mid
-        p6 = t_pert_at(clat[:, :-1, :-1], ev, et)
-        p7 = t_pert_at(clat[:, :-1, 1:], ev, et)
-        p8 = t_pert_at(clat[:, 1:, 1:], ev, et)
-        p9 = t_pert_at(clat[:, 1:, :-1], ev, et)
+        # the centre, S, N, W and E edge mids, then the corners
+        p1, p2, p4, p5, p3, p6, p7, p8, p9 = (t_pert_at(c, ev, et)
+                                              for c in coefs)
         pt[:, kk] = (t_mean + 0.25 * p1 + 0.125 * (p2 + p3 + p4 + p5)
                      + 0.0625 * (p6 + p7 + p8 + p9))
 

@@ -239,9 +239,9 @@ def coarse_diag(dm, fields, factor, strategy="area", area=None, prefix="crs_"):
         dm.send(cname, c)
 
 
-def nan_check(fields):
+def nan_check(tree):
     """Names of the fields of a dict that hold a NaN."""
-    return [k for k, v in fields.items()
+    return [k for k, v in tree.items()
             if v is not None and bool(torch.isnan(torch.as_tensor(v)).any())]
 
 

@@ -145,9 +145,9 @@ def write_fvio(path, arrays):
             w.write(k, np.asarray(v))
 
 
-def read_fvio(path):
+def read_fvio(path, verify=True):
     """Read an FVIO container into {name: ndarray}, checking each record's
-    CRC-32."""
+    CRC-32 when verify."""
     out = {}
     with open(path, "rb") as f:
         magic = f.read(8)
@@ -166,7 +166,7 @@ def read_fvio(path):
             (nb,) = struct.unpack("<Q", f.read(8))
             payload = f.read(nb)
             (crc,) = struct.unpack("<I", f.read(4))
-            if zlib.crc32(payload) != crc:
+            if verify and zlib.crc32(payload) != crc:
                 raise ValueError(f"CRC mismatch for '{name}'")
             out[name] = np.frombuffer(
                 payload, dtype=_RTYPES[dtype_c]).reshape(dims)

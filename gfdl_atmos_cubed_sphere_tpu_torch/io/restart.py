@@ -70,10 +70,10 @@ def save_state(path, state, ak=None, bk=None, tracers=None, step=0,
     os.replace(tmp, path)
 
 
-def _split(arrays, manifest, path):
+def _split(arrays, manifest, path, verify):
     state, tracers = {}, {}
     for k, arr in arrays:
-        if k in manifest["checksums"]:
+        if verify and k in manifest["checksums"]:
             if _checksum(arr) != manifest["checksums"][k]:
                 raise ValueError(f"checksum mismatch for {k} in {path}")
         if k.startswith("tracer__"):
@@ -83,18 +83,19 @@ def _split(arrays, manifest, path):
     return state, tracers, manifest
 
 
-def load_state(path):
+def load_state(path, verify_checksums=True):
     """Read a native checkpoint -> (state dict, tracers dict, manifest) of
-    numpy arrays, each array checked against its manifest checksum."""
+    numpy arrays, each array checked against its manifest checksum when
+    verify_checksums."""
     if str(path).endswith(".fvio"):
         from .native_io import read_fvio
         z = read_fvio(path)
         manifest = json.loads(bytes(z.pop("__manifest__")).decode())
-        return _split(z.items(), manifest, path)
+        return _split(z.items(), manifest, path, verify_checksums)
     with np.load(path) as z:
         manifest = json.loads(bytes(z["__manifest__"]).decode())
         return _split(((k, z[k]) for k in z.files if k != "__manifest__"),
-                      manifest, path)
+                      manifest, path, verify_checksums)
 
 
 # ---- fv_core.res NetCDF interop -------------------------------------------

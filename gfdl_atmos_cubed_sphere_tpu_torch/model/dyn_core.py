@@ -37,7 +37,9 @@ from ..io.restart import to_host
 from ..ops import pg_col
 from ..ops.a2b_edge import a2b_ord2, a2b_ord4
 from ..ops.fill_corners import fi
-from ..ops.pg_col import p_grad_c
+# geopk is importable from here, as in the JAX package; the loops call it
+# through pg_col, where a caller may wrap it
+from ..ops.pg_col import geopk, p_grad_c  # noqa: F401
 
 H = 3
 
@@ -567,8 +569,8 @@ def _column_options(cfg, ak, bk, dt, ptop):
     return dpmin, rfp
 
 
-def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
-                n_split, dt_acoustic, dp0, ak=None, bk=None, q=None,
+def dyn_core_nh(delp, pt, u, v, w, delz, phis, g, cfg: DynConfig, akap,
+                ptop, n_split, dt_acoustic, dp0, ak=None, bk=None, q=None,
                 fast_cfg=None, zvir=0.0):
     """Nonhydrostatic acoustic loop (dyn_core.F90, hydrostatic=.false.):
     per iteration c_sw -> update_dz_c -> Riem_Solver_C -> p_grad_c ->
@@ -582,8 +584,10 @@ def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
     tracers; zvir is the virtual-temperature factor of theta_v (0 when the
     big step runs without sphum).
 
-    delp, pt (theta_v), w, delz: [6, K, n, n] interior; u, v D winds.
-    The loop carries PADDED (delp, pt, w, zh): the grouped cell exchange
+    delp, pt (theta_v), w, delz: [6, K, n, n] interior; u, v D winds;
+    phis: unread, as in the JAX package (the surface geopotential is
+    g.phis_p, which prepare_phis sets). The loop carries PADDED (delp, pt,
+    w, zh): the grouped cell exchange
     issued after d_sw serves both that iteration's Riemann solver and the
     next iteration's c_sw, and the w / zh halos come back halo-valid from
     the columnar Riemann solve (the JAX package's carried-pad schedule).
@@ -729,8 +733,8 @@ def dyn_core_nh(delp, pt, u, v, w, delz, g, cfg: DynConfig, akap, ptop,
                            q=dict(q, **qd) if fast_cfg is not None else q)
 
 
-def dyn_core_hydro(delp, pt, u, v, g, cfg: DynConfig, akap, ptop, n_split,
-                   dt_acoustic, ak=None, bk=None):
+def dyn_core_hydro(delp, pt, u, v, phis, g, cfg: DynConfig, akap, ptop,
+                   n_split, dt_acoustic, ak=None, bk=None):
     """Hydrostatic acoustic loop (dyn_core.F90, hydrostatic=.true.): per
     iteration c_sw -> geopk(C) + p_grad_c (pgradc_fused) -> d_sw
     [-> mix_dp] -> geopk(D) (pkgz) -> one_grad_p (grad1_p_update when beta
@@ -738,8 +742,9 @@ def dyn_core_hydro(delp, pt, u, v, g, cfg: DynConfig, akap, ptop, n_split,
     Python loop over n_split. ak, bk [K+1] feed fill_dp's floors and
     rf_fast's profile; without them both are off, as in the JAX package.
 
-    delp, pt (theta_v): [6, K, n, n] interior; u, v D winds. The loop
-    carries PADDED (delp, pt): the one grouped cell exchange after d_sw
+    delp, pt (theta_v): [6, K, n, n] interior; u, v D winds; phis:
+    unread, as in the JAX package (g.phis_p is read). The loop carries
+    PADDED (delp, pt): the one grouped cell exchange after d_sw
     serves that iteration's pkgz and the next iteration's c_sw (the JAX
     package's carried-pad schedule). Returns the updated fields, the
     accumulated mass fluxes and Courant numbers, and geopk's pe, peln, pk,

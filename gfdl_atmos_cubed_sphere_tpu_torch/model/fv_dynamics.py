@@ -93,12 +93,14 @@ def _remap_tracers_winds(q, u, v, pe_pad, pe1, pe2, akl, bkl, g, cfg):
 
 
 def remap_nh(delp, ptv, u, v, w, delz, ws, q, pe_pad, peln_pad, ak, bk, g,
-             cfg, akap, kord_wz=9):
+             cfg, akap, last_step, kord_wz=9):
     """Nonhydrostatic vertical remap (fv_mapz.F90 Lagrangian_to_Eulerian,
     hydrostatic=.false., kord_tm<0): theta_v -> T_v through the gas law,
     T_v remapped on log-p, w with the ws bottom value (iv=-2), delz as
     specific volume, the tracers on pe in one mapn_tracer call, the winds
-    on pe. ak, bk: [K+1] tensors; q: the tracer dict (may be empty)."""
+    on pe. ak, bk: [K+1] tensors; q: the tracer dict (may be empty);
+    last_step: whether this is the big step's last remap, unread, as in
+    the JAX package."""
     ctr = slice(H, H + g.n)
     K = delp.shape[1]
     rrg = -con.RDGAS / con.GRAV
@@ -135,13 +137,13 @@ def remap_nh(delp, ptv, u, v, w, delz, ws, q, pe_pad, peln_pad, ak, bk, g,
 
 
 def remap_hydro(delp, ptv, u, v, q, pe_pad, peln_pad, pkz, ak, bk, g, cfg,
-                akap):
+                akap, last_step):
     """Hydrostatic vertical remap (fv_mapz.F90 Lagrangian_to_Eulerian,
     hydrostatic, kord_tm<0): theta_v -> T_v with geopk's pkz, T_v remapped
     on log-p, the tracers on pe in one mapn_tracer call, the winds on pe.
     pe_pad, peln_pad [6, K+1, P, P] and pkz [6, K, P, P] from the acoustic
     loop's geopk; ak, bk: [K+1] tensors; q: the tracer dict (may be
-    empty)."""
+    empty); last_step: unread, as in the JAX package."""
     ctr = slice(H, H + g.n)
     K = delp.shape[1]
     pe1 = _k_last(pe_pad[..., ctr, ctr])
@@ -209,12 +211,13 @@ def rayleigh_super(u, v, w, u0, v0, ak, bk, cfg, ptop):
 
 
 def rayleigh_friction(u, v, w, pt, delz, pm, cfg, ptop, g,
-                      hydrostatic=True):
+                      hydrostatic=True, conserve=True):
     """Real-case Rayleigh friction (fv_dynamics.F90 Rayleigh_Friction:1126):
     amplitude-dependent drag above rf_cutoff at the rate
     rf(k)*sqrt(|V|^2/u000), applied to the D winds through staggered
     averages of the A-grid speed field, the lost kinetic energy returned
-    as heat (cp or cv, with the delz rescale on the nonhydrostatic path). pm: [K] layer reference pressures; pt is
+    as heat when conserve (cp or cv, with the delz rescale on the
+    nonhydrostatic path). pm: [K] layer reference pressures; pt is
     TEMPERATURE. Returns (u, v, w, pt, delz)."""
     u000 = 4900.0
     rfk, pmk = _sponge_rates(pm, cfg, ptop, u)
@@ -222,13 +225,14 @@ def rayleigh_friction(u, v, w, pt, delz, pm, cfg, ptop, g,
     u2f = ua * ua + va * va
     if not hydrostatic and w is not None:
         u2f = u2f + w * w
-    fac = 1.0 - 1.0 / (1.0 + rfk * torch.sqrt(u2f / u000)) ** 2
-    if hydrostatic:
-        pt = pt + 0.5 * u2f / (con.CP_AIR - con.RDGAS * ptop / pmk) * fac
-    else:
-        heat = 0.5 * u2f / (con.CP_AIR - con.RDGAS) * fac
-        delz = delz / pt * (pt + heat)
-        pt = pt + heat
+    if conserve:
+        fac = 1.0 - 1.0 / (1.0 + rfk * torch.sqrt(u2f / u000)) ** 2
+        if hydrostatic:
+            pt = pt + 0.5 * u2f / (con.CP_AIR - con.RDGAS * ptop / pmk) * fac
+        else:
+            heat = 0.5 * u2f / (con.CP_AIR - con.RDGAS) * fac
+            delz = delz / pt * (pt + heat)
+            pt = pt + heat
     # the damping coefficient field, halo-padded for the staggered averages
     n = u.shape[-1]
     c = g.halo.pad_cell(rfk * torch.sqrt(u2f / u000))
@@ -322,8 +326,8 @@ def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
     for n_map in range(cfg.k_split):
         last = n_map == cfg.k_split - 1
         dp1 = delp
-        res = dyn_core_nh(delp, ptv, u, v, w, delz, g, cfg, akap, ptop,
-                          cfg.n_split, mdt / cfg.n_split, dp0, ak=aknp,
+        res = dyn_core_nh(delp, ptv, u, v, w, delz, phis, g, cfg, akap,
+                          ptop, cfg.n_split, mdt / cfg.n_split, dp0, ak=aknp,
                           bk=bknp, q=q if cfg.do_fast_phys else None,
                           fast_cfg=mp_cfg if cfg.do_fast_phys else None,
                           zvir=zvir)
@@ -337,7 +341,7 @@ def fv_dynamics_nh(delp, pt, u, v, w, delz, q, g, cfg: DynConfig, ak, bk,
                                     else max(1, cfg.q_split))
         rm = remap_nh(res.delp, res.pt, res.u, res.v, res.w, res.delz,
                       res.ws, q, res.pe, res.peln, ak, bk, g, cfg, akap,
-                      kord_wz=cfg.kord_wz)
+                      last, kord_wz=cfg.kord_wz)
         delp, u, v, w, delz = rm.delp, rm.u, rm.v, rm.w, rm.delz
         q = rm.q
         if last:
@@ -410,7 +414,7 @@ def fv_dynamics_hydro(delp, pt, u, v, q, g, cfg: DynConfig, ak, bk, ptop,
     for n_map in range(cfg.k_split):
         last = n_map == cfg.k_split - 1
         dp1 = delp
-        res = dyn_core_hydro(delp, ptv, u, v, g, cfg, akap, ptop,
+        res = dyn_core_hydro(delp, ptv, u, v, phis, g, cfg, akap, ptop,
                              cfg.n_split, mdt / cfg.n_split, ak=aknp,
                              bk=bknp)
         conv = conv + _mass_convergence(res.mfx, res.mfy, g)
@@ -420,7 +424,7 @@ def fv_dynamics_hydro(delp, pt, u, v, q, g, cfg: DynConfig, ak, bk, ptop,
                                     q_split=cfg.q_split if cfg.use_scan
                                     else max(1, cfg.q_split))
         rm = remap_hydro(res.delp, res.pt, res.u, res.v, q, res.pe,
-                         res.peln, res.pkz, ak, bk, g, cfg, akap)
+                         res.peln, res.pkz, ak, bk, g, cfg, akap, last)
         delp, u, v, q = rm.delp, rm.u, rm.v, rm.q
         if last:
             pt = rm.tv

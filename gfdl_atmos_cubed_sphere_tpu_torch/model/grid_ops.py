@@ -52,6 +52,15 @@ def resolve_device(device):
     return dev
 
 
+def device_of(*xs, device=None):
+    """The device an entry point runs on: `device` when given, else that of
+    the first tensor among xs, else the CUDA card (resolve_device: no CPU
+    fallback). Host (numpy) inputs then go to that device."""
+    if device is None:
+        device = next((x.device for x in xs if torch.is_tensor(x)), "cuda")
+    return resolve_device(device)
+
+
 def corner_weights(agrid_xyz, grid_xyz, npx):
     """a2b_ord4 cube-corner extrapolation weights x1/(x2-x1) [6, 4, 3]
     (a2b_edge.F90 extrap_corner:449) from halo-padded cell centres

@@ -148,13 +148,17 @@ def compute_aam(u, v, delp, g, ptop):
     return aam, m_fac, ps
 
 
-def am_fixer(u, v, delp, aam0, g, ptop, reproduce=False):
+def am_fixer(u, v, delp, aam0, g, ptop, reproduce=False, torque=None):
     """consv_am global angular-momentum fixer (fv_dynamics.F90:747-800):
-    the AAM change over the step relative to aam0 becomes the solid-body zonal wind increment
+    the AAM change over the step relative to aam0, plus the mountain-torque
+    map torque when given (the dt2*(ps2+ps)*zxg term of
+    fv_dynamics.F90:765), becomes the solid-body zonal wind increment
     u00 = -R*<dAAM>/<m_fac>, projected onto the D-grid walls with the
     l2c_u/l2c_v factors. Returns (u, v, u00)."""
     aam1, m_fac, _ = compute_aam(u, v, delp, g, ptop)
     d = aam1 - aam0
+    if torque is not None:
+        d = d + torque
     # the area normalization of g_sum mode 0 cancels in the ratio
     amdt = g_mean(d, g, reproduce=reproduce)
     u00 = -g.geom.radius * amdt / g_mean(m_fac, g, reproduce=reproduce)

@@ -11,7 +11,7 @@ rank-5 form of the tp sweep kernel (ops/tp_sweep.py), whose wind and
 metric operands [6, 1, K or 1, ...] are shared by the T tracers.
 
 With q_split == 0 the subcycle count is nsplt = min(floor(1 + cmax),
-MAX_SPLIT), cmax the largest |Courant number| on the compute walls,
+max_split), cmax the largest |Courant number| on the compute walls,
 computed on the device in the working type and read back to the host once
 per call (the loop count is a host integer).
 """
@@ -22,7 +22,6 @@ from ..ops.sw_core import _cl, _cr, _rl, _rr
 from ..ops.tp_core import fv_tp_2d
 
 H = 3
-MAX_SPLIT = 10          # the JAX package's max_split default
 
 #: the subcycle count of each call since the last reset, in call order
 nsplt_calls = []
@@ -42,14 +41,16 @@ def _tracer_fluxes(cx, cy, g):
     return xfx, yfx
 
 
-def tracer_2d(q, dp1, mfx, mfy, cx, cy, g, hord_tr, q_split=0):
+def tracer_2d(q, dp1, mfx, mfy, cx, cy, g, hord_tr, q_split=0,
+              max_split=10, lim_fac=1.0):
     """Advect the tracer dict `q` ([6, K, n, n] each) over one big timestep.
 
     dp1: delp before the acoustic loop; mfx/mfy: accumulated mass fluxes
     on the compute walls [6, K, n, n+1] / [6, K, n+1, n]; cx/cy: accumulated
     Courant numbers on the padded walls (d_sw shapes). q_split > 0 forces a
-    static subcycle count; q_split == 0 takes the CFL-adaptive one.
-    Returns (new q dict, dp_final [6, K, n, n])."""
+    static subcycle count; q_split == 0 takes the CFL-adaptive one, at
+    most max_split. lim_fac: the PPM limiter factor of fv_tp_2d (the tp
+    sweep kernel's every-hord form takes it). Returns (new q dict, dp_final [6, K, n, n])."""
     n = g.n
     ctr = slice(H, H + n)
     names = list(q.keys())
@@ -74,7 +75,7 @@ def tracer_2d(q, dp1, mfx, mfy, cx, cy, g, hord_tr, q_split=0):
         qp = g.halo.pad_cell(qs_in)
         fx, fy = fv_tp_2d(qp, e(cxi), e(cyi), hord_tr, e(xfxi), e(yfxi),
                           e(g.area), e(ra_x), e(ra_y), e(g.dxa), e(g.dya),
-                          mfx=e(mfxi), mfy=e(mfyi))
+                          lim_fac=lim_fac, mfx=e(mfxi), mfy=e(mfyi))
         qs_out = (qs_in * dp_in[:, None]
                   + (fx[..., :, :-1] - fx[..., :, 1:]
                      + fy[..., :-1, :] - fy[..., 1:, :]) * e(rarea)
@@ -90,7 +91,7 @@ def tracer_2d(q, dp1, mfx, mfy, cx, cy, g, hord_tr, q_split=0):
         cmax = torch.maximum(torch.abs(cx[..., ctr, wsl]).max(),
                              torch.abs(cy[..., wsl, ctr]).max())
         nsplt = int(torch.clamp_max(torch.floor(1.0 + cmax),
-                                    float(MAX_SPLIT)))
+                                    float(max_split)))
     nsplt_calls.append(nsplt)
     frac = 1.0 / nsplt
     dp = dp1

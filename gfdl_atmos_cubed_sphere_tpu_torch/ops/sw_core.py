@@ -76,9 +76,11 @@ def _not_cube(g, what):
             f"{what}: the port carries the cubed-sphere grid only")
 
 
-def edge_interpolate4(ua, dxa):
-    """sw_core.F90 edge_interpolate4:3338 on a 4-point window along the last
-    axis."""
+def edge_interpolate4(ua, dxa, axis=-1):
+    """sw_core.F90 edge_interpolate4:3338 on a 4-point window along
+    `axis`."""
+    ua = torch.movedim(ua, axis, -1)
+    dxa = torch.movedim(dxa, axis, -1)
     t1 = dxa[..., 0] + dxa[..., 1]
     t2 = dxa[..., 2] + dxa[..., 3]
     return 0.5 * (((t1 + dxa[..., 1]) * ua[..., 1] - dxa[..., 1] * ua[..., 0])

@@ -26,14 +26,15 @@ SIGB = 0.7
 H0 = 7.0    # scale height (km) for the strat extension
 
 
-def hs_forcing(pt, delp, u, v, g, ptop, pdt, strat=False):
+def hs_forcing(pt, delp, u, v, g, ptop, pdt, strat=False, radius=None):
     """One physics step of HS forcing. pt: TEMPERATURE [6, K, n, n]; u, v
-    the D winds. Returns (pt, u, v)."""
+    the D winds; radius: the planet's (m; the Earth's when None), which
+    scales the damping times. Returns (pt, u, v)."""
     akap = 2.0 / 7.0
     p0 = 1.0e5
     ap0k = 1.0 / p0 ** akap
     algpk = np.log(ap0k)
-    rad_ratio = con.RADIUS / 6371.0e3
+    rad_ratio = (radius or con.RADIUS) / 6371.0e3
     kf_day = SDAY * rad_ratio
     rkv = pdt / kf_day
     rka = pdt / (40.0 * kf_day)

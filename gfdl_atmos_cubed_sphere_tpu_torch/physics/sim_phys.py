@@ -98,10 +98,12 @@ def ocean_roughness(ustar, cfg: SimPhysConfig):
                        min=cfg.z0_min)
 
 
-def bulk_surface_drag(ua, va, ta, ts, z_bot, cfg=SimPhysConfig()):
+def bulk_surface_drag(ua, va, ta, ts, z_bot, q_bot=None,
+                      cfg=SimPhysConfig()):
     """Bulk surface exchange coefficient (Mon_obkv:61 with a bulk-Ri
     stability factor in place of the full similarity iteration; the
-    do_fixed_cd path is exact). Returns (cd, ch, ustar)."""
+    do_fixed_cd path is exact). q_bot: unread, as in the JAX package.
+    Returns (cd, ch, ustar)."""
     wind = torch.sqrt(ua ** 2 + va ** 2 + cfg.ustar2)
     if cfg.cd_fixed > 0.0:
         cd = torch.full_like(wind, cfg.cd_fixed)
@@ -244,9 +246,10 @@ def sim_phys(ua, va, ta, qv, delp, delz, ts, g, ptop, dt,
     return ua, va, ta, qv, diag
 
 
-def fv_nudge(u, v, pt, u0, v0, pt0, dt):
+def fv_nudge(u, v, pt, u0, v0, pt0, dt, tau_winds=600.0, tau_temp=600.0):
     """State nudging toward reference profiles (fv_phys.F90 fv_nudge:1480):
-    the implicit relaxation x += (x0 - x)*dt/(tau + dt), tau = 600 s for
-    the winds and the temperature."""
-    f = dt / (600.0 + dt)
-    return u + f * (u0 - u), v + f * (v0 - v), pt + f * (pt0 - pt)
+    the implicit relaxation x += (x0 - x)*dt/(tau + dt), tau_winds for the
+    winds and tau_temp for the temperature (s)."""
+    fw = dt / (tau_winds + dt)
+    ft = dt / (tau_temp + dt)
+    return u + fw * (u0 - u), v + fw * (v0 - v), pt + ft * (pt0 - pt)

@@ -174,8 +174,9 @@ def load_input_nml(path, strict=True, **required):
     The driver-layer entry: with strict=True (the default) any fv_core_nml
     option whose behavior is not implemented (_UNSUPPORTED, e.g.
     hybrid_z/smag2d) raises an explicit error rather than being silently
-    dropped. An MPConfig setting that asks for an unported process parses
-    and is refused by gfdl_mp_driver when it runs."""
+    dropped. Every gfdl_mp_nml setting of MPConfig parses and runs
+    (gfdl_mp_driver and the inline fast physics take them all); the
+    options MPConfig does not know come back under "gfdl_mp_nml"."""
     with open(path) as f:
         nml = parse_namelist(f.read())
     dyn, unk1 = dyn_config_from_namelist(nml, strict=strict, **required)

@@ -17,14 +17,15 @@ import torch
 
 class Timers:
     """Accumulating named timers. Use `with timers("DYN_CORE"): ...`;
-    `report()` prints an fv_timing-style table. device: the device whose
-    queued work each scope waits for (a CPU device has none to wait
-    for)."""
+    `report()` prints an fv_timing-style table. sync: whether each scope
+    waits for the queued work of device (a CPU device has none to wait
+    for) before it stops its clock."""
 
-    def __init__(self, device=None):
+    def __init__(self, sync=True, device=None):
         self._tot = defaultdict(float)
         self._count = defaultdict(int)
-        self._device = None if device is None else torch.device(device)
+        self._device = (None if device is None or not sync
+                        else torch.device(device))
         self._stack = []
 
     @contextmanager

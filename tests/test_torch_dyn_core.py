@@ -61,7 +61,7 @@ def test_dyn_core_nh():
     ts = state_from_arrays(st, dtype=torch.float64, device="cpu")
     for mod in (a2b, csw, dsw, ke, sim1, tp_sweep):
         mod.reset_launches()
-    got = tdc.dyn_core_nh(*(ts[k] for k in names), gt,
+    got = tdc.dyn_core_nh(*(ts[k] for k in names), None, gt,
                           tdc.DynConfig(**CFG), con.KAPPA, ptop, N_SPLIT,
                           dt_ac, dp0)
     assert (a2b.launches, csw.launches, dsw.launches["fluxes"],

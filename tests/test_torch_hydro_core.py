@@ -201,7 +201,7 @@ def test_dyn_core_hydro():
     want = jax.jit(jstep)(*(jnp.asarray(st[k]) for k in names))
     ts = state_from_arrays(st, dtype=torch.float64, device="cpu")
     _reset()
-    got = tdc.dyn_core_hydro(*(ts[k] for k in names), gt,
+    got = tdc.dyn_core_hydro(*(ts[k] for k in names), None, gt,
                              tdc.DynConfig(**cfg), AKAP, ptop, n_split,
                              dt / n_split)
     assert _launched() == (0,) * 8
